@@ -1,0 +1,8 @@
+"""Post-processing: heatmap → fixed-K keypoints + descriptors."""
+
+from ssp_torch.postprocess.nms import batched_nms, simple_nms, zero_border  # noqa: F401
+from ssp_torch.postprocess.points import (  # noqa: F401
+    extract_keypoints,
+    sample_descriptors,
+    top_k,
+)

@@ -1,0 +1,68 @@
+"""Keypoint extraction and descriptor sampling (port of
+``ssp/postprocess/points.py``).
+
+Keypoints are ``(pts [K, 3] = (x, y, score), valid [K])``: an exact top-K
+over the NMS'd heatmap with a confidence mask.  Ties come out as
+``lax.top_k`` returns them, lowest index first — after NMS most scores are
+0, so the tail of a K=1000 top-K is all ties.
+
+``sample_descriptors_mxu`` and ``approx_max_k`` of the JAX package are TPU
+workarounds for slow gathers and are not carried over: on the GPU the
+gather sampler and the exact top-K are the path.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from ssp_torch.core.warp import bilinear_sample
+from ssp_torch.postprocess.nms import simple_nms, zero_border
+
+BORDER_REMOVE = 4  # reference border margin (utils/utils.py:588)
+
+
+def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the ``k`` largest along the last dim, in
+    descending order, equal values lowest index first (``lax.top_k``'s
+    order): a stable descending sort."""
+    values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], idx[..., :k]
+
+
+def extract_keypoints(
+    heatmap: torch.Tensor,
+    k: int,
+    conf_thresh: float = 0.015,
+    nms_radius: int = 4,
+    border: int = BORDER_REMOVE,
+    nms_iterations: int = 3,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """heatmap [H, W] → (pts [k, 3] (x, y, score) desc-sorted, valid [k]).
+
+    NMS → border removal → top-k → threshold mask.
+    """
+    H, W = heatmap.shape
+    nmsed = simple_nms(heatmap, nms_radius, nms_iterations)
+    if border:
+        nmsed = zero_border(nmsed, border)
+    scores, idx = top_k(nmsed.reshape(-1), k)
+    pts = torch.stack([(idx % W).float(), (idx // W).float(), scores], dim=-1)
+    return pts, scores >= conf_thresh
+
+
+def sample_descriptors(coarse_desc: torch.Tensor, pts: torch.Tensor,
+                       cell: int = 8) -> torch.Tensor:
+    """Bilinearly sample and re-normalise descriptors at keypoints.
+
+    coarse_desc [*L, Hc, Wc, D]; pts [*L, K, ≥2] with (x, y) in full-res
+    pixels → [*L, K, D].  Coarse coordinate ``cx = x·(Wc−1)/W`` (the
+    reference's ``grid_sample(align_corners=True)`` after ``x → 2x/W − 1``).
+    """
+    Hc, Wc = coarse_desc.shape[-3], coarse_desc.shape[-2]
+    H, W = Hc * cell, Wc * cell
+    cx = pts[..., 0] * (Wc - 1) / W
+    cy = pts[..., 1] * (Hc - 1) / H
+    desc = bilinear_sample(coarse_desc, torch.stack([cx, cy], dim=-1))
+    return desc / (torch.linalg.vector_norm(desc, dim=-1, keepdim=True) + 1e-12)
