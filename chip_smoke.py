@@ -24,9 +24,29 @@ failure (nothing is caught):
 5. ``SuperPointNet_gauss2_ssmall`` (semantic head) at 2×480×640: the
    folded bf16 forward against the port's fp32 ``nn.Module`` with TF32
    off;
-6. each kernel's time at the main path's shapes beside its plain
-   version's, the cuDNN composition of the same function (stem, down1)
-   and its bound on this card.
+6. the folded convs of down2, down3 and the heads: each accumulator
+   against an fp32 conv with TF32 off, within 2⁻¹⁴·max|want|;
+7. the homography-adaptation (HA) export path at its reference setting: 8
+   structured images at 240×320, 100 warps each, top-600, NMS 4, subpixel,
+   through ``make_ha_fn(best_apply_fn(...))`` with a seeded generator.
+   Every launch count is set to 0 before and read after; the resample,
+   stem, down1 and NMS kernels must each have launched.  The keypoints are
+   held against the same path on the kernels' plain versions; img/s by
+   CUDA events and by the host clock; the folded forward is timed against
+   the fp32 module at 100×240×320;
+8. ``run_ha_export``: 16 images in groups of 8 written, a second call
+   writes none, and a directory with half the files removed is refilled
+   with byte-identical points;
+9. the coef route (``COEF_GRIDS``) at 2 images × 20 warps: the coef kernel
+   launches and the rows kernel does not, keypoints against the rows
+   route, and both routes' times for the full 800-warp stack;
+10. the resample kernels against their plain versions on the HA path's own
+    inputs (the 800-warp stack over 8 shared images, one chunk's 100
+    heatmaps, both axes), with planted coordinates of −10, ±1e9, ±inf, NaN
+    and exactly S−1, and through the whole two-pass warp at 120×168;
+11. each kernel's time at its path's shapes beside its plain version's,
+    one library call of the same function (a cuDNN composition for the
+    convs, ``F.grid_sample`` for the resamples) and its bound on this card.
 
 Prints a ``{"kernels": [...]}`` line, then the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``.
@@ -37,6 +57,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -46,12 +67,18 @@ import torch.nn.functional as F
 
 from ssp_torch.bench import (BATCH, BORDER, NMS_RADIUS, TOP_K, H, W, build_pipeline,
                              structured_images)
+from ssp_torch import bench_ha
 from ssp_torch.core.grid import flatten_detection
+from ssp_torch.core.homography import inv3, sample_homographies
+from ssp_torch.export.homography_adaptation import DEFAULT_HA, make_ha_fn, run_ha_export
 from ssp_torch.kernels import _build
 from ssp_torch.kernels import down1 as down1_mod
 from ssp_torch.kernels import nms as nms_mod
 from ssp_torch.kernels import stem as stem_mod
-from ssp_torch.models.fast_infer import fold_variables, make_fast_apply
+from ssp_torch.kernels import vresample as vres_mod
+from ssp_torch.kernels import warp_twopass
+from ssp_torch.models.fast_infer import (accumulator_errors, best_apply_fn, fold_variables,
+                                         make_fast_apply)
 from ssp_torch.models.weights import load_flax_npz
 
 ROOT = Path(__file__).resolve().parent
@@ -77,6 +104,18 @@ STRONG_RECALL_MIN = 0.95  # ... of whose points this share is found at the same 
 # of semi and sem (the JAX package's sem bar: ten layers of bf16 rounding),
 # and the descriptor cosine bar above
 REL_MAX = 0.05
+# a folded conv's accumulator against an fp32 conv with TF32 off: exact
+# products summed in fp32 in another order differ by a few 2⁻²⁴ of the sum of
+# magnitudes; an accumulator rounded to bf16 is off by 2⁻⁹ of the value
+ACC_MAX = 2.0 ** -14
+# resample kernels against their plain versions, as a share of max|img|:
+# both are fp32 blends of the same two taps, (1−f)·v0 + f·v1; the kernel may
+# contract the sum to one FMA (one rounding fewer, half an ulp of the result)
+VRES_TOL = 1e-6
+# HA keypoints, kernels against plain versions with the same homographies: a
+# refined point counts as the same when a plain-path point lies within half a
+# pixel; the share bar is SHARED_MIN, for the reason given there
+SAME_PX = 0.5
 
 
 def log(msg: str) -> None:
@@ -128,14 +167,63 @@ def agreement(pts, desc, ref_pts, ref_desc) -> dict:
     return worst
 
 
-def cudnn_pair(x_nhwc: torch.Tensor, w1, b1, w2, b2) -> torch.Tensor:
+def cudnn_pair(x_nhwc: torch.Tensor, w1, b1, w2, b2, pool: bool = True) -> torch.Tensor:
     """The same function as one cuDNN composition: conv (BN scale folded
-    into the weights, bias in the conv) → ReLU → conv → ReLU → 2×2 max,
+    into the weights, bias in the conv) → ReLU → conv → ReLU (→ 2×2 max),
     bf16 channels-last.  Timed beside the kernel, used nowhere in the port."""
     x = x_nhwc.to(torch.bfloat16).permute(0, 3, 1, 2)
     y = F.relu(F.conv2d(x, w1, b1, padding=1))
     y = F.relu(F.conv2d(y, w2, b2, padding=1))
-    return F.max_pool2d(y, 2)
+    return F.max_pool2d(y, 2) if pool else y
+
+
+def grid_sample_1d(src: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """The resample as one library call: ``F.grid_sample`` (bilinear, zero
+    padding, align_corners) of ``src [N, 1, R, C]`` (one image per warp,
+    expanded beforehand) with the other coordinate set to the identity.
+    ``grid`` comes from :func:`resample_grid`.  Timed beside the kernels,
+    used nowhere in the port."""
+    return F.grid_sample(src, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+
+
+def resample_grid(coords: torch.Tensor, axis: int, L: int) -> torch.Tensor:
+    """Pixel coordinates along ``axis`` → the normalised [N, R, C, 2] (x, y)
+    grid of :func:`grid_sample_1d`."""
+    N, R, C = coords.shape
+    moving = coords.clamp(-2.0, L + 1.0) * (2.0 / (L - 1)) - 1.0
+    ys = torch.linspace(-1, 1, R, device=coords.device)[None, :, None].expand(N, R, C)
+    xs = torch.linspace(-1, 1, C, device=coords.device)[None, None, :].expand(N, R, C)
+    return torch.stack([xs, moving] if axis == 0 else [moving, ys], dim=-1)
+
+
+def same_points(pts, valid, ref_pts, ref_valid) -> float:
+    """The worst image's share of valid keypoints with a valid reference
+    point within SAME_PX, over the larger of the two counts."""
+    worst = 1.0
+    for b in range(pts.shape[0]):
+        a, r = pts[b][valid[b]], ref_pts[b][ref_valid[b]]
+        if not len(a) or not len(r):
+            raise AssertionError(f"image {b}: {len(a)} and {len(r)} valid keypoints")
+        near = (torch.cdist(a[:, :2], r[:, :2], p=float("inf")).min(dim=1).values <= SAME_PX)
+        worst = min(worst, float(near.sum()) / max(len(a), len(r)))
+    return worst
+
+
+def check_resample(name: str, got: torch.Tensor, want: torch.Tensor, scale: float) -> float:
+    err = float((got - want).abs().max())
+    if not bool(torch.isfinite(got).all()) or err > VRES_TOL * scale:
+        raise AssertionError(f"{name}: max abs err {err} > {VRES_TOL}·{scale}")
+    return err
+
+
+def reset_launches() -> None:
+    stem_mod.launches = down1_mod.launches = nms_mod.launches = 0
+    vres_mod.launches = vres_mod.coef_launches = 0
+
+
+def read_launches() -> dict:
+    return {"stem": stem_mod.launches, "down1": down1_mod.launches, "nms": nms_mod.launches,
+            "vresample": vres_mod.launches, "vresample_coef": vres_mod.coef_launches}
 
 
 def cudnn_weights(w, s, b):
@@ -167,12 +255,12 @@ def main() -> None:
     plain_pipeline = build_pipeline(model, dev, k=TOP_K, reference=True)
     images = torch.from_numpy(structured_images(BATCH, H, W, SEED)).to(dev)
 
-    stem_mod.launches = down1_mod.launches = nms_mod.launches = 0
+    reset_launches()
     pts, desc = detect_describe(images)
     torch.cuda.synchronize()
-    launches = {"stem": stem_mod.launches, "down1": down1_mod.launches, "nms": nms_mod.launches}
+    launches = read_launches()
     log(f"[main] detect+describe {BATCH}x{H}x{W}, K={TOP_K}: launches {launches}")
-    idle = [k for k, n in launches.items() if n == 0]
+    idle = [k for k in ("stem", "down1", "nms") if launches[k] == 0]
     if idle:
         raise AssertionError(f"kernels not launched on the main path: {idle}")
     if pts.shape != (BATCH, TOP_K, 3) or desc.shape != (BATCH, TOP_K, 256):
@@ -201,23 +289,24 @@ def main() -> None:
     down1_p = (*folded["d1a"], *folded["d1b"])
     with torch.inference_mode():
         stem_out = stem_mod.stem_plain(images, *stem_p)
-        heat = flatten_detection(make_fast_apply(model, device=dev, reference=True)(images)["semi"])
-        heat = heat[..., 0].contiguous()
+        heat_main = flatten_detection(
+            make_fast_apply(model, device=dev, reference=True)(images)["semi"])[..., 0].contiguous()
     odd = torch.from_numpy(structured_images(2, *ODD_HW, SEED + 1)).to(dev)
     odd_heat = torch.from_numpy(
         np.random.default_rng(SEED).uniform(size=(2, *ODD_HW)).astype(np.float32) ** 4).to(dev)
 
-    err = {"stem": 0.0, "down1": 0.0, "nms": 0.0}
+    err = {"stem": 0.0, "stem_v1": 0.0, "down1": 0.0, "nms": 0.0}
     for pool in (True, False):
         for x in (images, odd):
             e = stem_mod.assert_bf16_close(stem_mod.stem(x, *stem_p, pool=pool),
                                            stem_mod.stem_plain(x, *stem_p, pool=pool))
-            err["stem"] = max(err["stem"], e)
+            which = "stem" if pool else "stem_v1"  # unpooled: the first TPU stem's function
+            err[which] = max(err[which], e)
         for x in (stem_out, stem_mod.stem_plain(odd, *stem_p)):
             e = stem_mod.assert_bf16_close(down1_mod.down1(x, *down1_p, pool=pool),
                                            down1_mod.down1_plain(x, *down1_p, pool=pool))
             err["down1"] = max(err["down1"], e)
-    for h in (heat, odd_heat):
+    for h in (heat_main, odd_heat):
         for radius, border in ((NMS_RADIUS, BORDER), (2, 0)):
             got = nms_mod.nms(h, radius=radius, border=border)
             want = nms_mod.nms_plain(h, radius=radius, border=border)
@@ -252,23 +341,283 @@ def main() -> None:
         raise AssertionError("semantic model outside the bf16-vs-fp32 bars")
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
 
-    # ---- 6. kernel times at the main path's shapes -------------------------
+    # ---- 6. the folded convs keep the fp32 accumulator ----------------------
+    G, NH, HH, HW = bench_ha.GROUP, bench_ha.NUM_H, bench_ha.H, bench_ha.W
+    for shape in ((BATCH, H, W), (NH, HH, HW)):
+        acc = accumulator_errors(ss, shape, device=dev)
+        log(f"[conv] {shape}: accumulator vs fp32 conv with TF32 off, max err / max|want| "
+            f"{ {k: f'{v:.2e}' for k, v in acc.items()} } (bar {ACC_MAX:.2e})")
+        if len(acc) != 9 or max(acc.values()) > ACC_MAX:
+            raise AssertionError(f"folded conv accumulators outside 2^-14 at {shape}: {acc}")
+
+    # ---- 7. the HA export path ----------------------------------------------
+    ha_kw = dict(device=dev, num_h=NH, top_k=bench_ha.TOP_K, nms_radius=4, subpixel=True)
+    fast = best_apply_fn(model, input_hw=(HH, HW), device=dev)
+    ha = make_ha_fn(fast, **ha_kw)
+    ha_plain = make_ha_fn(make_fast_apply(model, device=dev, reference=True), reference=True,
+                          **ha_kw)
+    ha_images = torch.from_numpy(structured_images(G, HH, HW, SEED + 2)[..., 0]).to(dev)
+
+    def gen():
+        return torch.Generator().manual_seed(SEED + 3)
+
+    ha(ha_images, generator=gen())  # warm-up: cuDNN autotuning at the chunk's shapes
+    torch.cuda.synchronize()
+    reset_launches()
+    ha_pts, ha_valid = ha(ha_images, generator=gen())
+    torch.cuda.synchronize()
+    ha_launches = read_launches()
+    log(f"[ha] {G}x{HH}x{HW}, {NH} warps each, top-{bench_ha.TOP_K}: launches {ha_launches} "
+        f"(from the code: vresample {2 + 2 * G}, stem {G}, down1 {G}, nms 1)")
+    idle = [k for k in ("vresample", "stem", "down1", "nms") if ha_launches[k] == 0]
+    if idle:
+        raise AssertionError(f"kernels not launched on the HA path: {idle}")
+    if ha_pts.shape != (G, bench_ha.TOP_K, 3) or ha_valid.shape != (G, bench_ha.TOP_K):
+        raise AssertionError(f"shapes {tuple(ha_pts.shape)}, {tuple(ha_valid.shape)}")
+    if not torch.isfinite(ha_pts).all() or int(ha_valid.sum(dim=1).min()) < 1:
+        raise AssertionError(f"non-finite points or an image without a valid point: "
+                             f"{ha_valid.sum(dim=1).tolist()}")
+    ref_pts, ref_valid = ha_plain(ha_images, generator=gen())
+    share = same_points(ha_pts, ha_valid, ref_pts, ref_valid)
+    log(f"[ha] valid points per image {ha_valid.sum(dim=1).tolist()}; vs the plain path with the "
+        f"same homographies, worst image: {share:.4f} of the valid keypoints within {SAME_PX} px")
+    if share < SHARED_MIN:
+        raise AssertionError(f"HA keypoints: {share:.4f} shared with the plain path < {SHARED_MIN}")
+
+    ha_ms = time_ms(lambda: ha(ha_images, generator=gen()), iters=3, warmup=1)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        ha(ha_images, generator=gen())
+    torch.cuda.synchronize()
+    ha_host_ms = (time.perf_counter() - t0) / 3 * 1e3
+    log(f"[ha] {G * 1e3 / ha_ms:.2f} img/s by CUDA events ({ha_ms:.2f} ms/group); "
+        f"{G * 1e3 / ha_host_ms:.2f} img/s by the host clock ({ha_host_ms:.2f} ms/group)")
+
+    # the forward best_apply_fn picks, against the fp32 module it passes over
+    module = best_apply_fn(model, enable=False, device=dev)
+    with torch.inference_mode():
+        for label, x in ((f"{NH}x{HH}x{HW}",
+                          torch.from_numpy(structured_images(NH, HH, HW, SEED + 4)).to(dev)),
+                         (f"{BATCH}x{H}x{W}", images)):
+            fast_ms, module_ms = time_ms(lambda: fast(x), iters=5), time_ms(lambda: module(x), iters=5)
+            log(f"[forward] {label}: folded bf16 forward {fast_ms:.3f} ms, fp32 module "
+                f"{module_ms:.3f} ms")
+            if fast_ms >= module_ms:
+                raise AssertionError(f"best_apply_fn returns the folded forward, which lost at {label}")
+
+    # ---- 8. run_ha_export: write, resume, refill -----------------------------
+    export_images = [(f"img_{i:04d}", structured_images(1, HH, HW, 100 + i)[0, ..., 0])
+                     for i in range(2 * G)]
+    with tempfile.TemporaryDirectory() as td:
+        out_dir = Path(td) / "labels"
+        t0 = time.perf_counter()
+        written = run_ha_export(ha, export_images, out_dir, seed=SEED, group=G)
+        export_s = time.perf_counter() - t0
+        again = run_ha_export(ha, export_images, out_dir, seed=SEED, group=G)
+        first = {}
+        for name, _ in export_images:
+            with np.load(out_dir / f"{name}.npz") as z:
+                first[name] = z["pts"]
+            if first[name].ndim != 2 or first[name].shape[1] != 3 or not len(first[name]):
+                raise AssertionError(f"{name}.npz: pts {first[name].shape}")
+        removed = [name for name, _ in export_images[1::2]]
+        for name in removed:
+            (out_dir / f"{name}.npz").unlink()
+        refilled = run_ha_export(ha, export_images, out_dir, seed=SEED, group=G)
+        for name in removed:
+            with np.load(out_dir / f"{name}.npz") as z:
+                if z["pts"].tobytes() != first[name].tobytes():
+                    raise AssertionError(f"{name}.npz differs after the refill")
+    log(f"[export] run_ha_export: {written} npz written ({len(export_images) / export_s:.2f} "
+        f"img/s by the host clock), {again} on the second call, {refilled} refilled "
+        f"byte-identically after {len(removed)} were removed")
+    if (written, again, refilled) != (2 * G, 0, G):
+        raise AssertionError(f"run_ha_export counts {(written, again, refilled)}")
+
+    # ---- 9. the coef route ---------------------------------------------------
+    ha20 = make_ha_fn(fast, **{**ha_kw, "num_h": 20})
+
+    def gen20():
+        return torch.Generator().manual_seed(SEED + 5)
+
+    rows_pts, rows_valid = ha20(ha_images[:2], generator=gen20())
+    # the group's own homographies, as ``ha`` samples them from one generator
+    g = gen()
+    Hs = torch.stack([sample_homographies(NH - 1, generator=g, shift=-1.0,
+                                          **DEFAULT_HA["homographies"]["params"])
+                      for _ in range(G)])
+    Hs = torch.cat([torch.eye(3).expand(G, 1, 3, 3), Hs], dim=1).reshape(-1, 3, 3)
+    with torch.inference_mode():
+        stack_rows_ms = time_ms(lambda: warp_twopass.inv_warp_image_twopass(ha_images, Hs),
+                                iters=3, warmup=1)
+        warp_twopass.COEF_GRIDS = True
+        reset_launches()
+        coef_pts, coef_valid = ha20(ha_images[:2], generator=gen20())
+        torch.cuda.synchronize()
+        coef_launches = read_launches()
+        stack_coef_ms = time_ms(lambda: warp_twopass.inv_warp_image_twopass(ha_images, Hs),
+                                iters=3, warmup=1)
+        warp_twopass.COEF_GRIDS = False
+    share = same_points(coef_pts, coef_valid, rows_pts, rows_valid)
+    log(f"[coef] 2x{HH}x{HW}, 20 warps each, COEF_GRIDS on: launches {coef_launches}; "
+        f"{share:.4f} of the valid keypoints shared with the rows route; the {G * NH}-warp "
+        f"stack: rows route {stack_rows_ms:.3f} ms, coef route {stack_coef_ms:.3f} ms")
+    if coef_launches["vresample_coef"] == 0 or coef_launches["vresample"] != 0:
+        raise AssertionError(f"coef route launches {coef_launches}")
+    if share < SHARED_MIN:
+        raise AssertionError(f"coef route keypoints: {share:.4f} shared < {SHARED_MIN}")
+
+    # ---- 10. the resample kernels against their plain versions ----------------
+    planted = [-10.0, 1e9, -1e9, None, float("inf"), float("-inf"), float("nan"), -1.0]
+    res = {}  # the path's inputs, kept for the timing below
+
+    def path_inputs(tag, imgs, Hm):
+        """The two passes' inputs for ``imgs`` warped by ``Hm``, as
+        ``inv_warp_image_twopass`` builds them, with the planted cases."""
+        canvas, Hres, bounds, _ = warp_twopass._canvas_and_residual(imgs, Hm)
+        S = canvas.shape[-1]
+        rows, cols = warp_twopass._twopass_grids(Hres.to(dev), S,
+                                                 *warp_twopass._keep_masks(bounds, S, dev))
+        vals = torch.tensor([S - 1.0 if v is None else v for v in planted], device=dev)
+        rows[0, 1, :8] = vals
+        cols[0, 1, :8] = vals
+        coef1, coef2 = (c.to(dev) for c in warp_twopass._pass_coefs(Hres, *bounds, S))
+        res[tag] = dict(canvas=canvas, rows=rows, cols=cols, coef1=coef1, coef2=coef2)
+
+    with torch.inference_mode():
+        path_inputs("stack", ha_images, Hs)
+        stack = warp_twopass.inv_warp_image_twopass(ha_images, Hs)
+        heat = flatten_detection(fast(stack[:NH, ..., None])["semi"])[..., 0].contiguous()
+        path_inputs("heat", heat, inv3(Hs[:NH]))
+        del stack
+        err["vresample"] = err["vresample_coef"] = 0.0
+        for tag, d in res.items():
+            scale = float(d["canvas"].abs().max())
+            shape = f"{tuple(d['rows'].shape)} over {d['canvas'].shape[0]} images"
+            d["tmp"] = vres_mod.vresample(d["canvas"], d["rows"], axis=0)
+            e0 = check_resample(f"vresample axis 0 {shape}", d["tmp"],
+                                vres_mod.vresample_plain(d["canvas"], d["rows"], axis=0), scale)
+            e1 = check_resample(f"vresample axis 1 {shape}",
+                                vres_mod.vresample(d["tmp"], d["cols"], axis=1),
+                                vres_mod.vresample_plain(d["tmp"], d["cols"], axis=1), scale)
+            c0 = check_resample(f"vresample_coef axis 0 {shape}",
+                                vres_mod.vresample_coef(d["canvas"], d["coef1"], axis=0),
+                                vres_mod.vresample_coef_plain(d["canvas"], d["coef1"], axis=0), scale)
+            c1 = check_resample(f"vresample_coef axis 1 {shape}",
+                                vres_mod.vresample_coef(d["tmp"], d["coef2"], axis=1),
+                                vres_mod.vresample_coef_plain(d["tmp"], d["coef2"], axis=1), scale)
+            err["vresample"] = max(err["vresample"], e0, e1)
+            err["vresample_coef"] = max(err["vresample_coef"], c0, c1)
+            torch.cuda.synchronize()
+            log(f"[kernels] resample on the HA path's {tag}, {shape}: max abs err rows "
+                f"{max(e0, e1):.2e}, coef {max(c0, c1):.2e} (bar {VRES_TOL}·{scale:.3f})")
+        # the whole warp at an odd rectangular size, every rotation bucket
+        odd_Hs = []
+        for ang in (-170.0, -95.0, 10.0, 80.0) * 2:
+            a = np.radians(ang + len(odd_Hs))
+            odd_Hs.append([[np.cos(a), -np.sin(a), 0.03], [np.sin(a), np.cos(a), -0.05],
+                           [0.02, -0.03, 1.0]])
+        odd_Hs = torch.tensor(odd_Hs, dtype=torch.float32)
+        buckets = set(warp_twopass._canvas_and_residual(odd[..., 0], odd_Hs)[3].tolist())
+        if buckets != {0, 1, 2, 3}:
+            raise AssertionError(f"rotation buckets {buckets}")
+        for coef in (False, True):
+            warp_twopass.COEF_GRIDS = coef
+            got = warp_twopass.inv_warp_image_twopass(odd[..., 0].contiguous(), odd_Hs)
+            want = warp_twopass.inv_warp_image_twopass(odd[..., 0].contiguous(), odd_Hs,
+                                                       reference=True)
+            warp_twopass.COEF_GRIDS = False
+            name = "vresample_coef" if coef else "vresample"
+            e = check_resample(f"two-pass warp 2x{ODD_HW[0]}x{ODD_HW[1]}, 8 warps ({name})",
+                               got, want, float(odd.abs().max()))
+            if float(want.abs().mean()) < 0.01:
+                raise AssertionError("the odd-size warp is empty")
+            err[name] = max(err[name], e)
+    torch.cuda.synchronize()
+    log(f"[kernels] resample vs plain incl. 2x{ODD_HW[0]}x{ODD_HW[1]} through the two-pass "
+        f"warp: max abs err {{'vresample': {err['vresample']:.2e}, 'vresample_coef': "
+        f"{err['vresample_coef']:.2e}}}")
+
+    # ---- 11. kernel times at their paths' shapes -----------------------------
     # bounds from this run's inputs: each input read once, each output
     # written once, every multiply-add of the convs at the bf16 peak
     affine_bytes = 4 * 64 * 4
     px = images[..., 0].numel()  # stem pixels
     stem_flops = 2.0 * px * 64 * 9 * (1 + 64)
-    stem_bytes = images.numel() * 4 + stem_out.numel() * 2 + 9 * 64 * 65 * 2 + affine_bytes
+    stem_w_bytes = 9 * 64 * 65 * 2 + affine_bytes
+    stem_bytes = images.numel() * 4 + stem_out.numel() * 2 + stem_w_bytes
+    stem_v1_bytes = images.numel() * 4 + px * 64 * 2 + stem_w_bytes
     px2 = stem_out[..., 0].numel()  # down1 pixels
     d1_flops = 2.0 * px2 * 64 * 9 * 64 * 2
     d1_bytes = stem_out.numel() * 2 * 5 // 4 + 2 * 9 * 64 * 64 * 2 + affine_bytes
     # NMS: per cell, 2·iterations − 1 = 5 separable window maxes of 4r max
     # operations, plus ~10 compares and selects; fp32 outside the tensor cores
-    nms_ops = heat.numel() * (5 * 4 * NMS_RADIUS + 10.0)
-    nms_bytes = 2 * heat.numel() * 4
+    nms_ops = heat_main.numel() * (5 * 4 * NMS_RADIUS + 10.0)
+    nms_bytes = 2 * heat_main.numel() * 4
     stem_lib = (cudnn_weights(*folded["inc0"]), cudnn_weights(*folded["inc1"]))
     d1_lib = (cudnn_weights(*folded["d1a"]), cudnn_weights(*folded["d1b"]))
+
+    # The resample kernels' time is the mean over the launches of one HA
+    # group: two passes over the 800-warp stack and, for each of the G chunks,
+    # two passes over 100 heatmaps.  Per output pixel a launch reads 4 B of
+    # coordinate (the coef kernel 80 B per warp instead), writes 4 B, and
+    # reads its images once; ~12 fp32 operations for the blend and the
+    # tests, ~50 more where the coordinate is rebuilt.
+    def group_mean(per_launch):
+        t = [per_launch(tag, axis) for tag in ("stack", "heat") for axis in (0, 1)]
+        return (t[0] + t[1] + G * (t[2] + t[3])) / (2 + 2 * G)
+
+    def resample_bound(coef: bool):
+        def one(tag, axis):
+            d = res[tag]
+            n_out = d["rows"].numel()
+            img = (d["canvas"] if axis == 0 else d["tmp"]).numel()
+            coords = d["coef1"].numel() if coef else n_out
+            return bound(n_out * (62.0 if coef else 12.0), PEAK_FP32, 4.0 * (coords + n_out + img))
+        ms = group_mean(lambda tag, axis: one(tag, axis)[0])
+        kinds = {one(tag, axis)[1] for tag in res for axis in (0, 1)}
+        return ms, kinds.pop() if len(kinds) == 1 else "bytes"
+
     with torch.inference_mode():
+        for d in res.values():  # the library call's inputs, made outside the timing
+            N, S = d["rows"].shape[0], d["rows"].shape[-1]
+            M = d["canvas"].shape[0]
+            d["src0"] = d["canvas"][:, None].expand(M, N // M, S, S).reshape(N, 1, S, S)
+            d["src1"] = d["tmp"][:, None]
+            d["grid0"] = resample_grid(d["rows"], 0, S)
+            d["grid1"] = resample_grid(d["cols"], 1, S)
+        # the library call computes the same function (away from the planted cases)
+        lib_out = grid_sample_1d(res["heat"]["src0"], res["heat"]["grid0"])[:, 0]
+        lib_err = float((lib_out - res["heat"]["tmp"])[1:].abs().max())
+        if lib_err > 1e-3 * float(res["heat"]["canvas"].abs().max()):
+            raise AssertionError(f"grid_sample disagrees with the resample kernel: {lib_err}")
+
+        def src(d, axis):
+            return d["canvas"] if axis == 0 else d["tmp"]
+
+        def coords(d, axis):
+            return d["rows"] if axis == 0 else d["cols"]
+
+        def t_res(fn, iters):
+            return group_mean(lambda tag, axis: time_ms(
+                lambda: fn(src(res[tag], axis), coords(res[tag], axis), axis), iters=iters))
+
+        def t_coef(fn, iters):
+            return group_mean(lambda tag, axis: time_ms(
+                lambda: fn(src(res[tag], axis), res[tag][f"coef{axis + 1}"], axis), iters=iters))
+
+        lib_ms = group_mean(lambda tag, axis: time_ms(
+            lambda: grid_sample_1d(res[tag][f"src{axis}"], res[tag][f"grid{axis}"]), iters=5))
+        resample_times = {
+            "vresample": (t_res(vres_mod.vresample, 10), t_res(vres_mod.vresample_plain, 3)),
+            "vresample_coef": (t_coef(vres_mod.vresample_coef, 10),
+                               t_coef(vres_mod.vresample_coef_plain, 3)),
+        }
+        for name, axis in (("vresample", 0), ("vresample", 1)):
+            d = res["stack"]
+            log(f"[time] {name} axis {axis} at {tuple(d['rows'].shape)}: "
+                f"{time_ms(lambda: vres_mod.vresample(src(d, axis), coords(d, axis), axis)):.4f} ms")
+
         rows = [
             ("stem", "ssp/kernels/stem_pallas_v2.py:182", "ssp_torch/csrc/conv_pair.cu",
              lambda: stem_mod.stem(images, *stem_p),
@@ -281,23 +630,42 @@ def main() -> None:
              lambda: cudnn_pair(stem_out, *d1_lib[0], *d1_lib[1]),
              bound(d1_flops, PEAK_BF16, d1_bytes)),
             ("nms", "ssp/kernels/nms_pallas.py:124", "ssp_torch/csrc/nms.cu",
-             lambda: nms_mod.nms(heat, radius=NMS_RADIUS, border=BORDER),
-             lambda: nms_mod.nms_plain(heat, radius=NMS_RADIUS, border=BORDER),
+             lambda: nms_mod.nms(heat_main, radius=NMS_RADIUS, border=BORDER),
+             lambda: nms_mod.nms_plain(heat_main, radius=NMS_RADIUS, border=BORDER),
              None,
              bound(nms_ops, PEAK_FP32, nms_bytes)),
+            ("vresample", "ssp/kernels/vresample_pallas.py:176", "ssp_torch/csrc/vresample.cu",
+             None, None, None, resample_bound(coef=False)),
+            ("vresample_coef", "ssp/kernels/vresample_pallas.py:141",
+             "ssp_torch/csrc/vresample.cu", None, None, None, resample_bound(coef=True)),
+            # the first TPU stem's function, the stem without the pool: on no
+            # path in either package, so it is never launched by one
+            ("stem_v1", "ssp/kernels/stem_pallas.py:134", "ssp_torch/csrc/conv_pair.cu",
+             lambda: stem_mod.stem(images, *stem_p, pool=False),
+             lambda: stem_mod.stem_plain(images, *stem_p, pool=False),
+             lambda: cudnn_pair(images, *stem_lib[0], *stem_lib[1], pool=False),
+             bound(stem_flops, PEAK_BF16, stem_v1_bytes)),
         ]
+        on_main = {**launches, "stem_v1": 0}
+        on_ha = {**ha_launches, "vresample_coef": coef_launches["vresample_coef"], "stem_v1": 0}
         kernels = []
         for name, replaces, source, kern, plain, lib, (bound_ms, bound_by) in rows:
-            ms, plain_ms = time_ms(kern), time_ms(plain, iters=5)
-            lib_ms = time_ms(lib) if lib is not None else None
+            if name in resample_times:
+                (ms, plain_ms), lib_ms_k = resample_times[name], lib_ms
+            else:
+                ms, plain_ms = time_ms(kern), time_ms(plain, iters=5)
+                lib_ms_k = time_ms(lib) if lib is not None else None
             kernels.append({
                 "name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches[name], "max_abs_err": err[name], "ms": ms,
+                "launches": on_main[name] + on_ha[name], "launches_main": on_main[name],
+                "launches_ha": on_ha[name], "max_abs_err": err[name], "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": lib_ms,
+                "library_ms": lib_ms_k,
             })
             log(f"[time] {name}: {ms:.4f} ms (bound {bound_ms:.4f} ms by {bound_by}), plain "
-                f"{plain_ms:.4f} ms, library {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+                f"{plain_ms:.4f} ms, library "
+                f"{'n/a' if lib_ms_k is None else f'{lib_ms_k:.4f} ms'}; launches main path "
+                f"{on_main[name]}, HA group {on_ha[name]}")
     torch.cuda.synchronize()
 
     print(json.dumps({"kernels": kernels}))

@@ -14,3 +14,13 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` on ``device``.  A CPU tensor bound for a card goes through pinned
+    memory and is copied without blocking: a copy from pageable memory makes
+    the host wait for everything already queued on the stream, and the card
+    then waits for the host to queue what comes next."""
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)

@@ -1,0 +1,5 @@
+"""Export pipelines of the port (mirrors ``ssp/export``)."""
+
+from ssp_torch.export.homography_adaptation import DEFAULT_HA, make_ha_fn, run_ha_export
+
+__all__ = ["DEFAULT_HA", "make_ha_fn", "run_ha_export"]

@@ -1,8 +1,12 @@
 """Fused SuperPoint stem: conv3×3 1→64 → folded BN → ReLU → conv3×3 64→64
 → folded BN → ReLU (→ 2×2 max), NHWC, SAME padding.
 
-Replaces the TPU kernel ``ssp/kernels/stem_pallas_v2.py::stem_pallas_packed``
-with the CUDA kernel ``ssp_torch/csrc/conv_pair.cu`` (``CIN = 1``).
+Replaces two TPU kernels with the CUDA kernel ``ssp_torch/csrc/conv_pair.cu``
+(``CIN = 1``): ``ssp/kernels/stem_pallas_v2.py::stem_pallas_packed`` (the
+stem with the pool fused, ``pool=True``: ``conv_pair_kernel<1, true>``) and
+``ssp/kernels/stem_pallas.py::stem_pallas`` (the first stem kernel, without
+the pool, ``pool=False``: ``conv_pair_kernel<1, false>``; no path of either
+package runs it).
 
 What bounds it on an H100: tensor-core operations.  At 480×640×16 the
 second conv is ~0.36 TFLOP of bf16 work (~0.37 ms at 989 TFLOP/s) against

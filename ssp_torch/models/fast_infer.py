@@ -8,16 +8,14 @@ per-channel fp32 (scale, bias) epilogue, and the forward runs
     the first 2×2 max) through the CUDA kernel ``ssp_torch.kernels.stem``;
   * down1 (two 64→64 convs plus the second 2×2 max) through
     ``ssp_torch.kernels.down1``, at every batch size;
-  * down2, down3 and the heads as folded convs: cuDNN bf16 convs on the
-    card, fp32 convs of bf16 values on the CPU, each with the fp32
-    epilogue in PyTorch.
+  * down2, down3 and the heads as folded convs of the bf16 values held in
+    fp32 (:func:`_conv`), each with the fp32 epilogue in PyTorch.
 
 Rounding points, as in the JAX path: the input is rounded to bf16, conv
 weights are bf16, products accumulate in fp32, the scale/bias epilogue is
-fp32, every activation between layers is stored bf16, and the semantic
-1×1 conv takes a bf16 input with an fp32 accumulator plus bias.  One
-difference on the card: cuDNN returns a bf16 conv output, so down2, down3
-and the heads round the accumulator to bf16 once before their epilogue.
+fp32 and reads the fp32 accumulator unrounded, every activation between
+layers is stored bf16, and the semantic 1×1 conv takes a bf16 input with
+an fp32 accumulator plus bias.
 
 The TPU gates are not carried over: ``packed_stem_profitable`` (a
 128-lane padding rule) and the B ≤ 4 down1 gate (measured on a v5e).
@@ -25,7 +23,7 @@ The TPU gates are not carried over: ``packed_stem_profitable`` (a
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping, Tuple, Union
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -83,33 +81,82 @@ def fold_variables(variables: Union[nn.Module, Mapping[str, torch.Tensor]]) -> F
 
 def _to_device(folded: Folded, device: torch.device) -> Dict[str, Any]:
     """Folded weights on ``device``, with each torch-conv kernel also kept
-    as an OIHW (channels-last on the card) tensor for ``F.conv2d``."""
+    as an fp32 OIHW (channels-last on the card) tensor for ``F.conv2d``."""
     out: Dict[str, Any] = {}
     for key, vals in folded.items():
         vals = tuple(v.to(device) for v in vals)
         if key not in ("inc0", "inc1", "d1a", "d1b"):
-            w = vals[0].permute(3, 2, 0, 1)
+            w = vals[0].float().permute(3, 2, 0, 1)
             if device.type == "cuda":
                 w = w.contiguous(memory_format=torch.channels_last)
-            else:
-                w = w.float()
             vals = vals + (w,)
         out[key] = vals
     return out
 
 
+def _conv_acc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """NHWC bf16 activation, fp32 OIHW kernel of bf16 values → the conv's
+    fp32 accumulator, NHWC (a view), unrounded.
+
+    The conv is an fp32 ``F.conv2d`` of the bf16 values.  On the card cuDNN's
+    TF32 path is switched ON for the call (and restored after): a bf16 value
+    (8-bit exponent, 7-bit mantissa) is exactly representable in TF32 (8-bit
+    exponent, 10-bit mantissa), so the tensor cores multiply these operands
+    exactly, accumulate in fp32 and return the fp32 accumulator.  A bf16
+    ``F.conv2d`` would return that accumulator rounded to bf16."""
+    xin = x.permute(0, 3, 1, 2).float()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        y = F.conv2d(xin, w, padding=w.shape[-1] // 2)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    return y.permute(0, 2, 3, 1)
+
+
 def _conv(x: torch.Tensor, wsb, relu: bool = True) -> torch.Tensor:
-    """Folded conv + BN (+ ReLU) on NHWC bf16 → NHWC bf16, fp32 epilogue."""
+    """Folded conv + BN (+ ReLU) on NHWC bf16 → NHWC bf16: bf16 operands,
+    fp32 accumulator (:func:`_conv_acc`), fp32 epilogue on the unrounded
+    accumulator."""
     _, s, b, w = wsb
-    xin = x.permute(0, 3, 1, 2)
-    if x.is_cuda:
-        y = F.conv2d(xin, w, padding=w.shape[-1] // 2).float()
-    else:
-        y = F.conv2d(xin.float(), w, padding=w.shape[-1] // 2)
-    y = y.permute(0, 2, 3, 1) * s + b
+    y = _conv_acc(x, w) * s + b
     if relu:
         y = torch.relu(y)
     return y.to(torch.bfloat16)
+
+
+def accumulator_errors(variables: Union[nn.Module, Mapping[str, torch.Tensor]], image_shape,
+                       *, device="cuda", seed: int = 0) -> Dict[str, float]:
+    """How far each folded conv's accumulator (:func:`_conv_acc`) is from an
+    fp32 conv with TF32 off, for the convs of down2, down3 and the heads at
+    the activation shapes an ``image_shape = (B, H, W)`` batch gives them, on
+    seeded bf16-valued inputs: ``{layer: max|got − want| / max|want|}``.
+
+    Exact products summed in fp32 in two orders differ by a few 2⁻²⁴ of the
+    sum of magnitudes; an accumulator that was rounded to bf16 is off by
+    2⁻⁹ of the value.  The callers hold the result under 2⁻¹⁴.
+    """
+    dev = resolve_device(device)
+    weights = _to_device(fold_variables(variables), dev)
+    B, H, W = image_shape
+    gen = torch.Generator().manual_seed(seed)
+    errors: Dict[str, float] = {}
+    for key, div in (("d2a", 4), ("d2b", 4), ("d3a", 8), ("d3b", 8), ("pa", 8), ("pb", 8),
+                     ("da", 8), ("db", 8), ("ds", 8)):
+        if key not in weights:
+            continue
+        w = weights[key][3]
+        x = torch.rand((B, H // div, W // div, w.shape[1]), generator=gen).to(dev, torch.bfloat16)
+        got = _conv_acc(x, w)
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            want = F.conv2d(x.permute(0, 3, 1, 2).float(), w, padding=w.shape[-1] // 2)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        want = want.permute(0, 2, 3, 1)
+        errors[key] = float((got - want).abs().max() / want.abs().max())
+    return errors
 
 
 def _pool(x: torch.Tensor) -> torch.Tensor:
@@ -166,6 +213,37 @@ def make_fast_apply(
         return _forward(x, dev, reference)
 
     return fast_apply
+
+
+def supports_fast(variables: Union[nn.Module, Mapping[str, torch.Tensor]]) -> bool:
+    """True when ``variables`` (the port's model or a reference-named state
+    dict) has the SuperPointGauss2 layout with BatchNorm statistics: the
+    layout :func:`fold_variables` understands."""
+    sd = variables.state_dict() if isinstance(variables, nn.Module) else variables
+    return "inc.conv.conv.0.weight" in sd and "inc.conv.conv.1.running_mean" in sd
+
+
+def best_apply_fn(model: nn.Module, input_hw: Optional[Tuple[int, int]] = None,
+                  enable: bool = True, *, device="cuda") -> Callable:
+    """The fastest forward for ``model`` as ``fn(images [B, H, W, 1]) →
+    {"semi", "desc"[, "sem"]}`` on ``device``: the folded bf16 forward
+    (:func:`make_fast_apply`) when the model supports BN folding, else the
+    fp32 module itself.
+
+    ``enable=False`` always returns the fp32 module: the reproducibility
+    opt-out for exports that must not shift with the bf16 path (keypoint-set
+    agreement between the two is about 90%, not exact).
+
+    The JAX package also gates on ``input_hw`` (``packed_stem_profitable``,
+    a 128-lane padding rule of the TPU stem).  On an H100 the folded forward
+    was timed against the fp32 module at the export's 100×240×320 and at the
+    main path's 16×480×640 and won at both (PERF.md), so ``input_hw`` is
+    accepted for the callers that pass it and decides nothing.
+    """
+    dev = resolve_device(device)
+    if enable and supports_fast(model):
+        return make_fast_apply(model, device=dev)
+    return model.to(dev).eval()
 
 
 def fast_apply_fn(variables: Union[nn.Module, Mapping[str, torch.Tensor]],

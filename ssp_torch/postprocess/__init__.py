@@ -4,5 +4,6 @@ from ssp_torch.postprocess.nms import batched_nms, simple_nms, zero_border  # no
 from ssp_torch.postprocess.points import (  # noqa: F401
     extract_keypoints,
     sample_descriptors,
+    soft_argmax_refine,
     top_k,
 )

@@ -16,6 +16,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ssp_torch.core.warp import bilinear_sample
 from ssp_torch.postprocess.nms import simple_nms, zero_border
@@ -39,15 +40,17 @@ def extract_keypoints(
     border: int = BORDER_REMOVE,
     nms_iterations: int = 3,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """heatmap [H, W] → (pts [k, 3] (x, y, score) desc-sorted, valid [k]).
+    """heatmap [*L, H, W] → (pts [*L, k, 3] (x, y, score) desc-sorted,
+    valid [*L, k]).
 
-    NMS → border removal → top-k → threshold mask.
+    NMS → border removal → top-k → threshold mask.  ``nms_radius=0`` takes
+    the heatmap as already suppressed.
     """
-    H, W = heatmap.shape
-    nmsed = simple_nms(heatmap, nms_radius, nms_iterations)
+    W = heatmap.shape[-1]
+    nmsed = simple_nms(heatmap, nms_radius, nms_iterations) if nms_radius > 0 else heatmap
     if border:
         nmsed = zero_border(nmsed, border)
-    scores, idx = top_k(nmsed.reshape(-1), k)
+    scores, idx = top_k(nmsed.flatten(-2), k)
     pts = torch.stack([(idx % W).float(), (idx // W).float(), scores], dim=-1)
     return pts, scores >= conf_thresh
 
@@ -66,3 +69,36 @@ def sample_descriptors(coarse_desc: torch.Tensor, pts: torch.Tensor,
     cy = pts[..., 1] * (Hc - 1) / H
     desc = bilinear_sample(coarse_desc, torch.stack([cx, cy], dim=-1))
     return desc / (torch.linalg.vector_norm(desc, dim=-1, keepdim=True) + 1e-12)
+
+
+def _extract_patches(heatmap: torch.Tensor, pts: torch.Tensor, patch_size: int) -> torch.Tensor:
+    """Zero-padded ``patch_size``² windows centred at the integer part of
+    ``pts [*L, K, ≥2]`` in ``heatmap [*L, H, W]`` → [*L, K, p, p]."""
+    pad = patch_size // 2
+    padded = F.pad(heatmap, (pad, pad, pad, pad))
+    Hp, Wp = padded.shape[-2:]
+    d = torch.arange(patch_size, device=heatmap.device)
+    # top-left of the window in padded coords is exactly (iy, ix) because of
+    # the symmetric pad
+    rows = (pts[..., 1].long()[..., None, None] + d[:, None]).clamp(0, Hp - 1)
+    cols = (pts[..., 0].long()[..., None, None] + d[None, :]).clamp(0, Wp - 1)
+    flat = (rows * Wp + cols).flatten(-3)
+    out = torch.gather(padded.flatten(-2), -1, flat)
+    return out.reshape(*pts.shape[:-1], patch_size, patch_size)
+
+
+def soft_argmax_refine(heatmap: torch.Tensor, pts: torch.Tensor,
+                       patch_size: int = 5) -> torch.Tensor:
+    """Subpixel refinement by a spatial soft-argmax over local patches:
+    patch → normalise by its sum → log → softmax expectation in pixel units
+    → offset = expectation − patch//2.  heatmap [*L, H, W], pts [*L, K, 3] →
+    refined pts [*L, K, 3] (score column preserved)."""
+    patches = _extract_patches(heatmap, pts, patch_size)
+    patches = patches / (patches.sum(dim=(-2, -1), keepdim=True) + 1e-6)
+    logp = torch.log(torch.where(patches <= 0.0, torch.full_like(patches, 1e-24), patches))
+    w = torch.softmax(logp.flatten(-2), dim=-1).reshape(patches.shape)
+    grid = torch.arange(patch_size, dtype=torch.float32, device=heatmap.device)
+    ex = (w * grid).sum(dim=(-2, -1))
+    ey = (w * grid[:, None]).sum(dim=(-2, -1))
+    offset = torch.stack([ex, ey], dim=-1) - patch_size // 2
+    return torch.cat([pts[..., :2] + offset, pts[..., 2:]], dim=-1)

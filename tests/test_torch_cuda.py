@@ -8,7 +8,11 @@ machine that has only PyTorch:
 every test skips.
 
 Bars: stem and down1 within ``ssp_torch.kernels.stem.assert_bf16_close``
-(fp32 sums in another order flip bf16 roundings); NMS exact.
+(fp32 sums in another order flip bf16 roundings); NMS exact; the resample
+kernels within 1e-6·max|img| of their plain versions and of an fp64 hat sum
+(fp32 blends of two taps; the kernel may contract the blend to an FMA);
+the folded convs' accumulators within 2⁻¹⁴·max|want| of an fp32 conv with
+TF32 off.
 """
 
 import numpy as np
@@ -19,6 +23,8 @@ import torch.nn.functional as F
 from ssp_torch.kernels import down1 as down1_mod
 from ssp_torch.kernels import nms as nms_mod
 from ssp_torch.kernels import stem as stem_mod
+from ssp_torch.kernels import vresample as vres_mod
+from ssp_torch.kernels import warp_twopass
 
 
 @pytest.fixture
@@ -126,3 +132,111 @@ def test_conv_kernels_near_fp64(cuda, which, pool):
     else:
         got = down1_mod.down1(x.to(torch.bfloat16), *p, pool=pool)
     stem_mod.assert_bf16_close(got, _fp64_pair(x, *p, pool))
+
+
+def _coords(rng, shape, L):
+    """Coordinates over and beyond [0, L − 1], with the cases no int can
+    hold, the kill value, and a row exactly at L − 1."""
+    c = rng.uniform(-3, L + 2, size=shape).astype(np.float32)
+    c.reshape(-1)[:8] = [-10.0, 1e9, -1e9, L - 1.0, np.inf, -np.inf, np.nan, -1.0]
+    return c
+
+
+def _hat_fp64(img, coords, axis):
+    """Σ_i max(0, 1 − |r − i|)·img[i] along ``axis`` in fp64, NaN → 0."""
+    L = img.shape[1 + axis]
+    i = torch.arange(L, device=img.device, dtype=torch.float64)
+    r = torch.nan_to_num(coords.double(), nan=-10.0, posinf=1e12, neginf=-1e12)
+    w = (1.0 - (r[..., None] - i).abs()).clamp(min=0.0)  # [N, Ro, Co, L]
+    per = coords.shape[0] // img.shape[0]
+    src = img.double().repeat_interleave(per, dim=0)
+    if axis == 0:
+        return torch.einsum("noxi,nix->nox", w, src)
+    return torch.einsum("nyoi,nyi->nyo", w, src)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("n_imgs,n_warps,hw", [(1, 6, (96, 96)), (6, 6, (64, 64)),
+                                               (2, 6, (40, 56)), (1, 3, (120, 168))])
+def test_vresample_kernel_matches_plain_and_fp64(cuda, axis, n_imgs, n_warps, hw):
+    rng = np.random.default_rng(8)
+    img = torch.from_numpy(rng.uniform(size=(n_imgs, *hw)).astype(np.float32)).to(cuda)
+    coords = torch.from_numpy(_coords(rng, (n_warps, *hw), hw[axis])).to(cuda)
+    before = vres_mod.launches
+    got = vres_mod.vresample(img, coords, axis=axis)
+    torch.cuda.synchronize()
+    assert vres_mod.launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    want = vres_mod.vresample_plain(img, coords, axis=axis)
+    tol = 1e-6 * float(img.abs().max())
+    assert float((got - want).abs().max()) <= tol
+    assert float((got.double() - _hat_fp64(img, coords, axis)).abs().max()) <= tol
+    assert float(got.reshape(-1)[:8].abs().max()) <= 1.0  # the planted cases: 0 or one tap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("n_imgs,hw", [(1, (96, 96)), (5, (64, 64)), (1, (40, 56))])
+def test_vresample_coef_kernel_matches_plain(cuda, axis, n_imgs, hw):
+    """The kernel's coordinate arithmetic is rounded operation by operation,
+    as the plain version's tensor ops are, so the two agree to the blend's
+    last bit even next to the kill test's boundary."""
+    rng = np.random.default_rng(9)
+    N, S = 5, max(hw)
+    img = torch.from_numpy(rng.uniform(size=(n_imgs, *hw)).astype(np.float32)).to(cuda)
+    Hm = torch.from_numpy((np.eye(3) + rng.normal(0, 0.1, (N, 3, 3))).astype(np.float32))
+    coefs = warp_twopass._pass_coefs(Hm, 2.0, hw[0] - 3.0, 1.0, hw[1] - 2.0, S)[axis].to(cuda)
+    before = vres_mod.coef_launches
+    got = vres_mod.vresample_coef(img, coefs, axis=axis)
+    torch.cuda.synchronize()
+    assert vres_mod.coef_launches == before + 1
+    want = vres_mod.vresample_coef_plain(img, coefs, axis=axis)
+    assert 0.05 < float((want != 0).float().mean())
+    assert float((got - want).abs().max()) <= 1e-6 * float(img.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("coef", [False, True], ids=["rows", "coef"])
+def test_twopass_warp_on_card_matches_cpu(cuda, coef):
+    """The whole two-pass warp at an odd rectangular size, all four rotation
+    buckets, kernels on the card against the plain versions on the CPU:
+    1e-4 (the coordinate grids are built by tensor ops on two devices, whose
+    divisions and ``linspace`` may differ in the last bit, times a slope of
+    up to 1 per pixel)."""
+    rng = np.random.default_rng(10)
+    img = torch.from_numpy(rng.uniform(size=(120, 168)).astype(np.float32))
+    Hs = []
+    for ang in (-170.0, -95.0, 10.0, 80.0):
+        a = np.radians(ang)
+        Hm = np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0], [0, 0, 1.0]])
+        Hm[:2, 2] = rng.uniform(-0.2, 0.2, 2)
+        Hm[2, :2] = rng.uniform(-0.05, 0.05, 2)
+        Hs.append(Hm)
+    Hs = torch.from_numpy(np.stack(Hs).astype(np.float32))
+    warp_twopass.COEF_GRIDS = coef
+    try:
+        want = warp_twopass.inv_warp_image_twopass(img, Hs)
+        got = warp_twopass.inv_warp_image_twopass(img.to(cuda), Hs)        # Hm on the host
+        got_dev = warp_twopass.inv_warp_image_twopass(img.to(cuda), Hs.to(cuda))
+    finally:
+        warp_twopass.COEF_GRIDS = False
+    assert got.shape == (4, 120, 168) and float(want.abs().mean()) > 0.05
+    assert float((got.cpu() - want).abs().max()) <= 1e-4
+    assert float((got_dev.cpu() - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("image_shape", [(16, 480, 640), (100, 240, 320), (2, 120, 168)])
+def test_folded_convs_keep_the_fp32_accumulator(cuda, image_shape):
+    """down2, down3 and the heads: the epilogue reads an fp32 accumulator
+    that was never rounded to bf16 (that would miss this bar by a factor of
+    about 30; another summation order does not)."""
+    from ssp_torch.models import build_model
+    from ssp_torch.models.fast_infer import accumulator_errors
+
+    model = build_model("SuperPointNet_gauss2_ssmall", device=cuda,
+                        generator=torch.Generator().manual_seed(0))
+    errors = accumulator_errors(model, image_shape, device=cuda)
+    assert set(errors) == {"d2a", "d2b", "d3a", "d3b", "pa", "pb", "da", "db", "ds"}
+    assert max(errors.values()) <= 2.0 ** -14, errors

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of ``ssp_torch`` and not
-``chip_smoke.py`` imports ``jax``, ``flax`` or the JAX package ``ssp``
-(importing any ``ssp`` module runs ``ssp/__init__.py``, which loads flax)."""
+``chip_smoke.py`` imports ``jax``, ``flax``, the JAX package ``ssp``
+(importing any ``ssp`` module runs ``ssp/__init__.py``, which loads flax)
+or ``cv2`` (the machine with the card has no OpenCV)."""
 
 import ast
 import os
@@ -12,7 +13,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "ssp"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "ssp", "cv2"}
 FILES = sorted((ROOT / "ssp_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -29,7 +30,41 @@ def _imported_roots(path: Path):
 def test_port_files_found():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert "chip_smoke.py" in names and "ssp_torch/bench.py" in names
-    assert len(names) > 10
+    assert {"ssp_torch/bench_ha.py", "ssp_torch/core/homography.py",
+            "ssp_torch/export/homography_adaptation.py", "ssp_torch/kernels/vresample.py",
+            "ssp_torch/kernels/warp_twopass.py"} <= names
+    assert len(names) > 15
+
+
+def test_fresh_interpreter_imports_every_module_without_jax_ssp_cv2():
+    """Import ``ssp_torch`` and every module under it in a fresh interpreter:
+    the imports bring none of the forbidden packages into ``sys.modules``
+    (what the interpreter's own start-up hooks loaded is set aside), and
+    build nothing."""
+    mods = sorted(p.relative_to(ROOT).with_suffix("").as_posix().replace("/", ".")
+                  .removesuffix(".__init__") for p in FILES if p.name != "chip_smoke.py")
+    code = "\n".join([
+        "import importlib, sys",
+        "before = set(sys.modules)",
+        f"for m in {mods!r}: importlib.import_module(m)",
+        "new = {m.split('.')[0] for m in set(sys.modules) - before}",
+        f"print('BAD', sorted(new & set({sorted(FORBIDDEN)!r})))",
+        "print('IMPORTED', len([m for m in sys.modules if m.startswith('ssp_torch')]))",
+    ])
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert "BAD []" in r.stdout, r.stdout
+    assert f"IMPORTED {len(mods)}" in r.stdout, (r.stdout, mods)
+
+
+def test_package_data_ships_the_kernel_sources():
+    text = (ROOT / "pyproject.toml").read_text()
+    assert 'ssp_torch = ["csrc/*.cu", "csrc/*.cuh"]' in text
+    from ssp_torch.kernels import _build
+
+    assert set(_build.SOURCES) == {p.stem for p in (ROOT / "ssp_torch" / "csrc").glob("*.cu")}
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())

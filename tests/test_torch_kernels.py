@@ -81,6 +81,31 @@ def test_nms_plain_matches_pallas_exactly(shape, radius, border):
     np.testing.assert_array_equal(got, want)
 
 
+def test_stem_unpooled_matches_pallas_v1():
+    """``stem(..., pool=False)`` is the function of the JAX package's first
+    stem kernel, ``ssp/kernels/stem_pallas.py::stem_pallas`` (conv1a → BN →
+    ReLU → conv1b → BN → ReLU, no pool, bf16 NHWC), held here against that
+    kernel in interpret mode at 2×32×128 with the inputs of
+    ``tests/test_kernels.py::TestStemPallas._setup``."""
+    from ssp.kernels.stem_pallas import fold_bn, stem_pallas
+
+    rng = np.random.default_rng(0)
+    x = rng.uniform(size=(2, 32, 128, 1)).astype(np.float32)
+    w1 = rng.normal(0, 0.3, (3, 3, 1, 64)).astype(np.float32)
+    w2 = rng.normal(0, 0.1, (3, 3, 64, 64)).astype(np.float32)
+    bn = []
+    for _ in range(2):
+        g, b = np.abs(rng.normal(1, 0.2, 64)), rng.normal(0, 0.2, 64)
+        m, v = rng.normal(0, 0.2, 64), np.abs(rng.normal(1, 0.2, 64)) + 0.1
+        bn.append([np.array(a, np.float32) for a in
+                   fold_bn(*(jnp.asarray(a, jnp.float32) for a in (g, b, m, v)))])
+    p = (w1, *bn[0], w2, *bn[1])
+    want = np.asarray(stem_pallas(jnp.asarray(x), *map(jnp.asarray, p), interpret=True), np.float32)
+    got = stem_mod.stem(torch.from_numpy(x), *_torch_params(p), pool=False)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape == (2, 32, 128, 64)
+    stem_mod.assert_bf16_close(got, torch.from_numpy(want))
+
+
 def test_wrappers_check_inputs():
     rng = np.random.default_rng(2)
     p = _torch_params(_conv_bn(rng, 1) + _conv_bn(rng, 64))
