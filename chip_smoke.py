@@ -29,7 +29,9 @@ failure (nothing is caught):
 7. the homography-adaptation (HA) export path at its reference setting: 8
    structured images at 240×320, 100 warps each, top-600, NMS 4, subpixel,
    through ``make_ha_fn(best_apply_fn(...))`` with a seeded generator.
-   Every launch count is set to 0 before and read after; the resample,
+   The two-pass warp runs on its default route, the coef route (the
+   resample kernel rebuilds its coordinates from 20 scalars per warp).
+   Every launch count is set to 0 before and read after; the coef resample,
    stem, down1 and NMS kernels must each have launched.  The keypoints are
    held against the same path on the kernels' plain versions; img/s by
    CUDA events and by the host clock; the folded forward is timed against
@@ -37,16 +39,18 @@ failure (nothing is caught):
 8. ``run_ha_export``: 16 images in groups of 8 written, a second call
    writes none, and a directory with half the files removed is refilled
    with byte-identical points;
-9. the coef route (``COEF_GRIDS``) at 2 images × 20 warps: the coef kernel
-   launches and the rows kernel does not, keypoints against the rows
-   route, and both routes' times for the full 800-warp stack;
+9. the rows route (``COEF_GRIDS`` off: coordinate grids built with tensor
+   ops) at 2 images × 20 warps: the rows kernel launches and the coef kernel
+   does not, keypoints against the coef route, and both routes' times for
+   the full 800-warp stack;
 10. the resample kernels against their plain versions on the HA path's own
     inputs (the 800-warp stack over 8 shared images, one chunk's 100
     heatmaps, both axes), with planted coordinates of −10, ±1e9, ±inf, NaN
     and exactly S−1, and through the whole two-pass warp at 120×168;
 11. each kernel's time at its path's shapes beside its plain version's,
     one library call of the same function (a cuDNN composition for the
-    convs, ``F.grid_sample`` for the resamples) and its bound on this card.
+    convs, ``F.grid_sample`` for the resamples) and its bound on this card;
+    the stem also at the HA path's 100×240×320.
 
 Prints a ``{"kernels": [...]}`` line, then the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``.
@@ -368,10 +372,10 @@ def main() -> None:
     torch.cuda.synchronize()
     ha_launches = read_launches()
     log(f"[ha] {G}x{HH}x{HW}, {NH} warps each, top-{bench_ha.TOP_K}: launches {ha_launches} "
-        f"(from the code: vresample {2 + 2 * G}, stem {G}, down1 {G}, nms 1)")
-    idle = [k for k in ("vresample", "stem", "down1", "nms") if ha_launches[k] == 0]
-    if idle:
-        raise AssertionError(f"kernels not launched on the HA path: {idle}")
+        f"(from the code: vresample_coef {2 + 2 * G}, vresample 0, stem {G}, down1 {G}, nms 1)")
+    idle = [k for k in ("vresample_coef", "stem", "down1", "nms") if ha_launches[k] == 0]
+    if idle or ha_launches["vresample"] != 0:
+        raise AssertionError(f"HA path launches {ha_launches}: not launched {idle}")
     if ha_pts.shape != (G, bench_ha.TOP_K, 3) or ha_valid.shape != (G, bench_ha.TOP_K):
         raise AssertionError(f"shapes {tuple(ha_pts.shape)}, {tuple(ha_valid.shape)}")
     if not torch.isfinite(ha_pts).all() or int(ha_valid.sum(dim=1).min()) < 1:
@@ -434,13 +438,13 @@ def main() -> None:
     if (written, again, refilled) != (2 * G, 0, G):
         raise AssertionError(f"run_ha_export counts {(written, again, refilled)}")
 
-    # ---- 9. the coef route ---------------------------------------------------
+    # ---- 9. the rows route ---------------------------------------------------
     ha20 = make_ha_fn(fast, **{**ha_kw, "num_h": 20})
 
     def gen20():
         return torch.Generator().manual_seed(SEED + 5)
 
-    rows_pts, rows_valid = ha20(ha_images[:2], generator=gen20())
+    coef_pts, coef_valid = ha20(ha_images[:2], generator=gen20())
     # the group's own homographies, as ``ha`` samples them from one generator
     g = gen()
     Hs = torch.stack([sample_homographies(NH - 1, generator=g, shift=-1.0,
@@ -448,24 +452,24 @@ def main() -> None:
                       for _ in range(G)])
     Hs = torch.cat([torch.eye(3).expand(G, 1, 3, 3), Hs], dim=1).reshape(-1, 3, 3)
     with torch.inference_mode():
-        stack_rows_ms = time_ms(lambda: warp_twopass.inv_warp_image_twopass(ha_images, Hs),
-                                iters=3, warmup=1)
-        warp_twopass.COEF_GRIDS = True
-        reset_launches()
-        coef_pts, coef_valid = ha20(ha_images[:2], generator=gen20())
-        torch.cuda.synchronize()
-        coef_launches = read_launches()
         stack_coef_ms = time_ms(lambda: warp_twopass.inv_warp_image_twopass(ha_images, Hs),
                                 iters=3, warmup=1)
         warp_twopass.COEF_GRIDS = False
-    share = same_points(coef_pts, coef_valid, rows_pts, rows_valid)
-    log(f"[coef] 2x{HH}x{HW}, 20 warps each, COEF_GRIDS on: launches {coef_launches}; "
-        f"{share:.4f} of the valid keypoints shared with the rows route; the {G * NH}-warp "
+        reset_launches()
+        rows_pts, rows_valid = ha20(ha_images[:2], generator=gen20())
+        torch.cuda.synchronize()
+        rows_launches = read_launches()
+        stack_rows_ms = time_ms(lambda: warp_twopass.inv_warp_image_twopass(ha_images, Hs),
+                                iters=3, warmup=1)
+        warp_twopass.COEF_GRIDS = True
+    share = same_points(rows_pts, rows_valid, coef_pts, coef_valid)
+    log(f"[rows] 2x{HH}x{HW}, 20 warps each, COEF_GRIDS off: launches {rows_launches}; "
+        f"{share:.4f} of the valid keypoints shared with the coef route; the {G * NH}-warp "
         f"stack: rows route {stack_rows_ms:.3f} ms, coef route {stack_coef_ms:.3f} ms")
-    if coef_launches["vresample_coef"] == 0 or coef_launches["vresample"] != 0:
-        raise AssertionError(f"coef route launches {coef_launches}")
+    if rows_launches["vresample"] == 0 or rows_launches["vresample_coef"] != 0:
+        raise AssertionError(f"rows route launches {rows_launches}")
     if share < SHARED_MIN:
-        raise AssertionError(f"coef route keypoints: {share:.4f} shared < {SHARED_MIN}")
+        raise AssertionError(f"rows route keypoints: {share:.4f} shared < {SHARED_MIN}")
 
     # ---- 10. the resample kernels against their plain versions ----------------
     planted = [-10.0, 1e9, -1e9, None, float("inf"), float("-inf"), float("nan"), -1.0]
@@ -526,7 +530,7 @@ def main() -> None:
             got = warp_twopass.inv_warp_image_twopass(odd[..., 0].contiguous(), odd_Hs)
             want = warp_twopass.inv_warp_image_twopass(odd[..., 0].contiguous(), odd_Hs,
                                                        reference=True)
-            warp_twopass.COEF_GRIDS = False
+            warp_twopass.COEF_GRIDS = True
             name = "vresample_coef" if coef else "vresample"
             e = check_resample(f"two-pass warp 2x{ODD_HW[0]}x{ODD_HW[1]}, 8 warps ({name})",
                                got, want, float(odd.abs().max()))
@@ -556,6 +560,8 @@ def main() -> None:
     nms_bytes = 2 * heat_main.numel() * 4
     stem_lib = (cudnn_weights(*folded["inc0"]), cudnn_weights(*folded["inc1"]))
     d1_lib = (cudnn_weights(*folded["d1a"]), cudnn_weights(*folded["d1b"]))
+    # the kernels' weights laid out once, as the forward holds them
+    stem_prep, down1_prep = stem_mod.prepare_stem(*stem_p), down1_mod.prepare_down1(*down1_p)
 
     # The resample kernels' time is the mean over the launches of one HA
     # group: two passes over the 800-warp stack and, for each of the G chunks,
@@ -619,13 +625,13 @@ def main() -> None:
                 f"{time_ms(lambda: vres_mod.vresample(src(d, axis), coords(d, axis), axis)):.4f} ms")
 
         rows = [
-            ("stem", "ssp/kernels/stem_pallas_v2.py:182", "ssp_torch/csrc/conv_pair.cu",
-             lambda: stem_mod.stem(images, *stem_p),
+            ("stem", "ssp/kernels/stem_pallas_v2.py:182", "ssp_torch/csrc/stem.cu",
+             lambda: stem_mod.stem_prepared(images, stem_prep),
              lambda: stem_mod.stem_plain(images, *stem_p),
              lambda: cudnn_pair(images, *stem_lib[0], *stem_lib[1]),
              bound(stem_flops, PEAK_BF16, stem_bytes)),
             ("down1", "ssp/kernels/down1_pallas.py:107", "ssp_torch/csrc/conv_pair.cu",
-             lambda: down1_mod.down1(stem_out, *down1_p),
+             lambda: down1_mod.down1_prepared(stem_out, down1_prep),
              lambda: down1_mod.down1_plain(stem_out, *down1_p),
              lambda: cudnn_pair(stem_out, *d1_lib[0], *d1_lib[1]),
              bound(d1_flops, PEAK_BF16, d1_bytes)),
@@ -640,14 +646,16 @@ def main() -> None:
              "ssp_torch/csrc/vresample.cu", None, None, None, resample_bound(coef=True)),
             # the first TPU stem's function, the stem without the pool: on no
             # path in either package, so it is never launched by one
-            ("stem_v1", "ssp/kernels/stem_pallas.py:134", "ssp_torch/csrc/conv_pair.cu",
-             lambda: stem_mod.stem(images, *stem_p, pool=False),
+            ("stem_v1", "ssp/kernels/stem_pallas.py:134", "ssp_torch/csrc/stem.cu",
+             lambda: stem_mod.stem_prepared(images, stem_prep, pool=False),
              lambda: stem_mod.stem_plain(images, *stem_p, pool=False),
              lambda: cudnn_pair(images, *stem_lib[0], *stem_lib[1], pool=False),
              bound(stem_flops, PEAK_BF16, stem_v1_bytes)),
         ]
         on_main = {**launches, "stem_v1": 0}
-        on_ha = {**ha_launches, "vresample_coef": coef_launches["vresample_coef"], "stem_v1": 0}
+        on_ha = {**ha_launches, "stem_v1": 0}
+        # the rows kernel is off the default route: its launches are those of phase 9's run
+        on_rows_run = {"vresample": rows_launches["vresample"]}
         kernels = []
         for name, replaces, source, kern, plain, lib, (bound_ms, bound_by) in rows:
             if name in resample_times:
@@ -657,15 +665,26 @@ def main() -> None:
                 lib_ms_k = time_ms(lib) if lib is not None else None
             kernels.append({
                 "name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": on_main[name] + on_ha[name], "launches_main": on_main[name],
-                "launches_ha": on_ha[name], "max_abs_err": err[name], "ms": ms,
+                "launches": on_main[name] + on_ha[name] + on_rows_run.get(name, 0),
+                "launches_main": on_main[name], "launches_ha": on_ha[name],
+                "launches_rows_route_run": on_rows_run.get(name, 0),
+                "max_abs_err": err[name], "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": lib_ms_k,
             })
             log(f"[time] {name}: {ms:.4f} ms (bound {bound_ms:.4f} ms by {bound_by}), plain "
                 f"{plain_ms:.4f} ms, library "
                 f"{'n/a' if lib_ms_k is None else f'{lib_ms_k:.4f} ms'}; launches main path "
-                f"{on_main[name]}, HA group {on_ha[name]}")
+                f"{on_main[name]}, HA group {on_ha[name]}"
+                + (f", rows-route run {on_rows_run[name]}" if name in on_rows_run else ""))
+        # the same two kernels at the HA path's chunk of 100 warped images
+        ha_chunk = torch.from_numpy(structured_images(NH, HH, HW, SEED + 4)).to(dev)
+        chunk_out = stem_mod.stem_prepared(ha_chunk, stem_prep)
+        e = stem_mod.assert_bf16_close(chunk_out, stem_mod.stem_plain(ha_chunk, *stem_p))
+        stem_ha_ms = time_ms(lambda: stem_mod.stem_prepared(ha_chunk, stem_prep))
+        down1_ha_ms = time_ms(lambda: down1_mod.down1_prepared(chunk_out, down1_prep))
+        log(f"[time] at the HA chunk's {NH}x{HH}x{HW}: stem {stem_ha_ms:.4f} ms (max abs err "
+            f"{e:.3g} vs plain), down1 {down1_ha_ms:.4f} ms")
     torch.cuda.synchronize()
 
     print(json.dumps({"kernels": kernels}))

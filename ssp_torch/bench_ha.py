@@ -7,16 +7,23 @@ subpixel on: ``configs/magicpoint_coco_export.yaml``), a group of 8 images
 per call, ``SuperPointNet_gauss2`` with trained weights.
 
     python -m ssp_torch.bench_ha [--weights evidence/wsem_weights.npz]
-                                 [--sustained] [--profile]
+                                 [--sustained] [--profile] [--routes]
 
 Prints ONE JSON line: ``metric``, ``value`` (images/s), ``unit``,
-``vs_baseline``, ``device`` (the card's name and power limit), and for the
+``vs_baseline``, ``ms_per_group``, ``host_queueing_ms_per_group`` (how long
+the host took to queue a group's launches: the card cannot go faster),
+``device`` (the card's name and power limit), and for the
 kernel-level loop ``host_clock_value`` (the same loop by the host clock).
 The kernel-level loop is timed with CUDA events after a warm-up group;
 ``--sustained`` times ``run_ha_export`` over 64 images (host image feed,
 device pipeline, npz writes) by the host clock.  ``--profile`` also prints
 to stderr where the device time of a group goes, by kernel, and the share
-of the window in which the card ran no kernel.  It needs a CUDA card.
+of the window in which the card ran no kernel.  ``--routes`` times the
+kernel-level loop on both routes of the two-pass warp in one process, in the
+order default, other, other, default (coordinates rebuilt in the resample
+kernel from coefficients, or read from grids built with tensor ops:
+``warp_twopass.COEF_GRIDS``), and prints each run's ms per group.  It needs a
+CUDA card.
 
 Baseline: the published SuperPoint rate is 70 FPS at 480×640 on a Titan X
 (arXiv:1712.07629).  One HA image costs 100 forwards at 240×320 = 25
@@ -37,6 +44,7 @@ import torch
 
 from ssp_torch.bench import DEFAULT_WEIGHTS, _card, _profile, structured_images
 from ssp_torch.export.homography_adaptation import make_ha_fn, run_ha_export
+from ssp_torch.kernels import warp_twopass
 from ssp_torch.models.fast_infer import best_apply_fn
 from ssp_torch.models.weights import load_flax_npz
 
@@ -67,6 +75,8 @@ def main(argv=None) -> None:
                     help="time run_ha_export over 64 images by the host clock")
     ap.add_argument("--profile", action="store_true",
                     help="print the device time per kernel of two groups to stderr")
+    ap.add_argument("--routes", action="store_true",
+                    help="time a group on the coef and on the rows route of the warp")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("ssp_torch.bench_ha needs a CUDA card")
@@ -76,17 +86,41 @@ def main(argv=None) -> None:
 
     images = torch.from_numpy(structured_images(GROUP, H, W, 0)[..., 0]).cuda()
     gen = torch.Generator().manual_seed(1)
-    ha(images, generator=gen)  # warm-up: kernel build, cuDNN autotuning
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    for _ in range(ITERS):
+
+    def timed_loop():
+        """(seconds by CUDA events, seconds by the host clock, seconds the host
+        took to queue the work) of ITERS groups after a warm-up group (kernel
+        build, cuDNN autotuning).  Where the third is close to the second, the
+        card waits for the host's launches."""
         ha(images, generator=gen)
-    end.record()
-    torch.cuda.synchronize()
-    host_s = time.perf_counter() - t0
-    img_per_s = GROUP * ITERS / (start.elapsed_time(end) / 1e3)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(ITERS):
+            ha(images, generator=gen)
+        end.record()
+        queued_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / 1e3, time.perf_counter() - t0, queued_s
+
+    if args.routes:
+        default = warp_twopass.COEF_GRIDS
+        ms = {"coef": [], "rows": []}
+        for coef in (default, not default):  # both routes warm before either is timed
+            warp_twopass.COEF_GRIDS = coef
+            timed_loop()
+        for coef in (default, not default, not default, default):
+            warp_twopass.COEF_GRIDS = coef
+            ms["coef" if coef else "rows"].append(timed_loop()[0] / ITERS * 1e3)
+        warp_twopass.COEF_GRIDS = default
+        print(json.dumps({"metric": "HA group ms by route of the two-pass warp (8 images, "
+                                    "num=100, 240x320)",
+                          "default_route": "coef" if default else "rows",
+                          "ms_per_group": ms, "device": _card()}))
+        return
+    device_s, host_s, queued_s = timed_loop()
+    img_per_s = GROUP * ITERS / device_s
     if args.profile:
         _profile(lambda x: ha(x, generator=gen), images, batches=2)
     print(json.dumps({
@@ -95,6 +129,8 @@ def main(argv=None) -> None:
         "unit": "images/s",
         "vs_baseline": img_per_s / REFERENCE_HA_IMG_PER_S,
         "host_clock_value": GROUP * ITERS / host_s,
+        "ms_per_group": device_s / ITERS * 1e3,
+        "host_queueing_ms_per_group": queued_s / ITERS * 1e3,
         "device": _card(),
     }))
 

@@ -1,46 +1,46 @@
-// Fused "3x3 conv -> folded BN -> ReLU -> 3x3 conv 64->64 -> folded BN ->
-// ReLU (-> 2x2 max)" for the SuperPoint stem (inc, CIN = 1) and down1
-// (CIN = 64), NHWC, SAME padding.
+// Fused "3x3 conv 64->64 -> folded BN -> ReLU -> 3x3 conv 64->64 -> folded BN
+// -> ReLU (-> 2x2 max)" for SuperPoint's down1, NHWC bf16, SAME padding.
 //
-// Replaces the TPU kernels ssp/kernels/stem_pallas_v2.py::stem_pallas_packed
-// and ssp/kernels/down1_pallas.py::down1_pallas_packed.  Both compute the
-// same function; only the first conv's input width differs, so one
-// template serves both.
+// Replaces the TPU kernel ssp/kernels/down1_pallas.py::down1_pallas_packed.
+// (The stem, the same pair with a 1-channel first conv, has its own kernel
+// in stem.cu.)
 //
-// Bound on an H100: tensor-core operations.  At 480x640x16 the stem does
-// ~0.37 TFLOP of bf16 conv work against ~0.18 GB of HBM traffic (input
-// read once, pooled output written once), down1 ~0.18 TFLOP against
-// ~0.2 GB: both sit far above the card's ~295 FLOP/byte ridge.  The design
-// therefore keeps the intermediate activation out of device memory
-// entirely and feeds the second conv (and down1's first) to the tensor
-// cores as an implicit GEMM:
+// Bound on an H100: tensor-core operations.  At 16x240x320 down1 does ~0.18
+// TFLOP of bf16 conv work against ~0.2 GB of HBM traffic, far above the
+// card's ~295 FLOP/byte ridge.  The design therefore keeps the intermediate
+// activation out of device memory entirely and feeds both convs to the
+// tensor cores as implicit GEMMs:
 //
 //   * a block owns a TH x TW output tile (before pooling) and all 64
 //     output channels;
 //   * it loads the input tile with a 2-pixel halo into shared memory (zeros
-//     outside the image), and the second conv's 64x64x9 weights;
+//     outside the image), and the first conv's 64x64x9 weights;
 //   * it computes the first conv for the tile plus a 1-pixel halo into
 //     shared memory as bf16, and writes 0 (not ReLU(bias)) wherever that
 //     halo lies outside the image, because the second conv's SAME padding
-//     reads zeros there;
-//   * it computes the second conv with mma.sync m16n8k16 (bf16 operands,
-//     fp32 accumulation): M = pixels, N = 64 output channels, K = 9 taps x 64
-//     input channels; each warp owns two 16-pixel output rows, so the 2x2
-//     max of the epilogue happens in registers (rows) and one shuffle
-//     (columns);
+//     reads zeros there; then it loads the second conv's weights over the
+//     first's;
+//   * both convs run on mma.sync m16n8k16 (bf16 operands, fp32
+//     accumulation): M = pixels, N = 64 output channels, K = 9 taps x 64
+//     input channels; in the second conv each warp owns two 16-pixel output
+//     rows, so the 2x2 max of the epilogue happens in registers (rows) and
+//     one shuffle (columns);
 //   * the epilogue applies the fp32 scale/bias and ReLU and stores NHWC
 //     bf16.
 //
 // Shared-memory rows are padded from 64 to 72 bf16 (144 B) so the 32-bit
 // fragment loads of a warp hit 32 distinct banks.
 //
-// Numerics follow the TPU kernels: the stem input is rounded to bf16, the
-// weights are bf16, products accumulate in fp32, the scale/bias epilogue
-// is fp32 (a separate multiply and add, not a fused FMA), the intermediate
-// is rounded to bf16 before the second conv, and the output is bf16.
+// Numerics follow the TPU kernel: bf16 input and weights, products
+// accumulate in fp32, the scale/bias epilogue is fp32 (a separate multiply
+// and add, not a fused FMA), the intermediate is rounded to bf16 before the
+// second conv, and the output is bf16.
 //
-// Not yet done (later work): wgmma/TMA, a persistent block that keeps the
-// weights in shared memory across tiles, cp.async double buffering.
+// Not yet done (the stem's kernel shows each): a persistent block that keeps
+// both convs' weights in shared memory across tiles (here each of the
+// blocks copies 2 x 72 KB from L2), wgmma for the two convs in place of
+// mma.sync fed by 32-bit shared-memory loads, and load, first conv and
+// second conv overlapped instead of separated by __syncthreads().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,11 +69,7 @@ static_assert(MID_TILES * 16 >= MID_PIX, "m-tiles must cover the halo tile");
 constexpr size_t W_BYTES = size_t(9) * C * LD * 2;
 constexpr size_t MID_BYTES = size_t(MID_PIX) * LD * 2;
 
-template <int CIN>
-constexpr size_t smem_bytes() {
-  return W_BYTES + MID_BYTES +
-         (CIN == 1 ? size_t(XH * XW + 9 * C) * 4 : size_t(XH * XW) * LD * 2);
-}
+constexpr size_t SMEM_BYTES = W_BYTES + MID_BYTES + size_t(XH * XW) * LD * 2;
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1,
                                          uint32_t a2, uint32_t a3, uint32_t b0,
@@ -149,9 +145,9 @@ __device__ __forceinline__ float affine_relu(float v, float s, float b) {
   return fmaxf(__fadd_rn(__fmul_rn(v, s), b), 0.f);
 }
 
-template <int CIN, bool POOL>
+template <bool POOL>
 __global__ void __launch_bounds__(NTHREADS, 1)
-conv_pair_kernel(const void* __restrict__ xptr, const __nv_bfloat16* __restrict__ w1,
+conv_pair_kernel(const __nv_bfloat16* __restrict__ x_all, const __nv_bfloat16* __restrict__ w1,
                  const float* __restrict__ s1, const float* __restrict__ b1,
                  const __nv_bfloat16* __restrict__ w2, const float* __restrict__ s2,
                  const float* __restrict__ b2, __nv_bfloat16* __restrict__ out,
@@ -159,7 +155,7 @@ conv_pair_kernel(const void* __restrict__ xptr, const __nv_bfloat16* __restrict_
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem);          // [9][C][LD]
   __nv_bfloat16* mid = reinterpret_cast<__nv_bfloat16*>(smem + W_BYTES);  // [MID_PIX][LD]
-  unsigned char* xbase = smem + W_BYTES + MID_BYTES;
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + W_BYTES + MID_BYTES);  // [XH*XW][LD]
 
   const int b = blockIdx.z;
   const int y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
@@ -167,60 +163,20 @@ conv_pair_kernel(const void* __restrict__ xptr, const __nv_bfloat16* __restrict_
   const int g = lane >> 2, t4 = lane & 3;
 
   // ---- 1. input tile with a 2-pixel halo (zeros outside the image) ----
-  if constexpr (CIN == 1) {
-    float* xs = reinterpret_cast<float*>(xbase);  // [XH][XW]
-    float* w1s = xs + XH * XW;                    // [9][C]
-    const float* x = static_cast<const float*>(xptr) + size_t(b) * H * W;
-    for (int i = tid; i < XH * XW; i += NTHREADS) {
-      const int y = y0 - 2 + i / XW, xx = x0 - 2 + i % XW;
-      float v = 0.f;
-      if (y >= 0 && y < H && xx >= 0 && xx < W)
-        v = __bfloat162float(__float2bfloat16_rn(x[size_t(y) * W + xx]));
-      xs[i] = v;
-    }
-    for (int i = tid; i < 9 * C; i += NTHREADS) w1s[i] = __bfloat162float(w1[i]);
-    load_weights(ws, w2);
-  } else {
-    __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(xbase);  // [XH*XW][LD]
-    const __nv_bfloat16* x =
-        static_cast<const __nv_bfloat16*>(xptr) + size_t(b) * H * W * C;
-    for (int i = tid; i < XH * XW * (C / 8); i += NTHREADS) {
-      const int p = i >> 3, q = i & 7;
-      const int y = y0 - 2 + p / XW, xx = x0 - 2 + p % XW;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (y >= 0 && y < H && xx >= 0 && xx < W)
-        v = __ldg(reinterpret_cast<const uint4*>(x + (size_t(y) * W + xx) * C + q * 8));
-      *reinterpret_cast<uint4*>(xs + p * LD + q * 8) = v;
-    }
-    load_weights(ws, w1);
+  const __nv_bfloat16* x = x_all + size_t(b) * H * W * C;
+  for (int i = tid; i < XH * XW * (C / 8); i += NTHREADS) {
+    const int p = i >> 3, q = i & 7;
+    const int y = y0 - 2 + p / XW, xx = x0 - 2 + p % XW;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (y >= 0 && y < H && xx >= 0 && xx < W)
+      v = __ldg(reinterpret_cast<const uint4*>(x + (size_t(y) * W + xx) * C + q * 8));
+    *reinterpret_cast<uint4*>(xs + p * LD + q * 8) = v;
   }
+  load_weights(ws, w1);
   __syncthreads();
 
   // ---- 2. first conv over the tile + 1-px halo -> mid (bf16) ----------
-  if constexpr (CIN == 1) {
-    const float* xs = reinterpret_cast<const float*>(xbase);
-    const float* w1s = xs + XH * XW;
-    const int c0 = 2 * lane;  // this lane's channel pair
-    const float sa = s1[c0], sb = s1[c0 + 1], ba = b1[c0], bb = b1[c0 + 1];
-    for (int p = warp; p < MID_PIX; p += NWARPS) {
-      const int my = p / MW, mx = p % MW;
-      const int y = y0 - 1 + my, xx = x0 - 1 + mx;
-      float v0 = 0.f, v1 = 0.f;
-      if (y >= 0 && y < H && xx >= 0 && xx < W) {
-        float a0 = 0.f, a1 = 0.f;
-#pragma unroll
-        for (int tap = 0; tap < 9; ++tap) {
-          const float xv = xs[(my + tap / 3) * XW + mx + tap % 3];
-          a0 = fmaf(xv, w1s[tap * C + c0], a0);
-          a1 = fmaf(xv, w1s[tap * C + c0 + 1], a1);
-        }
-        v0 = affine_relu(a0, sa, ba);
-        v1 = affine_relu(a1, sb, bb);
-      }
-      *reinterpret_cast<__nv_bfloat162*>(mid + p * LD + c0) = __floats2bfloat162_rn(v0, v1);
-    }
-  } else {
-    const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(xbase);
+  {
     int pa[MID_TILES_PER_WARP], pb[MID_TILES_PER_WARP];
 #pragma unroll
     for (int j = 0; j < MID_TILES_PER_WARP; ++j) {
@@ -319,41 +275,31 @@ conv_pair_kernel(const void* __restrict__ xptr, const __nv_bfloat16* __restrict_
   }
 }
 
-template <int CIN, bool POOL>
+template <bool POOL>
 int launch(const void* x, const void* w1, const void* s1, const void* b1,
            const void* w2, const void* s2, const void* b2, void* out, int B,
            int H, int W, void* stream) {
-  auto kernel = conv_pair_kernel<CIN, POOL>;
-  const size_t smem = smem_bytes<CIN>();
+  auto kernel = conv_pair_kernel<POOL>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM_BYTES));
   if (err != cudaSuccess) return int(err);
   const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-  kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, static_cast<const __nv_bfloat16*>(w1), static_cast<const float*>(s1),
-      static_cast<const float*>(b1), static_cast<const __nv_bfloat16*>(w2),
-      static_cast<const float*>(s2), static_cast<const float*>(b2),
-      static_cast<__nv_bfloat16*>(out), H, W);
+  kernel<<<grid, NTHREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w1),
+      static_cast<const float*>(s1), static_cast<const float*>(b1),
+      static_cast<const __nv_bfloat16*>(w2), static_cast<const float*>(s2),
+      static_cast<const float*>(b2), static_cast<__nv_bfloat16*>(out), H, W);
   return int(cudaGetLastError());
 }
 
 }  // namespace
 
-// x [B,H,W] fp32; w1 [3,3,64] bf16 (HWO); w2 [3,3,64 out,64 in] bf16;
-// scales/biases fp32 [64]; out [B,H/2,W/2,64] (pool) or [B,H,W,64] bf16.
-extern "C" int ssp_stem_launch(const void* x, const void* w1, const void* s1,
-                               const void* b1, const void* w2, const void* s2,
-                               const void* b2, void* out, int B, int H, int W,
-                               int pool, void* stream) {
-  return pool ? launch<1, true>(x, w1, s1, b1, w2, s2, b2, out, B, H, W, stream)
-              : launch<1, false>(x, w1, s1, b1, w2, s2, b2, out, B, H, W, stream);
-}
-
-// x [B,H,W,64] bf16; w1, w2 [3,3,64 out,64 in] bf16; otherwise as above.
+// x [B,H,W,64] bf16; w1, w2 [3,3,64 out,64 in] bf16; scales/biases fp32 [64];
+// out [B,H/2,W/2,64] (pool) or [B,H,W,64] bf16.
 extern "C" int ssp_down1_launch(const void* x, const void* w1, const void* s1,
                                 const void* b1, const void* w2, const void* s2,
                                 const void* b2, void* out, int B, int H, int W,
                                 int pool, void* stream) {
-  return pool ? launch<64, true>(x, w1, s1, b1, w2, s2, b2, out, B, H, W, stream)
-              : launch<64, false>(x, w1, s1, b1, w2, s2, b2, out, B, H, W, stream);
+  return pool ? launch<true>(x, w1, s1, b1, w2, s2, b2, out, B, H, W, stream)
+              : launch<false>(x, w1, s1, b1, w2, s2, b2, out, B, H, W, stream);
 }

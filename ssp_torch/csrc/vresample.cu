@@ -36,9 +36,11 @@
 // own, without expanding anything.
 //
 // What bounds it: bytes.  Per output pixel 4 B of coordinate (none for the
-// coef kernel), 4 B written, and two taps that neighbours share.  One thread
-// per output pixel, x fastest, so coordinate reads and output writes are
-// fully coalesced; the taps come through L1/L2.
+// coef kernel), 4 B written, and two taps that neighbours share.  In both
+// kernels neighbouring threads own neighbouring x, so coordinate reads and
+// output writes are fully coalesced; the taps come through L1/L2.  The coef
+// kernel trades the coordinate's bytes for arithmetic, which has to be kept
+// small to stay under the memory time: see the note above it.
 
 #include <cuda_runtime.h>
 
@@ -80,41 +82,125 @@ __global__ void vresample_kernel(const float* __restrict__ img,
 
 // img, out: [*, R, C]; coefs: [N, 20].  The resampled axis has length
 // L = R (AXIS 0) or C (AXIS 1); the line axis has the other length.
+//
+// With Lo, Ll the normalised indices along the resampled axis and the line,
+//   q(k) = p0(k) + p1(k)*Lo,  p0(k) = c[k] + c[k+1]*Ll,  p1(k) = c[k+2] + c[k+3]*Ll,
+// so everything but the last multiply-add of each q is constant along a
+// row or a column of the image.  A block owns a COEF_TX x COEF_TY tile of
+// one warp; a thread owns one column x of the tile and walks down its rows,
+// COEF_LANES rows apart, so neighbouring threads stay on neighbouring
+// addresses for either axis.  What is constant along the column (AXIS 0:
+// Ll and the eight p values; AXIS 1: Lo) is computed once per thread into
+// registers; what is constant along a row (AXIS 0: Lo; AXIS 1: the eight p
+// values) once per block into a shared-memory table that a warp reads as a
+// broadcast.  The 20 coefficients reach shared memory once per block.  The
+// keep bounds are tested first: a tile wholly outside them is zero-filled
+// without any arithmetic, a pixel outside them costs two comparisons, and
+// the divide-free kill test comes before the one division that is left per
+// pixel.  Each operation that remains is the same rounded operation on the
+// same operands as before the hoisting, so the coordinates are still those
+// of `coef_coords` bit for bit.
+constexpr int COEF_TX = 64;
+constexpr int COEF_TY = 64;
+constexpr int COEF_LANES = THREADS / COEF_TX;
+
+__device__ __forceinline__ float normalised(int i, float half) {
+  return __fsub_rn(__fdiv_rn(float(i), half), 1.0f);
+}
+
 template <int AXIS>
-__global__ void vresample_coef_kernel(const float* __restrict__ img,
-                                      const float* __restrict__ coefs,
-                                      float* __restrict__ out, int N, int per_img,
-                                      int R, int C) {
-  const int pix = blockIdx.x * THREADS + threadIdx.x;
-  if (pix >= R * C) return;
-  const int y = pix / C, x = pix - y * C;
-  const int L = AXIS == 0 ? R : C;
-  const int n_lines = AXIS == 0 ? C : R;
-  const int o = AXIS == 0 ? y : x;
-  const int line = AXIS == 0 ? x : y;
-  const float io = float(o), il = float(line);
-  const float half_o = (L - 1) / 2.0f, half_l = (n_lines - 1) / 2.0f;
-  const float Lo = __fsub_rn(__fdiv_rn(io, half_o), 1.0f);
-  const float Ll = __fsub_rn(__fdiv_rn(il, half_l), 1.0f);
+__global__ void __launch_bounds__(THREADS)
+vresample_coef_kernel(const float* __restrict__ img, const float* __restrict__ coefs,
+                      float* __restrict__ out, int per_img, int R, int C, int tiles_x,
+                      int tiles_y) {
+  __shared__ float cs[20];
+  __shared__ __align__(16) float row_tab[COEF_TY][AXIS == 0 ? 1 : 8];
+
+  const int tiles = tiles_x * tiles_y;
+  const int n = blockIdx.x / tiles, tile = blockIdx.x - n * tiles;
+  const int x_first = (tile % tiles_x) * COEF_TX, y_first = (tile / tiles_x) * COEF_TY;
+  const int tx = threadIdx.x % COEF_TX, ty = threadIdx.x / COEF_TX;
+  const int x = x_first + tx;
+  const int x_last = min(x_first + COEF_TX, C) - 1, y_last = min(y_first + COEF_TY, R) - 1;
   const size_t sz = size_t(R) * C;
-  for (int n = blockIdx.y; n < N; n += gridDim.y) {
-    const float* c = coefs + size_t(n) * 20;
-    // q(k) = c[k] + c[k+1]*Ll + (c[k+2] + c[k+3]*Ll)*Lo, each op rounded
-    auto q = [&](int k) {
-      const float p0 = __fadd_rn(__ldg(c + k), __fmul_rn(__ldg(c + k + 1), Ll));
-      const float p1 = __fadd_rn(__ldg(c + k + 2), __fmul_rn(__ldg(c + k + 3), Ll));
-      return __fadd_rn(p0, __fmul_rn(p1, Lo));
-    };
-    float den = q(4);
-    if (fabsf(den) < 1e-8f) den = 1e-8f;
-    float r = __fmul_rn(__fadd_rn(__fdiv_rn(q(0), den), 1.0f), half_o);
-    const bool keep = fabsf(q(8)) <= __fmul_rn(1.5f, fabsf(q(12))) &&
-                      io >= __ldg(c + 16) && io < __ldg(c + 17) &&
-                      il >= __ldg(c + 18) && il < __ldg(c + 19);
-    // fmaxf returns its other operand for a NaN, so a NaN coordinate clips
-    // to -64 and yields 0, as every out-of-range coordinate does
-    r = keep ? fminf(fmaxf(r, -64.0f), float(L) + 64.0f) : -10.0f;
-    out[n * sz + pix] = hat2<AXIS>(img + (n / per_img) * sz, r, L, line, C);
+  float* o_img = out + n * sz;
+
+  if (threadIdx.x < 20) cs[threadIdx.x] = __ldg(coefs + size_t(n) * 20 + threadIdx.x);
+  __syncthreads();
+
+  // keep bounds: [cs[16], cs[17]) along the resampled axis, [cs[18], cs[19])
+  // along the line; rows are the resampled axis for AXIS 0, the line for AXIS 1
+  const float ylo = cs[AXIS == 0 ? 16 : 18], yhi = cs[AXIS == 0 ? 17 : 19];
+  const float xlo = cs[AXIS == 0 ? 18 : 16], xhi = cs[AXIS == 0 ? 19 : 17];
+  if (float(y_last) < ylo || float(y_first) >= yhi || float(x_last) < xlo ||
+      float(x_first) >= xhi) {  // the same for every thread of the block
+    if (x < C)
+      for (int y = y_first + ty; y <= y_last; y += COEF_LANES) o_img[size_t(y) * C + x] = 0.0f;
+    return;
+  }
+
+  const int L = AXIS == 0 ? R : C;
+  const float half_o = (L - 1) / 2.0f, half_l = ((AXIS == 0 ? C : R) - 1) / 2.0f;
+  if (threadIdx.x < COEF_TY) {
+    const int y = y_first + threadIdx.x;
+    if (AXIS == 0) {
+      row_tab[threadIdx.x][0] = normalised(y, half_o);
+    } else {
+      const float Ll = normalised(y, half_l);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        row_tab[threadIdx.x][2 * k] = __fadd_rn(cs[4 * k], __fmul_rn(cs[4 * k + 1], Ll));
+        row_tab[threadIdx.x][2 * k + 1] = __fadd_rn(cs[4 * k + 2], __fmul_rn(cs[4 * k + 3], Ll));
+      }
+    }
+  }
+  __syncthreads();
+  if (x >= C) return;
+
+  // p[2k], p[2k+1] = p0, p1 of quadruple k (num, den, kill num, kill den)
+  float p[8], Lo = 0.0f;
+  if (AXIS == 0) {
+    const float Ll = normalised(x, half_l);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      p[2 * k] = __fadd_rn(cs[4 * k], __fmul_rn(cs[4 * k + 1], Ll));
+      p[2 * k + 1] = __fadd_rn(cs[4 * k + 2], __fmul_rn(cs[4 * k + 3], Ll));
+    }
+  } else {
+    Lo = normalised(x, half_o);
+  }
+  const bool col_keep = float(x) >= xlo && float(x) < xhi;
+  const float* src = img + (n / per_img) * sz;
+
+#pragma unroll 4
+  for (int yy = ty; yy < COEF_TY; yy += COEF_LANES) {
+    const int y = y_first + yy;
+    if (y > y_last) break;
+    float v = 0.0f;
+    if (col_keep && float(y) >= ylo && float(y) < yhi) {
+      if (AXIS == 0) {
+        Lo = row_tab[yy][0];
+      } else {
+        const float4 lo = *reinterpret_cast<const float4*>(&row_tab[yy][0]);
+        const float4 hi = *reinterpret_cast<const float4*>(&row_tab[yy][4]);
+        p[0] = lo.x, p[1] = lo.y, p[2] = lo.z, p[3] = lo.w;
+        p[4] = hi.x, p[5] = hi.y, p[6] = hi.z, p[7] = hi.w;
+      }
+      const float kill_num = __fadd_rn(p[4], __fmul_rn(p[5], Lo));
+      const float kill_den = __fadd_rn(p[6], __fmul_rn(p[7], Lo));
+      // a NaN fails the comparison and the pixel stays 0, as a killed one does
+      if (fabsf(kill_num) <= __fmul_rn(1.5f, fabsf(kill_den))) {
+        const float num = __fadd_rn(p[0], __fmul_rn(p[1], Lo));
+        float den = __fadd_rn(p[2], __fmul_rn(p[3], Lo));
+        if (fabsf(den) < 1e-8f) den = 1e-8f;
+        float r = __fmul_rn(__fadd_rn(__fdiv_rn(num, den), 1.0f), half_o);
+        // fmaxf returns its other operand for a NaN, so a NaN coordinate
+        // clips to -64 and yields 0, as every out-of-range coordinate does
+        r = fminf(fmaxf(r, -64.0f), float(L) + 64.0f);
+        v = hat2<AXIS>(src, r, L, AXIS == 0 ? x : y, C);
+      }
+    }
+    o_img[size_t(y) * C + x] = v;
   }
 }
 
@@ -146,14 +232,16 @@ extern "C" int ssp_vresample_coef_launch(const void* img, const void* coefs, voi
                                          void* stream) {
   if (N <= 0 || M <= 0 || N % M || R < 2 || C < 2 || (axis != 0 && axis != 1))
     return int(cudaErrorInvalidValue);
-  const dim3 grid = grid_for(R * C, N);
+  const int tiles_x = (C + COEF_TX - 1) / COEF_TX, tiles_y = (R + COEF_TY - 1) / COEF_TY;
+  if (size_t(N) * tiles_x * tiles_y > size_t(0x7fffffff)) return int(cudaErrorInvalidValue);
+  const unsigned blocks = unsigned(N) * tiles_x * tiles_y;
   auto s = static_cast<cudaStream_t>(stream);
   auto a = static_cast<const float*>(img);
   auto b = static_cast<const float*>(coefs);
   auto c = static_cast<float*>(out);
   if (axis == 0)
-    vresample_coef_kernel<0><<<grid, THREADS, 0, s>>>(a, b, c, N, N / M, R, C);
+    vresample_coef_kernel<0><<<blocks, THREADS, 0, s>>>(a, b, c, N / M, R, C, tiles_x, tiles_y);
   else
-    vresample_coef_kernel<1><<<grid, THREADS, 0, s>>>(a, b, c, N, N / M, R, C);
+    vresample_coef_kernel<1><<<blocks, THREADS, 0, s>>>(a, b, c, N / M, R, C, tiles_x, tiles_y);
   return int(cudaGetLastError());
 }

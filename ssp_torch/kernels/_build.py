@@ -21,7 +21,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("conv_pair", "nms", "vresample")
+SOURCES = ("conv_pair", "nms", "stem", "vresample")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -39,27 +39,37 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def _lib_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _lib_path(name: str, flags=NVCC_FLAGS) -> Path:
+    h = hashlib.sha256(" ".join(flags).encode())
     h.update((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def _start(name: str, out: Path) -> subprocess.Popen:
+def _start(name: str, out: Path, flags=NVCC_FLAGS) -> subprocess.Popen:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *flags, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
-def _finish(name: str, out: Path, proc: subprocess.Popen) -> None:
+def _finish(name: str, out: Path, proc: subprocess.Popen) -> str:
     log, _ = proc.communicate()
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)
+    return log
+
+
+def resource_usage(name: str) -> str:
+    """What ``ptxas -v`` says of ``csrc/<name>.cu``: registers, spills and
+    shared memory of each kernel.  Compiles into a library of its own that
+    is never loaded."""
+    flags = (*NVCC_FLAGS, "-Xptxas", "-v")
+    out = _lib_path(name, flags)
+    return _finish(name, out, _start(name, out, flags))
 
 
 def build_all() -> None:

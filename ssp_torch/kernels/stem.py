@@ -1,22 +1,30 @@
 """Fused SuperPoint stem: conv3×3 1→64 → folded BN → ReLU → conv3×3 64→64
 → folded BN → ReLU (→ 2×2 max), NHWC, SAME padding.
 
-Replaces two TPU kernels with the CUDA kernel ``ssp_torch/csrc/conv_pair.cu``
-(``CIN = 1``): ``ssp/kernels/stem_pallas_v2.py::stem_pallas_packed`` (the
-stem with the pool fused, ``pool=True``: ``conv_pair_kernel<1, true>``) and
+Replaces two TPU kernels with the CUDA kernel ``ssp_torch/csrc/stem.cu``:
+``ssp/kernels/stem_pallas_v2.py::stem_pallas_packed`` (the stem with the
+pool fused, ``pool=True``: ``stem_kernel<true>``) and
 ``ssp/kernels/stem_pallas.py::stem_pallas`` (the first stem kernel, without
-the pool, ``pool=False``: ``conv_pair_kernel<1, false>``; no path of either
-package runs it).
+the pool, ``pool=False``: ``stem_kernel<false>``; no path of either package
+runs it).
 
 What bounds it on an H100: tensor-core operations.  At 480×640×16 the
 second conv is ~0.36 TFLOP of bf16 work (~0.37 ms at 989 TFLOP/s) against
-~0.18 GB of HBM traffic (~0.05 ms at 3.35 TB/s).  The design keeps the
-64-channel full-resolution intermediate in shared memory, never in device
-memory, and runs the second conv as an implicit GEMM on ``mma.sync``
-bf16 tensor cores with fp32 accumulation; the 2×2 max is fused into the
-epilogue, so the kernel writes a quarter of the pixels.  The TPU kernel's
-x-pair 128-lane packing answered the TPU's lane width and has no
-counterpart here.
+~0.18 GB of HBM traffic (~0.05 ms).  The kernel keeps the 64-channel
+full-resolution intermediate in shared memory, never in device memory;
+persistent blocks, one per SM, hold both convs' weights in shared memory
+for all their tiles; three warpgroups each walk over their own tiles, so
+that one's loads, first conv and epilogue run beside another's main loop;
+both convs are implicit GEMMs on ``wgmma`` with fp32 accumulation; the 2×2
+max is fused into the epilogue, so the kernel writes a quarter of the
+pixels.  The TPU kernel's x-pair 128-lane packing answered the TPU's lane
+width and has no counterpart here.
+
+The kernel reads both convs' weights as the exact images of its shared
+memory (:func:`swizzle_w1`, :func:`swizzle_w2`); :func:`prepare_stem` builds
+them once, where the weights go to the device, and :func:`stem_prepared`
+launches with them.  :func:`stem` takes HWIO weights and prepares them per
+call.
 
 Numerics (the TPU kernel's rounding points): the input is rounded to
 bf16, weights are bf16, products accumulate in fp32, scale/bias/ReLU are
@@ -24,12 +32,14 @@ fp32, the intermediate is rounded to bf16 before the second conv, and
 the output is bf16.  :func:`stem_plain` computes the same function in
 PyTorch and is what :func:`stem` runs for a CPU tensor.
 
-``launches`` counts the kernel launches of :func:`stem`.
+``launches`` counts the kernel launches of :func:`stem` and
+:func:`stem_prepared`.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -111,37 +121,91 @@ def _check_affine(cin: int, w1, s1, b1, w2, s2, b2) -> None:
             raise ValueError(f"{name} must be float32 ({C},), got {v.dtype} {tuple(v.shape)}")
 
 
-def check_inputs(x: torch.Tensor, cin: int, x_dtype: torch.dtype, pool: bool,
-                 params) -> None:
-    """Shape/dtype/device checks shared by the stem and down1 wrappers."""
+class PreparedPair(NamedTuple):
+    """A conv pair's weights, checked once and ready for its kernel."""
+
+    params: Tuple[torch.Tensor, ...]  # (w1, s1, b1, w2, s2, b2) as given: HWIO bf16, fp32 [64]
+    kernel: Tuple[torch.Tensor, ...]  # the same six, contiguous, in the CUDA kernel's layouts
+
+
+def kernel_layout(w: torch.Tensor) -> torch.Tensor:
+    """HWIO ``[3, 3, in, out]`` → the kernels' ``[3, 3, out, in]``, input
+    channels contiguous."""
+    return w.permute(0, 1, 3, 2).contiguous()
+
+
+def _xor_chunks(w: torch.Tensor) -> torch.Tensor:
+    """``[taps, 64, 8, 8]`` (tap, row, 16-byte chunk, element) → the same with
+    chunk ``c`` of row ``n`` at position ``c ^ (n & 7)``: the 128-byte
+    swizzle.  It is its own inverse."""
+    n = torch.arange(C, device=w.device)[:, None]
+    pos = torch.arange(8, device=w.device)[None, :]
+    src = (pos ^ (n & 7))[None, :, :, None].expand_as(w)
+    return torch.gather(w, 2, src)
+
+
+def swizzle_w2(w2: torch.Tensor) -> torch.Tensor:
+    """The second conv's HWIO bf16 weights ``[3, 3, 64, 64]`` → the flat
+    image ``[9·64·64]`` that ``stem.cu`` copies into shared memory as it is:
+    element (tap, out ``n``, in ``k``) at byte
+    ``tap·8192 + n·128 + (((k >> 3) ^ (n & 7)) << 4) + (k & 7)·2``, the
+    K-major 128-byte-swizzle layout that a ``wgmma`` descriptor reads."""
+    return _xor_chunks(kernel_layout(w2).reshape(9, C, 8, 8)).reshape(-1)
+
+
+def swizzle_w1(w1: torch.Tensor) -> torch.Tensor:
+    """The first conv's HWIO bf16 weights ``[3, 3, 1, 64]`` → one more
+    8,192-byte slice of the same layout, flat ``[64·64]``: row ``n`` the
+    output channel, column ``k`` the tap (9 of the 64 columns, the rest 0)."""
+    rows = torch.zeros(1, C, C, dtype=w1.dtype, device=w1.device)
+    rows[0, :, :9] = w1.reshape(9, C).t()
+    return _xor_chunks(rows.reshape(1, C, 8, 8)).reshape(-1)
+
+
+def prepare_pair(cin: int, params, w1_kernel, w2_kernel) -> PreparedPair:
+    """Check a pair's weights and lay them out for its kernel through
+    ``w1_kernel`` and ``w2_kernel``."""
+    w1, s1, b1, w2, s2, b2 = params
+    _check_affine(cin, *params)
+    if any(p.device != w1.device for p in params):
+        raise ValueError("the weights must be on one device")
+    kernel = (w1_kernel(w1), s1.contiguous(), b1.contiguous(), w2_kernel(w2),
+              s2.contiguous(), b2.contiguous())
+    return PreparedPair(tuple(params), kernel)
+
+
+def prepare_stem(w1: torch.Tensor, scale1: torch.Tensor, bias1: torch.Tensor,
+                 w2: torch.Tensor, scale2: torch.Tensor, bias2: torch.Tensor) -> PreparedPair:
+    """The stem's weights (as :func:`stem` takes them) → what
+    :func:`stem_prepared` launches with; done once per model."""
+    return prepare_pair(1, (w1, scale1, bias1, w2, scale2, bias2), swizzle_w1, swizzle_w2)
+
+
+def check_x(x: torch.Tensor, cin: int, x_dtype: torch.dtype, pool: bool,
+            prep: PreparedPair) -> None:
+    """Shape/dtype/device checks of the input, shared by the stem and down1."""
     if x.dim() != 4 or x.shape[-1] != cin or x.dtype != x_dtype:
         raise ValueError(f"x must be {x_dtype} [B, H, W, {cin}], got {x.dtype} {tuple(x.shape)}")
     if pool and (x.shape[1] % 2 or x.shape[2] % 2):
         raise ValueError(f"pool=True needs even H and W, got {tuple(x.shape)}")
-    _check_affine(cin, *params)
-    if any(p.device != x.device for p in params):
+    if prep.params[0].device != x.device:
         raise ValueError("x and the weights must be on one device")
 
 
-def launch_pair(symbol: str, x: torch.Tensor, params, pool: bool) -> torch.Tensor:
-    """Launch ``conv_pair.cu``'s ``symbol`` on CUDA tensors; returns the
+def launch_pair(lib: str, symbol: str, x: torch.Tensor, prep: PreparedPair,
+                pool: bool) -> torch.Tensor:
+    """Launch ``csrc/<lib>.cu``'s ``symbol`` on a CUDA tensor; returns the
     bf16 NHWC output."""
     if x.device.type != "cuda":
         raise ValueError(f"expected a CUDA or CPU tensor, got {x.device}")
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("x must be contiguous NHWC with a 16-byte aligned start")
-    w1, s1, b1, w2, s2, b2 = params
     B, H, W, _ = x.shape
-    # kernel weight layout: [3, 3, C out, C in], input channels contiguous
-    w1k = w1.permute(0, 1, 3, 2).contiguous()
-    w2k = w2.permute(0, 1, 3, 2).contiguous()
-    s1, b1, s2, b2 = (v.contiguous() for v in (s1, b1, s2, b2))
     shape = (B, H // 2, W // 2, C) if pool else (B, H, W, C)
     out = torch.empty(shape, dtype=torch.bfloat16, device=x.device)
-    fn = getattr(_build.load("conv_pair"), symbol)
+    fn = getattr(_build.load(lib), symbol)
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    err = fn(x.data_ptr(), w1k.data_ptr(), s1.data_ptr(), b1.data_ptr(),
-             w2k.data_ptr(), s2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+    err = fn(x.data_ptr(), *(t.data_ptr() for t in prep.kernel), out.data_ptr(),
              B, H, W, int(pool), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, symbol)
     return out
@@ -151,6 +215,17 @@ def stem_plain(x: torch.Tensor, w1, s1, b1, w2, s2, b2, pool: bool = True) -> to
     """The stem in plain PyTorch: x [B, H, W, 1] fp32 (rounded to bf16
     first) → [B, H/2, W/2, 64] (pool) or [B, H, W, 64] bf16."""
     return conv_pair_plain(x.to(torch.bfloat16), w1, s1, b1, w2, s2, b2, pool)
+
+
+def stem_prepared(x: torch.Tensor, prep: PreparedPair, pool: bool = True) -> torch.Tensor:
+    """:func:`stem` with weights from :func:`prepare_stem`."""
+    global launches
+    check_x(x, 1, torch.float32, pool, prep)
+    if x.device.type == "cpu":
+        return stem_plain(x, *prep.params, pool=pool)
+    out = launch_pair("stem", "ssp_stem_launch", x, prep, pool)
+    launches += 1
+    return out
 
 
 def stem(x: torch.Tensor, w1: torch.Tensor, scale1: torch.Tensor, bias1: torch.Tensor,
@@ -165,11 +240,4 @@ def stem(x: torch.Tensor, w1: torch.Tensor, scale1: torch.Tensor, bias1: torch.T
     ``pool``).  CPU tensors run :func:`stem_plain`; CUDA tensors launch
     the kernel.
     """
-    global launches
-    params = (w1, scale1, bias1, w2, scale2, bias2)
-    check_inputs(x, 1, torch.float32, pool, params)
-    if x.device.type == "cpu":
-        return stem_plain(x, *params, pool=pool)
-    out = launch_pair("ssp_stem_launch", x, params, pool)
-    launches += 1
-    return out
+    return stem_prepared(x, prepare_stem(w1, scale1, bias1, w2, scale2, bias2), pool)

@@ -39,10 +39,16 @@ from ssp_torch.core.homography import inv3
 from ssp_torch.kernels.vresample import (KILL, vresample, vresample_coef, vresample_coef_plain,
                                           vresample_plain)
 
-# Opt-in: rebuild the coordinate grids inside the resample kernel
-# (``vresample_coef``) from 20 scalars per warp and pass, instead of as
-# [N, S, S] coordinate arrays built with tensor ops (``vresample``).
-COEF_GRIDS = False
+# The route of the two passes.  True (the coef route): the resample kernel
+# rebuilds the coordinates itself (``vresample_coef``) from 20 scalars per warp
+# and pass.  False (the rows route): they are built with tensor ops as
+# [N, S, S] coordinate arrays that the kernel reads (``vresample``).  The JAX
+# package keeps the rows route because its coef kernel lost on a TPU; on an
+# H100 a whole homography-adaptation group of 8 images x 100 warps takes 77-90
+# ms on the coef route against 96-99 ms on the rows route (H100 80GB HBM3, 700
+# W, ``python -m ssp_torch.bench_ha --routes``), so the coef route is the
+# default.
+COEF_GRIDS = True
 
 
 def _rot_k(k: int) -> torch.Tensor:

@@ -30,8 +30,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ssp_torch._device import resolve_device
-from ssp_torch.kernels.down1 import down1, down1_plain
-from ssp_torch.kernels.stem import stem, stem_plain
+from ssp_torch.kernels.down1 import down1_plain, down1_prepared, prepare_down1
+from ssp_torch.kernels.stem import prepare_stem, stem_plain, stem_prepared
 
 Folded = Dict[str, Tuple[torch.Tensor, ...]]
 _BLOCKS = {"inc": "inc.conv.conv", "d1": "down1.mpconv.1.conv",
@@ -80,17 +80,19 @@ def fold_variables(variables: Union[nn.Module, Mapping[str, torch.Tensor]]) -> F
 
 
 def _to_device(folded: Folded, device: torch.device) -> Dict[str, Any]:
-    """Folded weights on ``device``, with each torch-conv kernel also kept
-    as an fp32 OIHW (channels-last on the card) tensor for ``F.conv2d``."""
+    """Folded weights on ``device``, each laid out once for what runs it:
+    ``stem`` and ``down1`` as the kernels' prepared pairs, every other conv
+    with its kernel also kept as an fp32 OIHW (channels-last on the card)
+    tensor for ``F.conv2d``."""
     out: Dict[str, Any] = {}
-    for key, vals in folded.items():
-        vals = tuple(v.to(device) for v in vals)
-        if key not in ("inc0", "inc1", "d1a", "d1b"):
-            w = vals[0].float().permute(3, 2, 0, 1)
-            if device.type == "cuda":
-                w = w.contiguous(memory_format=torch.channels_last)
-            vals = vals + (w,)
-        out[key] = vals
+    on_dev = {key: tuple(v.to(device) for v in vals) for key, vals in folded.items()}
+    out["stem"] = prepare_stem(*on_dev.pop("inc0"), *on_dev.pop("inc1"))
+    out["down1"] = prepare_down1(*on_dev.pop("d1a"), *on_dev.pop("d1b"))
+    for key, vals in on_dev.items():
+        w = vals[0].float().permute(3, 2, 0, 1)
+        if device.type == "cuda":
+            w = w.contiguous(memory_format=torch.channels_last)
+        out[key] = vals + (w,)
     return out
 
 
@@ -167,9 +169,11 @@ def _pool(x: torch.Tensor) -> torch.Tensor:
 def _forward(x: torch.Tensor, dev: Dict[str, Any], reference: bool) -> Dict[str, torch.Tensor]:
     """Folded-BN forward body.  ``reference=True`` runs the kernels'
     plain versions instead of the kernels (to check them on the card)."""
-    stem_fn, down1_fn = (stem_plain, down1_plain) if reference else (stem, down1)
-    t = stem_fn(x.float().contiguous(), *dev["inc0"][:3], *dev["inc1"][:3], pool=True)
-    t = down1_fn(t, *dev["d1a"][:3], *dev["d1b"][:3], pool=True)
+    x = x.float().contiguous()
+    if reference:
+        t = down1_plain(stem_plain(x, *dev["stem"].params), *dev["down1"].params)
+    else:
+        t = down1_prepared(stem_prepared(x, dev["stem"]), dev["down1"])
     t = _pool(_conv(_conv(t, dev["d2a"]), dev["d2b"]))
     feat = _conv(_conv(t, dev["d3a"]), dev["d3b"])
 

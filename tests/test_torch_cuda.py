@@ -63,6 +63,62 @@ def test_stem_kernel_matches_plain(cuda, hw, pool):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape,pool", [
+    ((1, 16, 16), True),     # one tile: fewer tiles than the persistent grid has blocks
+    ((3, 14, 18), True),     # one under and one over the 16x16 tile
+    ((1, 18, 14), True),
+    ((3, 15, 17), False),    # odd sizes, unpooled
+    ((1, 17, 15), False),
+    ((1, 2, 2), True),       # smaller than a tile's halo
+    ((7, 112, 112), True),   # 343 tiles: no multiple of the grid
+    ((100, 240, 320), True),  # the export path's chunk
+    ((100, 240, 320), False),
+])
+def test_stem_kernel_edge_shapes_match_plain_and_fp64(cuda, shape, pool):
+    rng = np.random.default_rng(sum(shape))
+    x = torch.from_numpy(rng.uniform(size=(*shape, 1)).astype(np.float32)).to(cuda)
+    p = _params(rng, 1, cuda)
+    got = stem_mod.stem(x, *p, pool=pool)
+    torch.cuda.synchronize()
+    stem_mod.assert_bf16_close(got, stem_mod.stem_plain(x, *p, pool=pool))
+    if x.numel() <= 7 * 112 * 112:  # fp64 convs of the large shapes take minutes
+        stem_mod.assert_bf16_close(got, _fp64_pair(x, *p, pool))
+
+
+@pytest.mark.cuda
+def test_stem_kernel_launches_in_a_row_on_different_shapes(cuda):
+    """Nothing of one launch (weights, buffers, barriers in shared memory) is
+    left for the next: large, small, other weights, large again."""
+    rng = np.random.default_rng(13)
+    big = torch.from_numpy(rng.uniform(size=(4, 240, 320, 1)).astype(np.float32)).to(cuda)
+    small = torch.from_numpy(rng.uniform(size=(1, 16, 16, 1)).astype(np.float32)).to(cuda)
+    pa, pb = _params(rng, 1, cuda), _params(rng, 1, cuda)
+    prep_a, prep_b = stem_mod.prepare_stem(*pa), stem_mod.prepare_stem(*pb)
+    outs = [stem_mod.stem_prepared(big, prep_a), stem_mod.stem_prepared(small, prep_b),
+            stem_mod.stem_prepared(small, prep_a, pool=False),
+            stem_mod.stem_prepared(big, prep_b), stem_mod.stem_prepared(big, prep_a)]
+    torch.cuda.synchronize()
+    stem_mod.assert_bf16_close(outs[0], stem_mod.stem_plain(big, *pa))
+    stem_mod.assert_bf16_close(outs[1], stem_mod.stem_plain(small, *pb))
+    stem_mod.assert_bf16_close(outs[2], stem_mod.stem_plain(small, *pa, pool=False))
+    stem_mod.assert_bf16_close(outs[3], stem_mod.stem_plain(big, *pb))
+    assert torch.equal(outs[4], outs[0])  # the same launch twice: the same bits
+
+
+@pytest.mark.cuda
+def test_prepared_weights_equal_weights_per_call_on_the_card(cuda):
+    rng = np.random.default_rng(14)
+    ps, pd = _params(rng, 1, cuda), _params(rng, 64, cuda)
+    x = torch.from_numpy(rng.uniform(size=(2, 120, 168, 1)).astype(np.float32)).to(cuda)
+    before = stem_mod.launches, down1_mod.launches
+    a = stem_mod.stem_prepared(x, stem_mod.prepare_stem(*ps))
+    b = down1_mod.down1_prepared(a, down1_mod.prepare_down1(*pd))
+    assert (stem_mod.launches, down1_mod.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(a, stem_mod.stem(x, *ps))
+    assert torch.equal(b, down1_mod.down1(a, *pd))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("hw", [(240, 320), (60, 84), (20, 28)])
 @pytest.mark.parametrize("pool", [True, False])
 def test_down1_kernel_matches_plain(cuda, hw, pool):
@@ -197,8 +253,40 @@ def test_vresample_coef_kernel_matches_plain(cuda, axis, n_imgs, hw):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("bounds", [(10.0, 10.0, 0.0, 1e4), (0.0, 1e4, 50.0, 50.0),
+                                    (31.0, 32.0, 0.0, 1e4), (0.0, 1e4, 64.0, 65.0),
+                                    (40.0, 80.0, 20.0, 70.0), (float("nan"), 1e4, 0.0, 1e4)],
+                         ids=["empty_along_axis", "empty_along_line", "one_row", "one_column",
+                              "cuts_tiles_in_two", "nan_bound"])
+@pytest.mark.parametrize("n_imgs,hw", [(1, (96, 96)), (3, (100, 70)), (1, (40, 136))])
+def test_vresample_coef_kernel_keep_bounds_and_rectangles(cuda, axis, bounds, n_imgs, hw):
+    """Keep bounds that are empty, one row or column wide, across the kernel's
+    64×64 tiles, or NaN (nothing kept); sizes that are no multiple of the tile,
+    square and not; shared and per-warp images."""
+    rng = np.random.default_rng(15)
+    N, S = 6, max(hw)
+    img = torch.from_numpy(rng.uniform(size=(n_imgs, *hw)).astype(np.float32)).to(cuda)
+    Hm = torch.from_numpy((np.eye(3) + rng.normal(0, 0.1, (N, 3, 3))).astype(np.float32))
+    coefs = warp_twopass._pass_coefs(Hm, 0.0, 1e4, 0.0, 1e4, S)[axis].clone()
+    coefs[:, 16:] = torch.tensor(bounds)
+    coefs = coefs.to(cuda)
+    got = vres_mod.vresample_coef(img, coefs, axis=axis)
+    torch.cuda.synchronize()
+    want = vres_mod.vresample_coef_plain(img, coefs, axis=axis)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-6 * float(img.abs().max())
+    o = torch.arange(hw[axis], device=cuda, dtype=torch.float32)
+    line = torch.arange(hw[1 - axis], device=cuda, dtype=torch.float32)
+    kept = ((o >= bounds[0]) & (o < bounds[1]))[:, None] & ((line >= bounds[2])
+                                                            & (line < bounds[3]))[None, :]
+    kept = kept if axis == 0 else kept.t()
+    assert not bool(got[:, ~kept].any())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("coef", [False, True], ids=["rows", "coef"])
-def test_twopass_warp_on_card_matches_cpu(cuda, coef):
+def test_twopass_warp_on_card_matches_cpu(cuda, coef, monkeypatch):
     """The whole two-pass warp at an odd rectangular size, all four rotation
     buckets, kernels on the card against the plain versions on the CPU:
     1e-4 (the coordinate grids are built by tensor ops on two devices, whose
@@ -214,13 +302,10 @@ def test_twopass_warp_on_card_matches_cpu(cuda, coef):
         Hm[2, :2] = rng.uniform(-0.05, 0.05, 2)
         Hs.append(Hm)
     Hs = torch.from_numpy(np.stack(Hs).astype(np.float32))
-    warp_twopass.COEF_GRIDS = coef
-    try:
-        want = warp_twopass.inv_warp_image_twopass(img, Hs)
-        got = warp_twopass.inv_warp_image_twopass(img.to(cuda), Hs)        # Hm on the host
-        got_dev = warp_twopass.inv_warp_image_twopass(img.to(cuda), Hs.to(cuda))
-    finally:
-        warp_twopass.COEF_GRIDS = False
+    monkeypatch.setattr(warp_twopass, "COEF_GRIDS", coef)
+    want = warp_twopass.inv_warp_image_twopass(img, Hs)
+    got = warp_twopass.inv_warp_image_twopass(img.to(cuda), Hs)        # Hm on the host
+    got_dev = warp_twopass.inv_warp_image_twopass(img.to(cuda), Hs.to(cuda))
     assert got.shape == (4, 120, 168) and float(want.abs().mean()) > 0.05
     assert float((got.cpu() - want).abs().max()) <= 1e-4
     assert float((got_dev.cpu() - want).abs().max()) <= 1e-4

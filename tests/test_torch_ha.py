@@ -41,6 +41,7 @@ from ssp.postprocess.points import soft_argmax_refine as j_refine
 from ssp_torch.bench import structured_images
 from ssp_torch.export import DEFAULT_HA, make_ha_fn, run_ha_export
 from ssp_torch.export.homography_adaptation import _image_generator
+from ssp_torch.kernels import warp_twopass
 from ssp_torch.models.fast_infer import best_apply_fn, supports_fast
 from ssp_torch.models.weights import load_flax_npz
 from ssp_torch.postprocess.points import soft_argmax_refine
@@ -118,7 +119,7 @@ def test_ha_matches_jax_with_injected_homographies(jax_model, model, aggregation
     np.testing.assert_array_equal(one_valid.numpy(), valid[0])
 
 
-def test_twopass_ha_agrees_with_gather_ha(model):
+def _twopass_against_gather_ha(model):
     images = torch.from_numpy(structured_images(2, H, W, 4)[..., 0])
     apply_fn = best_apply_fn(model, enable=False, device="cpu")
     common = dict(device="cpu", num_h=6, top_k=TOP_K, chunk=5)
@@ -134,6 +135,18 @@ def test_twopass_ha_agrees_with_gather_ha(model):
         assert _matched(*a, *b, 0.0)[0] >= 0.65 and _matched(*b, *a, 0.0)[0] >= 0.65
         strong = a[1] & (a[0][:, 2] >= 0.05)
         assert strong.sum() >= 2 and _matched(a[0], strong, *b, 3.0)[0] >= 0.9
+
+
+def test_twopass_ha_agrees_with_gather_ha(model):
+    """The two-pass warp on its default route (coordinates rebuilt in the
+    resample kernel from coefficients)."""
+    assert warp_twopass.COEF_GRIDS
+    _twopass_against_gather_ha(model)
+
+
+def test_twopass_ha_on_the_rows_route_agrees_with_gather_ha(model, monkeypatch):
+    monkeypatch.setattr(warp_twopass, "COEF_GRIDS", False)
+    _twopass_against_gather_ha(model)
 
 
 def test_ha_generators_and_argument_checks(model):

@@ -122,3 +122,121 @@ def test_wrappers_check_inputs():
         nms_mod.nms(torch.zeros(8, 8, dtype=torch.float64))
     with pytest.raises(ValueError, match="CUDA or CPU"):
         nms_mod.nms(torch.zeros(8, 8, device="meta"))
+
+
+def _fp64_pair(x, w1, s1, b1, w2, s2, b2, pool):
+    """The conv pair in fp64 with the kernels' bf16 roundings (input, weights,
+    intermediate, output), independent of ``conv_pair_plain``'s fp32 convs."""
+    import torch.nn.functional as F
+
+    def conv(h, w, s, b):
+        y = F.conv2d(h, w.double().permute(3, 2, 0, 1), padding=1)
+        return torch.relu(y * s.double()[:, None, None] + b.double()[:, None, None])
+
+    h = conv(x.to(torch.bfloat16).double().permute(0, 3, 1, 2), w1, s1, b1)
+    h = conv(h.to(torch.bfloat16).double(), w2, s2, b2)
+    if pool:
+        h = F.max_pool2d(h, 2)
+    return h.to(torch.bfloat16).permute(0, 2, 3, 1)
+
+
+@pytest.mark.parametrize("B,H,W", [(1, 16, 16), (3, 16, 32), (1, 32, 48), (3, 48, 16)])
+@pytest.mark.parametrize("pool", [True, False])
+def test_stem_plain_matches_pallas_at_tile_multiples(B, H, W, pool):
+    """One, two and three of the CUDA kernel's 16×16 tiles along either axis,
+    B = 1 and 3 (the Pallas kernel takes multiples of 16 only)."""
+    rng = np.random.default_rng(B * 1000 + H * 10 + W)
+    x = rng.uniform(size=(B, H, W, 1)).astype(np.float32)
+    p = _conv_bn(rng, 1) + _conv_bn(rng, 64)
+    want = np.asarray(stem_pallas_packed(jnp.asarray(x), *map(jnp.asarray, p),
+                                         pool=pool, interpret=True), np.float32)
+    if not pool:
+        want = want.reshape(B, H, W, 64)
+    got = stem_mod.stem(torch.from_numpy(x), *_torch_params(p), pool=pool)
+    assert got.shape == want.shape
+    stem_mod.assert_bf16_close(got, torch.from_numpy(want))
+
+
+@pytest.mark.parametrize("B,H,W,pool", [(1, 14, 14, True), (3, 16, 16, True), (1, 18, 18, True),
+                                        (3, 14, 18, True), (1, 15, 17, False),
+                                        (3, 17, 15, False)])
+def test_stem_plain_matches_fp64_around_the_tile_size(B, H, W, pool):
+    """H and W one under, at and one over the CUDA kernel's 16×16 tile (two
+    under and over where the pool needs even sizes), which the Pallas kernel
+    does not take: the plain version against the same function in fp64."""
+    rng = np.random.default_rng(H * 100 + W + B)
+    x = torch.from_numpy(rng.uniform(size=(B, H, W, 1)).astype(np.float32))
+    p = _torch_params(_conv_bn(rng, 1) + _conv_bn(rng, 64))
+    got = stem_mod.stem(x, *p, pool=pool)
+    assert got.shape == ((B, H // 2, W // 2, 64) if pool else (B, H, W, 64))
+    stem_mod.assert_bf16_close(got, _fp64_pair(x, *p, pool))
+
+
+def test_swizzled_weight_images():
+    """The weight images that ``stem.cu`` copies into shared memory: a
+    permutation of the weights, element (tap, out, in) at the byte the
+    kernel's header gives, undone by the same XOR."""
+    rng = np.random.default_rng(11)
+    w2 = torch.from_numpy(rng.normal(size=(3, 3, 64, 64)).astype(np.float32)).to(torch.bfloat16)
+    image = stem_mod.swizzle_w2(w2)
+    assert image.shape == (9 * 64 * 64,) and image.dtype == torch.bfloat16
+    assert image.is_contiguous()
+    k = stem_mod.kernel_layout(w2)  # [3, 3, out, in]
+    assert torch.equal(k, w2.permute(0, 1, 3, 2))
+    assert torch.equal(torch.sort(image.float())[0], torch.sort(w2.float().reshape(-1))[0])
+    tap, n, kk = np.meshgrid(np.arange(9), np.arange(64), np.arange(64), indexing="ij")
+    byte = tap * 8192 + n * 128 + (((kk >> 3) ^ (n & 7)) << 4) + (kk & 7) * 2
+    assert torch.equal(image[torch.from_numpy(byte // 2)], k.reshape(9, 64, 64))
+    back = stem_mod._xor_chunks(image.reshape(9, 64, 8, 8)).reshape(3, 3, 64, 64)
+    assert torch.equal(back, w2.permute(0, 1, 3, 2))
+
+    w1 = torch.from_numpy(rng.normal(size=(3, 3, 1, 64)).astype(np.float32)).to(torch.bfloat16)
+    image1 = stem_mod.swizzle_w1(w1)
+    assert image1.shape == (64 * 64,)
+    rows = stem_mod._xor_chunks(image1.reshape(1, 64, 8, 8)).reshape(64, 64)
+    assert torch.equal(rows[:, :9], w1.reshape(9, 64).t())  # row: channel, column: tap
+    assert not rows[:, 9:].any()
+
+
+def test_prepared_weights_equal_weights_per_call():
+    """``prepare_stem`` / ``prepare_down1`` once and ``stem`` / ``down1`` with
+    HWIO weights per call are the same function, and the prepared tensors are
+    what the kernels read: ``[3, 3, out, in]`` contiguous, or its swizzle."""
+    rng = np.random.default_rng(12)
+    ps = _torch_params(_conv_bn(rng, 1) + _conv_bn(rng, 64))
+    pd = _torch_params(_conv_bn(rng, 64) + _conv_bn(rng, 64))
+    x = torch.from_numpy(rng.uniform(size=(2, 16, 24, 1)).astype(np.float32))
+    prep_s, prep_d = stem_mod.prepare_stem(*ps), down1_mod.prepare_down1(*pd)
+    for pool in (True, False):
+        a = stem_mod.stem_prepared(x, prep_s, pool=pool)
+        assert torch.equal(a, stem_mod.stem(x, *ps, pool=pool))
+        assert torch.equal(down1_mod.down1_prepared(a, prep_d, pool=pool),
+                           down1_mod.down1(a, *pd, pool=pool))
+    assert all(t.is_contiguous() for t in prep_s.kernel + prep_d.kernel)
+    assert torch.equal(prep_s.kernel[0], stem_mod.swizzle_w1(ps[0]))
+    assert torch.equal(prep_s.kernel[3], stem_mod.swizzle_w2(ps[3]))
+    assert torch.equal(prep_d.kernel[0], pd[0].permute(0, 1, 3, 2))
+    assert torch.equal(prep_d.kernel[3], pd[3].permute(0, 1, 3, 2))
+    for i in (1, 2, 4, 5):
+        assert torch.equal(prep_s.kernel[i], ps[i]) and torch.equal(prep_d.kernel[i], pd[i])
+    with pytest.raises(ValueError, match="w2"):
+        stem_mod.prepare_stem(*ps[:3], ps[3].float(), *ps[4:])
+    with pytest.raises(ValueError, match="one device"):
+        stem_mod.stem_prepared(x.to("meta"), prep_s)
+
+
+def test_fast_apply_prepares_the_kernel_weights_once():
+    """``make_fast_apply`` lays the stem's and down1's weights out where it
+    puts them on the device, not per call."""
+    from ssp_torch.models import build_model
+    from ssp_torch.models.fast_infer import _to_device, fold_variables
+
+    model = build_model("SuperPointNet_gauss2", device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+    folded = fold_variables(model)
+    dev = _to_device(folded, torch.device("cpu"))
+    assert "inc0" not in dev and "d1a" not in dev
+    assert torch.equal(dev["stem"].kernel[3], stem_mod.swizzle_w2(folded["inc1"][0]))
+    assert torch.equal(dev["down1"].kernel[0], folded["d1a"][0].permute(0, 1, 3, 2))
+    assert all(torch.equal(a, b) for a, b in zip(dev["stem"].params,
+                                                 (*folded["inc0"], *folded["inc1"])))

@@ -177,11 +177,15 @@ def _rotation(rng, ang):
 
 
 @pytest.fixture
-def coef_grids():
-    """Switch the port's two-pass warp to the coef route for one test."""
-    tt.COEF_GRIDS = True
-    yield
-    tt.COEF_GRIDS = False
+def coef_grids(monkeypatch):
+    """The port's two-pass warp on the coef route for one test."""
+    monkeypatch.setattr(tt, "COEF_GRIDS", True)
+
+
+@pytest.fixture
+def rows_grids(monkeypatch):
+    """The port's two-pass warp on the rows route for one test."""
+    monkeypatch.setattr(tt, "COEF_GRIDS", False)
 
 
 def test_twopass_matches_jax_coef_path_all_buckets(coef_grids):
@@ -201,16 +205,13 @@ def test_twopass_matches_jax_coef_path_all_buckets(coef_grids):
 
 
 @pytest.mark.parametrize("coef", [False, True], ids=["rows", "coef"])
-def test_twopass_matches_jax_gather_warp(coef):
+def test_twopass_matches_jax_gather_warp(coef, monkeypatch):
     """(b) Sampled export homographies on a smooth 48×64 image, both routes."""
     img = cv2.GaussianBlur(np.random.default_rng(3).uniform(0, 1, (48, 64)).astype(np.float32),
                            (7, 7), 0)
     Hs = np.stack([np.array(j_sample(jax.random.key(i), **HA_PARAMS)) for i in range(12)])
-    tt.COEF_GRIDS = coef
-    try:
-        got = tt.inv_warp_image_twopass(_t(img), _t(Hs)).numpy()
-    finally:
-        tt.COEF_GRIDS = False
+    monkeypatch.setattr(tt, "COEF_GRIDS", coef)
+    got = tt.inv_warp_image_twopass(_t(img), _t(Hs)).numpy()
     worst = 0.0
     for n, Hm in enumerate(Hs):
         want = np.asarray(j_gather_warp(jnp.asarray(img)[..., None], jnp.asarray(Hm)))[..., 0]
@@ -219,7 +220,7 @@ def test_twopass_matches_jax_gather_warp(coef):
     assert worst < 0.05, worst
 
 
-def test_twopass_matches_jax_cpu_twopass_at_bf16_bar():
+def test_twopass_matches_jax_cpu_twopass_at_bf16_bar(rows_grids):
     """(c) The rows route against JAX's own CPU two-pass warp, all four
     buckets, per-warp images; and a single [3, 3] homography."""
     rng = np.random.default_rng(5)
@@ -242,6 +243,92 @@ def test_twopass_identity_is_exact_inside():
     img = np.random.default_rng(6).uniform(size=(48, 64)).astype(np.float32)
     got = tt.inv_warp_image_twopass(_t(img), torch.eye(3)).numpy()
     np.testing.assert_allclose(got, img, atol=1e-4)
+
+
+def test_twopass_identity_is_exact_inside_on_the_rows_route(rows_grids):
+    img = np.random.default_rng(6).uniform(size=(48, 64)).astype(np.float32)
+    got = tt.inv_warp_image_twopass(_t(img), torch.eye(3)).numpy()
+    np.testing.assert_allclose(got, img, atol=1e-4)
+
+
+def test_default_route_is_the_coef_route():
+    """``inv_warp_image_twopass`` goes through ``vresample_coef`` unless
+    ``COEF_GRIDS`` is switched off: bit-equal to the coef passes called by
+    hand, and not to the rows route's grids."""
+    assert tt.COEF_GRIDS is True
+    rng = np.random.default_rng(7)
+    img = _t(rng.uniform(size=(40, 40)).astype(np.float32))
+    Hm = _t(_rotation(rng, 12.0))[None]
+    canvas, Hres, bounds, k = tt._canvas_and_residual(img, Hm)
+    assert k.tolist() == [0]
+    c1, c2 = tt._pass_coefs(Hres, *bounds, 40)
+    by_hand = vm.vresample_coef(vm.vresample_coef(canvas, c1, axis=0), c2, axis=1)
+    assert torch.equal(tt.inv_warp_image_twopass(img, Hm), by_hand)
+
+
+COEF_BOUNDS = {
+    "empty_along_axis": (10.0, 10.0, 0.0, 96.0),
+    "empty_along_line": (0.0, 96.0, 50.0, 50.0),
+    "one_row": (31.0, 32.0, 0.0, 96.0),
+    "one_column": (0.0, 96.0, 64.0, 65.0),  # the first column of the second tile
+    "cuts_tiles_in_two": (40.0, 80.0, 20.0, 70.0),
+}
+
+
+@pytest.mark.parametrize("case", list(COEF_BOUNDS))
+def test_coef_keep_bounds_match_pallas(case):
+    """Keep bounds that are empty, that keep one row or one column, and that
+    cut the CUDA kernel's 64×64 tiles in two, at S = 96 (one and a half tiles):
+    the plain version against the Pallas kernel at the coef bar, 2e-4, and
+    exactly 0 outside the bounds."""
+    S = 96
+    olo, ohi, llo, lhi = COEF_BOUNDS[case]
+    img, Hm = _coef_case(17, S)
+    o, l = np.arange(S)[:, None], np.arange(S)[None, :]
+    kept = (o >= olo) & (o < ohi) & (l >= llo) & (l < lhi)
+    for coef in tt._pass_coefs(_t(Hm)[None], 0.0, float(S), 0.0, float(S), S):
+        coef = coef[0].clone()
+        coef[16:] = torch.tensor([olo, ohi, llo, lhi])
+        want = np.asarray(vresample_coef_pallas(jnp.asarray(img), jnp.asarray(coef.numpy()),
+                                                interpret=True))
+        got = vm.vresample_coef(_t(img), coef).numpy()
+        np.testing.assert_allclose(got, want, atol=2e-4)
+        assert not got[~kept].any()
+        assert (got[kept] != 0).mean() > 0.5 if kept.any() else not got.any()
+        # axis 1: the same function of the transposed image
+        got1 = vm.vresample_coef(_t(img.T), coef, axis=1).numpy()
+        np.testing.assert_array_equal(got1.T, got)
+
+
+@pytest.mark.parametrize("R,C", [(40, 72), (100, 70)])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_coef_plain_matches_fp64_on_rectangles(R, C, axis):
+    """R ≠ C, neither a multiple of the CUDA kernel's 64×64 tile (the Pallas
+    kernel takes squares only): the plain version against the formula of
+    ``coef_coords`` and the hat sum, both in fp64.  2e-4: the fp32 coordinate
+    is off by parts in 1e7 of up to ~100 px, times a slope of at most 1."""
+    rng = np.random.default_rng(R + axis)
+    img = rng.uniform(size=(R, C)).astype(np.float32)
+    L, n_lines = (R, C) if axis == 0 else (C, R)
+    c = np.zeros(20, np.float32)
+    c[0:4] = [0.05, 0.1, 0.9, 0.08]        # numerator: near the identity along the axis
+    c[4:8] = [1.0, 0.05, -0.04, 0.02]      # denominator: near 1
+    c[8:16] = [0, 0, 0, 0, 1, 0, 0, 0]     # never killed
+    c[16:] = [3.0, L - 5.0, 2.0, n_lines - 7.0]
+    io, il = np.arange(L, dtype=np.float64), np.arange(n_lines, dtype=np.float64)
+    Lo, Ll = io / ((L - 1) / 2.0) - 1.0, il / ((n_lines - 1) / 2.0) - 1.0
+    Lo, Ll = (Lo[:, None], Ll[None, :]) if axis == 0 else (Lo[None, :], Ll[:, None])
+    io, il = (io[:, None], il[None, :]) if axis == 0 else (io[None, :], il[:, None])
+    cd = c.astype(np.float64)
+    q = lambda k: (cd[k] + cd[k + 1] * Ll) + (cd[k + 2] + cd[k + 3] * Ll) * Lo
+    r = (q(0) / q(4) + 1.0) * (L - 1) / 2.0
+    keep = (io >= cd[16]) & (io < cd[17]) & (il >= cd[18]) & (il < cd[19])
+    r = np.where(keep, np.clip(r, -64.0, L + 64.0), -10.0)
+    want = _hat_fp64(img, r) if axis == 0 else _hat_fp64(img.T, r.T).T
+    got = vm.vresample_coef(_t(img), _t(c), axis=axis).numpy()
+    assert got.shape == (R, C) and 0.5 < (want != 0).mean() < 1.0
+    np.testing.assert_allclose(got, want, atol=2e-4)
+    assert not got[~np.broadcast_to(keep, (R, C))].any()
 
 
 def test_resample_wrappers_check_inputs():
