@@ -50,7 +50,9 @@ failure (nothing is caught):
 11. each kernel's time at its path's shapes beside its plain version's,
     one library call of the same function (a cuDNN composition for the
     convs, ``F.grid_sample`` for the resamples) and its bound on this card;
-    the stem also at the HA path's 100×240×320.
+    the stem and down1 also at the HA path's chunk (100×240×320 into the
+    stem, 100×120×160×64 into down1), each held against its plain version
+    there within the bf16 bars before it is timed.
 
 Prints a ``{"kernels": [...]}`` line, then the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``.
@@ -624,13 +626,22 @@ def main() -> None:
             log(f"[time] {name} axis {axis} at {tuple(d['rows'].shape)}: "
                 f"{time_ms(lambda: vres_mod.vresample(src(d, axis), coords(d, axis), axis)):.4f} ms")
 
+        # the stem and down1 at the HA path's chunk of 100 warped images, each
+        # against its plain version before it is timed below
+        ha_chunk = torch.from_numpy(structured_images(NH, HH, HW, SEED + 4)).to(dev)
+        chunk_out = stem_mod.stem_prepared(ha_chunk, stem_prep)
+        e = stem_mod.assert_bf16_close(chunk_out, stem_mod.stem_plain(ha_chunk, *stem_p))
+        e1 = stem_mod.assert_bf16_close(down1_mod.down1_prepared(chunk_out, down1_prep),
+                                        down1_mod.down1_plain(chunk_out, *down1_p))
+        err["down1"] = max(err["down1"], e1)
+
         rows = [
             ("stem", "ssp/kernels/stem_pallas_v2.py:182", "ssp_torch/csrc/stem.cu",
              lambda: stem_mod.stem_prepared(images, stem_prep),
              lambda: stem_mod.stem_plain(images, *stem_p),
              lambda: cudnn_pair(images, *stem_lib[0], *stem_lib[1]),
              bound(stem_flops, PEAK_BF16, stem_bytes)),
-            ("down1", "ssp/kernels/down1_pallas.py:107", "ssp_torch/csrc/conv_pair.cu",
+            ("down1", "ssp/kernels/down1_pallas.py:107", "ssp_torch/csrc/down1.cu",
              lambda: down1_mod.down1_prepared(stem_out, down1_prep),
              lambda: down1_mod.down1_plain(stem_out, *down1_p),
              lambda: cudnn_pair(stem_out, *d1_lib[0], *d1_lib[1]),
@@ -678,13 +689,10 @@ def main() -> None:
                 f"{on_main[name]}, HA group {on_ha[name]}"
                 + (f", rows-route run {on_rows_run[name]}" if name in on_rows_run else ""))
         # the same two kernels at the HA path's chunk of 100 warped images
-        ha_chunk = torch.from_numpy(structured_images(NH, HH, HW, SEED + 4)).to(dev)
-        chunk_out = stem_mod.stem_prepared(ha_chunk, stem_prep)
-        e = stem_mod.assert_bf16_close(chunk_out, stem_mod.stem_plain(ha_chunk, *stem_p))
         stem_ha_ms = time_ms(lambda: stem_mod.stem_prepared(ha_chunk, stem_prep))
         down1_ha_ms = time_ms(lambda: down1_mod.down1_prepared(chunk_out, down1_prep))
         log(f"[time] at the HA chunk's {NH}x{HH}x{HW}: stem {stem_ha_ms:.4f} ms (max abs err "
-            f"{e:.3g} vs plain), down1 {down1_ha_ms:.4f} ms")
+            f"{e:.3g} vs plain), down1 {down1_ha_ms:.4f} ms (max abs err {e1:.3g} vs plain)")
     torch.cuda.synchronize()
 
     print(json.dumps({"kernels": kernels}))

@@ -11,7 +11,7 @@ shared 320×320 canvases and 100 warps of 100, both axes, with the rows
 kernel ``vresample`` on the same coordinates beside it.  Weights and inputs
 are random, from a seed.  Times are means over back-to-back launches by
 CUDA events after a warm-up.  ``--resources`` first prints what ``ptxas -v``
-says of ``stem.cu`` and ``vresample.cu``.  Prints one JSON line with the
+says of ``stem.cu``, ``down1.cu`` and ``vresample.cu``.  Prints one JSON line with the
 times in ms and the card's name and power limit.  It needs a CUDA card.
 """
 
@@ -65,7 +65,7 @@ def main(argv=None) -> None:
         raise SystemExit("ssp_torch.bench_kernels needs a CUDA card")
     dev = torch.device("cuda")
     if args.resources:
-        for name in ("stem", "vresample"):
+        for name in ("stem", "down1", "vresample"):
             print(_build.resource_usage(name), file=sys.stderr, flush=True)
     _build.build_all()
     rng = np.random.default_rng(0)

@@ -21,7 +21,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("conv_pair", "nms", "stem", "vresample")
+SOURCES = ("down1", "nms", "stem", "vresample")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

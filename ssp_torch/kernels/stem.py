@@ -49,7 +49,6 @@ from ssp_torch.kernels import _build
 C = 64
 launches = 0
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 # How far the stem and down1 kernels may sit from their plain versions (or
 # from the Pallas kernels): elementwise |got − want| ≤ 2⁻⁷·|want| +
@@ -129,8 +128,8 @@ class PreparedPair(NamedTuple):
 
 
 def kernel_layout(w: torch.Tensor) -> torch.Tensor:
-    """HWIO ``[3, 3, in, out]`` → the kernels' ``[3, 3, out, in]``, input
-    channels contiguous."""
+    """HWIO ``[3, 3, in, out]`` → ``[3, 3, out, in]``, input channels
+    contiguous: the order that :func:`swizzle_w2` swizzles."""
     return w.permute(0, 1, 3, 2).contiguous()
 
 
@@ -145,8 +144,9 @@ def _xor_chunks(w: torch.Tensor) -> torch.Tensor:
 
 
 def swizzle_w2(w2: torch.Tensor) -> torch.Tensor:
-    """The second conv's HWIO bf16 weights ``[3, 3, 64, 64]`` → the flat
-    image ``[9·64·64]`` that ``stem.cu`` copies into shared memory as it is:
+    """A 64→64 conv's HWIO bf16 weights ``[3, 3, 64, 64]`` (the stem's
+    second conv, either of down1's) → the flat image ``[9·64·64]`` that
+    ``stem.cu`` and ``down1.cu`` copy into shared memory as it is:
     element (tap, out ``n``, in ``k``) at byte
     ``tap·8192 + n·128 + (((k >> 3) ^ (n & 7)) << 4) + (k & 7)·2``, the
     K-major 128-byte-swizzle layout that a ``wgmma`` descriptor reads."""
@@ -193,22 +193,26 @@ def check_x(x: torch.Tensor, cin: int, x_dtype: torch.dtype, pool: bool,
 
 
 def launch_pair(lib: str, symbol: str, x: torch.Tensor, prep: PreparedPair,
-                pool: bool) -> torch.Tensor:
+                pool: bool, mid: bool = False) -> torch.Tensor:
     """Launch ``csrc/<lib>.cu``'s ``symbol`` on a CUDA tensor; returns the
-    bf16 NHWC output."""
+    bf16 NHWC output.  With ``mid``, a bf16 ``[B, H, W, 64]`` scratch
+    tensor for the intermediate goes before the output."""
     if x.device.type != "cuda":
         raise ValueError(f"expected a CUDA or CPU tensor, got {x.device}")
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("x must be contiguous NHWC with a 16-byte aligned start")
     B, H, W, _ = x.shape
     shape = (B, H // 2, W // 2, C) if pool else (B, H, W, C)
-    out = torch.empty(shape, dtype=torch.bfloat16, device=x.device)
+    bufs = [torch.empty(shape, dtype=torch.bfloat16, device=x.device)]
+    if mid:
+        bufs.insert(0, torch.empty((B, H, W, C), dtype=torch.bfloat16, device=x.device))
     fn = getattr(_build.load(lib), symbol)
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    err = fn(x.data_ptr(), *(t.data_ptr() for t in prep.kernel), out.data_ptr(),
+    fn.argtypes = [ctypes.c_void_p] * (7 + len(bufs)) + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(x.data_ptr(), *(t.data_ptr() for t in prep.kernel), *(t.data_ptr() for t in bufs),
              B, H, W, int(pool), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, symbol)
-    return out
+    return bufs[-1]
 
 
 def stem_plain(x: torch.Tensor, w1, s1, b1, w2, s2, b2, pool: bool = True) -> torch.Tensor:

@@ -134,6 +134,55 @@ def test_down1_kernel_matches_plain(cuda, hw, pool):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape,pool", [
+    ((1, 16, 16), True),     # one tile: fewer tiles than the persistent grid has blocks
+    ((3, 14, 18), True),     # one under and one over the 16x16 tile
+    ((1, 18, 14), True),
+    ((3, 15, 17), False),    # odd sizes, unpooled
+    ((1, 17, 15), False),
+    ((1, 2, 2), True),       # smaller than a tile's halo
+    ((7, 56, 56), True),     # 112 tiles, ragged on both axes: no multiple of the grid
+    ((100, 120, 160), True),  # the export path's chunk
+    ((100, 120, 160), False),
+])
+def test_down1_kernel_edge_shapes_match_plain_and_fp64(cuda, shape, pool):
+    rng = np.random.default_rng(sum(shape) + 1)
+    x = torch.from_numpy(rng.uniform(size=(*shape, 64)).astype(np.float32))
+    x = x.to(cuda, torch.bfloat16)
+    p = _params(rng, 64, cuda)
+    before = down1_mod.launches
+    got = down1_mod.down1(x, *p, pool=pool)
+    torch.cuda.synchronize()
+    assert down1_mod.launches == before + 1
+    stem_mod.assert_bf16_close(got, down1_mod.down1_plain(x, *p, pool=pool))
+    if x[..., 0].numel() <= 7 * 56 * 56:  # fp64 convs of the large shapes take minutes
+        stem_mod.assert_bf16_close(got, _fp64_pair(x, *p, pool))
+
+
+@pytest.mark.cuda
+def test_down1_kernel_launches_in_a_row_on_different_shapes(cuda):
+    """Nothing of one call (weights, buffers, barriers in shared memory, the
+    intermediate) is left for the next: large, small, other weights, large
+    again."""
+    rng = np.random.default_rng(16)
+    big = torch.from_numpy(rng.uniform(size=(4, 120, 160, 64)).astype(np.float32))
+    big = big.to(cuda, torch.bfloat16)
+    small = torch.from_numpy(rng.uniform(size=(1, 16, 16, 64)).astype(np.float32))
+    small = small.to(cuda, torch.bfloat16)
+    pa, pb = _params(rng, 64, cuda), _params(rng, 64, cuda)
+    prep_a, prep_b = down1_mod.prepare_down1(*pa), down1_mod.prepare_down1(*pb)
+    outs = [down1_mod.down1_prepared(big, prep_a), down1_mod.down1_prepared(small, prep_b),
+            down1_mod.down1_prepared(small, prep_a, pool=False),
+            down1_mod.down1_prepared(big, prep_b), down1_mod.down1_prepared(big, prep_a)]
+    torch.cuda.synchronize()
+    stem_mod.assert_bf16_close(outs[0], down1_mod.down1_plain(big, *pa))
+    stem_mod.assert_bf16_close(outs[1], down1_mod.down1_plain(small, *pb))
+    stem_mod.assert_bf16_close(outs[2], down1_mod.down1_plain(small, *pa, pool=False))
+    stem_mod.assert_bf16_close(outs[3], down1_mod.down1_plain(big, *pb))
+    assert torch.equal(outs[4], outs[0])  # the same call twice: the same bits
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 480, 640), (3, 120, 168), (1, 37, 53)])
 @pytest.mark.parametrize("radius", [2, 4])
 @pytest.mark.parametrize("border", [0, 4])

@@ -172,6 +172,39 @@ def test_stem_plain_matches_fp64_around_the_tile_size(B, H, W, pool):
     stem_mod.assert_bf16_close(got, _fp64_pair(x, *p, pool))
 
 
+@pytest.mark.parametrize("B,H2,W2", [(1, 16, 16), (3, 16, 32), (1, 32, 48), (3, 48, 16)])
+@pytest.mark.parametrize("pool", [True, False])
+def test_down1_plain_matches_pallas_at_tile_multiples(B, H2, W2, pool):
+    """One, two and three of the CUDA kernel's 16×16 tiles along either axis,
+    B = 1 and 3 (the Pallas kernel takes H2 % 16 == 0 only)."""
+    rng = np.random.default_rng(B * 1000 + H2 * 10 + W2 + 7)
+    x = torch.from_numpy(rng.uniform(size=(B, H2, W2, 64)).astype(np.float32)).to(torch.bfloat16)
+    p = _conv_bn(rng, 64) + _conv_bn(rng, 64)
+    want = np.asarray(down1_pallas_packed(jnp.asarray(x.float().numpy()).astype(jnp.bfloat16),
+                                          *map(jnp.asarray, p), pool=pool, interpret=True),
+                      np.float32)
+    if not pool:
+        want = want.reshape(B, H2, W2, 64)
+    got = down1_mod.down1(x, *_torch_params(p), pool=pool)
+    assert got.shape == want.shape
+    stem_mod.assert_bf16_close(got, torch.from_numpy(want))
+
+
+@pytest.mark.parametrize("B,H2,W2,pool", [(1, 14, 14, True), (3, 16, 16, True),
+                                          (1, 18, 18, True), (3, 14, 18, True),
+                                          (1, 15, 17, False), (3, 17, 15, False)])
+def test_down1_plain_matches_fp64_around_the_tile_size(B, H2, W2, pool):
+    """H2 and W2 one under, at and one over the CUDA kernel's 16×16 tile (two
+    under and over where the pool needs even sizes), which the Pallas kernel
+    does not take: the plain version against the same function in fp64."""
+    rng = np.random.default_rng(H2 * 100 + W2 + B + 5)
+    x = torch.from_numpy(rng.uniform(size=(B, H2, W2, 64)).astype(np.float32)).to(torch.bfloat16)
+    p = _torch_params(_conv_bn(rng, 64) + _conv_bn(rng, 64))
+    got = down1_mod.down1(x, *p, pool=pool)
+    assert got.shape == ((B, H2 // 2, W2 // 2, 64) if pool else (B, H2, W2, 64))
+    stem_mod.assert_bf16_close(got, _fp64_pair(x, *p, pool))
+
+
 def test_swizzled_weight_images():
     """The weight images that ``stem.cu`` copies into shared memory: a
     permutation of the weights, element (tap, out, in) at the byte the
@@ -201,7 +234,7 @@ def test_swizzled_weight_images():
 def test_prepared_weights_equal_weights_per_call():
     """``prepare_stem`` / ``prepare_down1`` once and ``stem`` / ``down1`` with
     HWIO weights per call are the same function, and the prepared tensors are
-    what the kernels read: ``[3, 3, out, in]`` contiguous, or its swizzle."""
+    what the kernels read: the swizzled weight images, contiguous."""
     rng = np.random.default_rng(12)
     ps = _torch_params(_conv_bn(rng, 1) + _conv_bn(rng, 64))
     pd = _torch_params(_conv_bn(rng, 64) + _conv_bn(rng, 64))
@@ -215,8 +248,8 @@ def test_prepared_weights_equal_weights_per_call():
     assert all(t.is_contiguous() for t in prep_s.kernel + prep_d.kernel)
     assert torch.equal(prep_s.kernel[0], stem_mod.swizzle_w1(ps[0]))
     assert torch.equal(prep_s.kernel[3], stem_mod.swizzle_w2(ps[3]))
-    assert torch.equal(prep_d.kernel[0], pd[0].permute(0, 1, 3, 2))
-    assert torch.equal(prep_d.kernel[3], pd[3].permute(0, 1, 3, 2))
+    assert torch.equal(prep_d.kernel[0], stem_mod.swizzle_w2(pd[0]))
+    assert torch.equal(prep_d.kernel[3], stem_mod.swizzle_w2(pd[3]))
     for i in (1, 2, 4, 5):
         assert torch.equal(prep_s.kernel[i], ps[i]) and torch.equal(prep_d.kernel[i], pd[i])
     with pytest.raises(ValueError, match="w2"):
@@ -237,6 +270,7 @@ def test_fast_apply_prepares_the_kernel_weights_once():
     dev = _to_device(folded, torch.device("cpu"))
     assert "inc0" not in dev and "d1a" not in dev
     assert torch.equal(dev["stem"].kernel[3], stem_mod.swizzle_w2(folded["inc1"][0]))
-    assert torch.equal(dev["down1"].kernel[0], folded["d1a"][0].permute(0, 1, 3, 2))
+    assert torch.equal(dev["down1"].kernel[0], stem_mod.swizzle_w2(folded["d1a"][0]))
+    assert torch.equal(dev["down1"].kernel[3], stem_mod.swizzle_w2(folded["d1b"][0]))
     assert all(torch.equal(a, b) for a, b in zip(dev["stem"].params,
                                                  (*folded["inc0"], *folded["inc1"])))
