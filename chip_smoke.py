@@ -52,7 +52,8 @@ failure (nothing is caught):
     convs, ``F.grid_sample`` for the resamples) and its bound on this card;
     the stem and down1 also at the HA path's chunk (100×240×320 into the
     stem, 100×120×160×64 into down1), each held against its plain version
-    there within the bf16 bars before it is timed.
+    there within the bf16 bars before it is timed, and NMS at the HA
+    group's 8×240×320, held exactly first.
 
 Prints a ``{"kernels": [...]}`` line, then the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``.
@@ -634,6 +635,11 @@ def main() -> None:
         e1 = stem_mod.assert_bf16_close(down1_mod.down1_prepared(chunk_out, down1_prep),
                                         down1_mod.down1_plain(chunk_out, *down1_p))
         err["down1"] = max(err["down1"], e1)
+        ha_heat = torch.from_numpy(np.random.default_rng(SEED + 6).uniform(
+            size=(G, HH, HW)).astype(np.float32) ** 4).to(dev)
+        if not torch.equal(nms_mod.nms(ha_heat, radius=4, border=4),
+                           nms_mod.nms_plain(ha_heat, radius=4, border=4)):
+            raise AssertionError(f"nms {G}x{HH}x{HW} not exact")
 
         rows = [
             ("stem", "ssp/kernels/stem_pallas_v2.py:182", "ssp_torch/csrc/stem.cu",
@@ -691,8 +697,10 @@ def main() -> None:
         # the same two kernels at the HA path's chunk of 100 warped images
         stem_ha_ms = time_ms(lambda: stem_mod.stem_prepared(ha_chunk, stem_prep))
         down1_ha_ms = time_ms(lambda: down1_mod.down1_prepared(chunk_out, down1_prep))
+        nms_ha_ms = time_ms(lambda: nms_mod.nms(ha_heat, radius=4, border=4))
         log(f"[time] at the HA chunk's {NH}x{HH}x{HW}: stem {stem_ha_ms:.4f} ms (max abs err "
-            f"{e:.3g} vs plain), down1 {down1_ha_ms:.4f} ms (max abs err {e1:.3g} vs plain)")
+            f"{e:.3g} vs plain), down1 {down1_ha_ms:.4f} ms (max abs err {e1:.3g} vs plain); "
+            f"nms at the group's {G}x{HH}x{HW} {nms_ha_ms:.4f} ms (exact)")
     torch.cuda.synchronize()
 
     print(json.dumps({"kernels": kernels}))

@@ -1,18 +1,25 @@
-"""The hand-written conv and coef-resample kernels alone, on one GPU: each
-against its plain PyTorch version, then its time, at the shapes the two
-paths give it.
+"""The hand-written conv, NMS and coef-resample kernels alone, on one GPU:
+each against its plain PyTorch version, then its time, at the shapes the
+two paths give it.
 
-    python -m ssp_torch.bench_kernels [--resources] [--iters 20]
+    python -m ssp_torch.bench_kernels [--resources] [--cores] [--iters 20]
 
 Shapes: the stem (pooled and unpooled) at 16×480×640 (detect+describe) and
 100×240×320 (one chunk of the homography-adaptation export), down1 at
 16×240×320×64 and 100×120×160×64, ``vresample_coef`` at 800 warps of 8
 shared 320×320 canvases and 100 warps of 100, both axes, with the rows
-kernel ``vresample`` on the same coordinates beside it.  Weights and inputs
-are random, from a seed.  Times are means over back-to-back launches by
-CUDA events after a warm-up.  ``--resources`` first prints what ``ptxas -v``
-says of ``stem.cu``, ``down1.cu`` and ``vresample.cu``.  Prints one JSON line with the
-times in ms and the card's name and power limit.  It needs a CUDA card.
+kernel ``vresample`` on the same coordinates beside it, NMS (radius 4,
+3 iterations, border 4) at 16×480×640 and at the HA group's 8×240×320,
+held exactly against ``nms_plain`` first.  Weights and inputs are random,
+from a seed (the heatmaps uniform⁴, as a softmax leaves them).  Times are
+means over back-to-back launches by CUDA events after a warm-up; for NMS
+also the host's time to enqueue one ``nms()`` call (host clock over the
+same loop, before the synchronise), which bounds back-to-back calls when
+it exceeds the kernel's.  ``--resources`` first prints what ``ptxas -v`` says of ``stem.cu``,
+``down1.cu``, ``nms.cu`` and ``vresample.cu``; ``--cores`` also times NMS at
+every core tile of ``ssp_torch.kernels.nms.CORES`` that fits.  Prints one
+JSON line with the times in ms and the card's name and power limit.  It
+needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 
 import numpy as np
 import torch
@@ -27,6 +35,7 @@ import torch
 from ssp_torch.bench import _card
 from ssp_torch.kernels import _build
 from ssp_torch.kernels import down1 as down1_mod
+from ssp_torch.kernels import nms as nms_mod
 from ssp_torch.kernels import stem as stem_mod
 from ssp_torch.kernels import vresample as vres_mod
 from ssp_torch.kernels import warp_twopass
@@ -59,13 +68,14 @@ def _pair_params(rng, cin: int, dev):
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--resources", action="store_true", help="print ptxas -v of the kernels")
+    ap.add_argument("--cores", action="store_true", help="time NMS at every core tile that fits")
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("ssp_torch.bench_kernels needs a CUDA card")
     dev = torch.device("cuda")
     if args.resources:
-        for name in ("stem", "down1", "vresample"):
+        for name in ("stem", "down1", "nms", "vresample"):
             print(_build.resource_usage(name), file=sys.stderr, flush=True)
     _build.build_all()
     rng = np.random.default_rng(0)
@@ -92,6 +102,34 @@ def main(argv=None) -> None:
             times[key] = _time_ms(lambda: down1_mod.down1_prepared(x2, down1_p), args.iters)
             print(f"{key}: {times[key]:.4f} ms", file=sys.stderr, flush=True)
             del x, x2
+
+        for B, H, W in ((16, 480, 640), (8, 240, 320)):
+            heat = torch.from_numpy((rng.uniform(size=(B, H, W)) ** 4).astype(np.float32)).to(dev)
+            got = nms_mod.nms(heat, 4, 3, 4)
+            if not torch.equal(got, nms_mod.nms_plain(heat, 4, 3, 4)):
+                raise AssertionError(f"nms {B}x{H}x{W} not exact")
+            key = f"nms {B}x{H}x{W}"
+            times[key] = _time_ms(lambda: nms_mod.nms(heat, 4, 3, 4), args.iters)
+            print(f"{key}: {times[key]:.4f} ms", file=sys.stderr, flush=True)
+            t0 = time.perf_counter()
+            for _ in range(args.iters):
+                nms_mod.nms(heat, 4, 3, 4)
+            times[f"{key} host enqueue"] = (time.perf_counter() - t0) / args.iters * 1e3
+            torch.cuda.synchronize()
+            print(f"{key} host enqueue: {times[key + ' host enqueue']:.4f} ms", file=sys.stderr,
+                  flush=True)
+            for core in (nms_mod.CORES if args.cores else ()):
+                try:
+                    g = nms_mod.geometry(4, 3, core)
+                except ValueError:
+                    continue
+                nms_mod.launch(heat, got, 4, 3, 4, g)
+                if not torch.equal(got, nms_mod.nms_plain(heat, 4, 3, 4)):
+                    raise AssertionError(f"nms {B}x{H}x{W} at core {core} not exact")
+                key = f"nms {B}x{H}x{W} core {core[0]}x{core[1]}"
+                times[key] = _time_ms(lambda: nms_mod.launch(heat, got, 4, 3, 4, g), args.iters)
+                print(f"{key}: {times[key]:.4f} ms", file=sys.stderr, flush=True)
+            del heat, got
 
         S = 320
         for M, N in ((8, 800), (100, 100)):

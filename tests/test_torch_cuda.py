@@ -182,18 +182,48 @@ def test_down1_kernel_launches_in_a_row_on_different_shapes(cuda):
     assert torch.equal(outs[4], outs[0])  # the same call twice: the same bits
 
 
+def _heat(kind, shape, seed=5):
+    """A heatmap of one kind: uniform**4 (what a softmax leaves), all zero,
+    constant, quantised plateaus (every branch of the suppression rounds)
+    or normal (negative scores too)."""
+    rng = np.random.default_rng(seed)
+    return {"pow4": lambda: rng.uniform(size=shape) ** 4,
+            "zeros": lambda: np.zeros(shape),
+            "const": lambda: np.full(shape, 0.25),
+            "plateaus": lambda: rng.integers(0, 4, size=shape),
+            "normal": lambda: rng.normal(size=shape)}[kind]().astype(np.float32)
+
+
+_NMS_CASES = (
+    # shape, radius, iterations, border, heatmap
+    [(shape, r, 3, b, "pow4") for shape in [(2, 480, 640), (3, 120, 168), (1, 37, 53)]
+     for r in (2, 4) for b in (0, 4)]
+    # widths at the 32-bit mask words' edges; W % 4 != 0 takes 4-byte copies
+    + [((1, 40, w), 4, 3, 4, "pow4") for w in (31, 32, 33, 63, 65, 127, 129, 168, 320, 640)]
+    + [((2, 17, 70), 4, 3, 4, "pow4"),      # fewer rows than the halo
+       ((2, 45, 77), 1, 1, 0, "pow4"), ((2, 45, 77), 1, 2, 0, "pow4"),
+       ((2, 45, 77), 1, 3, 4, "pow4"), ((2, 45, 77), 2, 1, 4, "pow4"),
+       ((2, 45, 77), 2, 2, 0, "pow4"), ((2, 45, 77), 4, 1, 4, "pow4"),
+       ((2, 45, 77), 4, 2, 0, "pow4"),
+       ((1, 33, 40), 0, 2, 3, "pow4"), ((1, 60, 90), 8, 1, 0, "pow4"),
+       ((1, 60, 90), 8, 4, 2, "plateaus"),  # the smallest core, 8 × 32
+       ((1, 30, 50), 4, 3, 16, "pow4"),     # border over H/2: all zero
+       ((16, 96, 136), 4, 3, 4, "pow4"), ((16, 480, 640), 4, 3, 4, "pow4"),
+       ((1, 240, 320), 4, 3, 4, "pow4")]
+    + [((2, 96, 136), 4, 3, 4, kind) for kind in ("zeros", "const", "plateaus", "normal")]
+    + [((2, 95, 131), 2, 3, 0, kind) for kind in ("plateaus", "normal")])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 480, 640), (3, 120, 168), (1, 37, 53)])
-@pytest.mark.parametrize("radius", [2, 4])
-@pytest.mark.parametrize("border", [0, 4])
-def test_nms_kernel_matches_plain_exactly(cuda, shape, radius, border):
-    rng = np.random.default_rng(5)
-    heat = torch.from_numpy((rng.uniform(size=shape) ** 4).astype(np.float32)).to(cuda)
+@pytest.mark.parametrize("shape,radius,iterations,border,kind", _NMS_CASES)
+def test_nms_kernel_matches_plain_exactly(cuda, shape, radius, iterations, border, kind):
+    heat = torch.from_numpy(_heat(kind, shape)).to(cuda)
     before = nms_mod.launches
-    got = nms_mod.nms(heat, radius=radius, border=border)
+    got = nms_mod.nms(heat, radius=radius, iterations=iterations, border=border)
     torch.cuda.synchronize()
     assert nms_mod.launches == before + 1
-    assert torch.equal(got, nms_mod.nms_plain(heat, radius=radius, border=border))
+    assert torch.equal(got, nms_mod.nms_plain(heat, radius=radius, iterations=iterations,
+                                              border=border))
 
 
 @pytest.mark.cuda
@@ -204,6 +234,31 @@ def test_nms_kernel_exact_on_ties(cuda):
     heat = torch.from_numpy(rng.integers(0, 4, size=(2, 96, 136)).astype(np.float32)).to(cuda)
     assert torch.equal(nms_mod.nms(heat, radius=4, border=4),
                        nms_mod.nms_plain(heat, radius=4, border=4))
+
+
+@pytest.mark.cuda
+def test_nms_kernel_launches_in_a_row_on_different_shapes(cuda):
+    """Nothing a persistent block carries from tile to tile (the masks, the
+    buffer of the next tile) leaks into the next launch: large, small,
+    another radius, large again."""
+    big = torch.from_numpy(_heat("pow4", (4, 240, 320), seed=17)).to(cuda)
+    small = torch.from_numpy(_heat("plateaus", (1, 37, 53), seed=18)).to(cuda)
+    calls = [(big, 4, 3, 4), (small, 4, 3, 0), (small, 2, 2, 1), (big, 4, 3, 4)]
+    outs = [nms_mod.nms(h, radius=r, iterations=i, border=b) for h, r, i, b in calls]
+    torch.cuda.synchronize()
+    for out, (h, r, i, b) in zip(outs, calls):
+        assert torch.equal(out, nms_mod.nms_plain(h, radius=r, iterations=i, border=b))
+    assert torch.equal(outs[3], outs[0])
+
+
+@pytest.mark.cuda
+def test_nms_kernel_unfit_radius_raises_before_a_launch(cuda):
+    heat = torch.zeros(1, 32, 32, device=cuda)
+    before = nms_mod.launches
+    for radius, iterations in ((nms_mod.RADIUS_MAX + 1, 1), (8, 5)):
+        with pytest.raises(ValueError, match="radius"):
+            nms_mod.nms(heat, radius=radius, iterations=iterations)
+    assert nms_mod.launches == before
 
 
 def _fp64_pair(x, w1, s1, b1, w2, s2, b2, pool):

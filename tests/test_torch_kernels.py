@@ -81,6 +81,35 @@ def test_nms_plain_matches_pallas_exactly(shape, radius, border):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("iterations", [1, 2, 3, 4])
+@pytest.mark.parametrize("radius", range(nms_mod.RADIUS_MAX + 1))
+def test_nms_geometry_fits_and_covers_the_chain(radius, iterations):
+    """The tile ``csrc/nms.cu`` is launched with: a core the kernel takes,
+    the chain's receptive field as halo, float4-aligned rows of an odd
+    number of 16-byte units, mask words over the tile, and shared memory
+    within what a block may use."""
+    g = nms_mod.geometry(radius, iterations)
+    assert g.smem <= 232448
+    assert g.halo == radius * (2 * iterations - 1)
+    assert g.halo_w >= g.halo and g.halo_w % 4 == 0
+    assert g.core_h >= 8 and g.core_w % 32 == 0
+    assert (g.tile_h, g.tile_w) == (g.core_h + 2 * g.halo, g.core_w + 2 * g.halo_w)
+    assert g.pitch >= g.tile_w and g.pitch % 8 == 4
+    assert 32 * g.words >= g.tile_w > 32 * (g.words - 1)
+    smem = 4 * (3 * (g.tile_h * g.pitch + 64) + 2 * g.tile_h * g.words)
+    assert g.smem == smem
+    if (radius, iterations) == (4, 3):  # the main path's: 64 × 128, double-buffered
+        assert (g.core_h, g.core_w, g.smem) == (64, 128, 220416)
+
+
+@pytest.mark.parametrize("radius,iterations", [(9, 1), (-1, 3), (4, 0), (8, 5)])
+def test_nms_geometry_refuses_what_the_kernel_cannot_take(radius, iterations):
+    """Raised by ``nms`` before any launch: a radius the kernel is not
+    instantiated for, no iterations, or a chain whose tile does not fit."""
+    with pytest.raises(ValueError, match="radius"):
+        nms_mod.geometry(radius, iterations)
+
+
 def test_stem_unpooled_matches_pallas_v1():
     """``stem(..., pool=False)`` is the function of the JAX package's first
     stem kernel, ``ssp/kernels/stem_pallas.py::stem_pallas`` (conv1a → BN →
