@@ -53,15 +53,34 @@ failure (nothing is caught):
     the stem and down1 also at the HA path's chunk (100×240×320 into the
     stem, 100×120×160×64 into down1), each held against its plain version
     there within the bf16 bars before it is timed, and NMS at the HA
-    group's 8×240×320, held exactly first.
+    group's 8×240×320, held exactly first;
+12. ``[hpatches]``, the stage-4 HPatches descriptor export: a synthetic
+    HPatches tree (16 sequences, two views each, binary P6 at 600×800, so
+    the 240×320 resize takes the 2.5× area path), exported by
+    ``ssp_torch.cli.export.export_descriptor`` with ``HPATCHES_CONFIG``
+    (``configs/pipeline240_sweep_wsem.yaml`` with the trained weights):
+    ``SuperPointNet_gauss2_ssmall``, 133 classes, K=1000, NMS 4, subpixel,
+    two-way matching.  Launch counts are set to 0 before the export and read
+    after: the stem, down1 and NMS twice per pair (one image per call); a
+    second call writes nothing.  The same export on the kernels' plain
+    versions: each pair's written (refined) points within SAME_PX of the
+    plain ones, and the detections of every image (subpixel off, all K
+    points) with the main path's bars; pairs/s by the host clock with the
+    share of host work (decode and resize, matching and npz writes),
+    detect+describe ms per image at 1×240×320 and at the sequence export's
+    1×384×1248 by CUDA events, and the three kernels' times at 1×240×320
+    beside their bounds.
 
-Prints a ``{"kernels": [...]}`` line, then the ``nvidia-smi`` line, and
-last ``{"ok": true, "device": {...}}``.
+Prints a ``{"kernels": [...]}`` line (each row also with the launches of
+phase 12's export, ``launches_export``, and for the stem, down1 and NMS
+their times at 1×240×320, ``export_1x240x320``), then the ``nvidia-smi``
+line, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -75,8 +94,13 @@ import torch.nn.functional as F
 from ssp_torch.bench import (BATCH, BORDER, NMS_RADIUS, TOP_K, H, W, build_pipeline,
                              structured_images)
 from ssp_torch import bench_ha
+from ssp_torch.cli.export import export_descriptor
 from ssp_torch.core.grid import flatten_detection
 from ssp_torch.core.homography import inv3, sample_homographies
+from ssp_torch.core.warp import inv_warp_image
+from ssp_torch.data.base import write_pnm
+from ssp_torch.data.hpatches import PatchesDataset
+from ssp_torch.export.descriptors_export import make_detect_describe_fn, run_descriptor_export
 from ssp_torch.export.homography_adaptation import DEFAULT_HA, make_ha_fn, run_ha_export
 from ssp_torch.kernels import _build
 from ssp_torch.kernels import down1 as down1_mod
@@ -92,6 +116,22 @@ ROOT = Path(__file__).resolve().parent
 NPZ = ROOT / "evidence" / "wsem_weights.npz"
 ODD_HW = (120, 168)
 SEED = 0
+
+# the stage-4 export: configs/pipeline240_sweep_wsem.yaml with the trained
+# weights (as configs/kitti384_sequence_r5.yaml names them), a dict so that
+# the smoke needs no PyYAML; tests/test_torch_config.py holds it to the file
+HPATCHES_CONFIG = {
+    "data": {"name": "patches_dataset", "dataset": "hpatches", "alteration": "all",
+             "preprocessing": {"resize": [240, 320]}},
+    "front_end_model": "Val_model_heatmap",
+    "model": {"name": "SuperPointNet_gauss2_ssmall", "params": {"n_classes": 133},
+              "folder": "logs/pipeline240_wsem/checkpoints", "detection_threshold": 0.015,
+              "batch_size": 1, "eval_batch_size": 1, "nms": 4, "top_k": 1000, "nn_thresh": 1.0,
+              "subpixel": {"enable": True, "patch_size": 5}},
+    "pretrained": "evidence/wsem_weights.npz",
+}
+HP_SEQ, HP_VIEWS, HP_RAW = 16, (2, 3), (600, 800)  # the corpus: 32 pairs at HPatches' size
+SLAM_HW = (384, 1248)  # the SLAM sequence export's shape (configs/kitti384_sequence_r5.yaml)
 
 # published H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores,
 # fp32 outside the tensor cores, HBM3
@@ -221,6 +261,59 @@ def check_resample(name: str, got: torch.Tensor, want: torch.Tensor, scale: floa
     if not bool(torch.isfinite(got).all()) or err > VRES_TOL * scale:
         raise AssertionError(f"{name}: max abs err {err} > {VRES_TOL}·{scale}")
     return err
+
+
+def conv_nms_bounds(images: torch.Tensor, stem_out: torch.Tensor, heat: torch.Tensor) -> dict:
+    """``{kernel: (bound ms, bound_by)}`` of the stem (pooled, and unpooled as
+    ``stem_v1``), down1 and NMS (radius 4, 3 iterations) at these inputs:
+    each input read once, each output written once, every multiply-add of
+    the convs at the bf16 peak."""
+    affine_bytes = 4 * 64 * 4
+    px = images[..., 0].numel()  # stem pixels
+    stem_flops = 2.0 * px * 64 * 9 * (1 + 64)
+    stem_w_bytes = 9 * 64 * 65 * 2 + affine_bytes
+    px2 = stem_out[..., 0].numel()  # down1 pixels
+    # NMS: per cell, 2·iterations − 1 = 5 separable window maxes of 4r max
+    # operations, plus ~10 compares and selects; fp32 outside the tensor cores
+    return {
+        "stem": bound(stem_flops, PEAK_BF16,
+                      images.numel() * 4 + stem_out.numel() * 2 + stem_w_bytes),
+        "stem_v1": bound(stem_flops, PEAK_BF16, images.numel() * 4 + px * 64 * 2 + stem_w_bytes),
+        "down1": bound(2.0 * px2 * 64 * 9 * 64 * 2, PEAK_BF16,
+                       stem_out.numel() * 2 * 5 // 4 + 2 * 9 * 64 * 64 * 2 + affine_bytes),
+        "nms": bound(heat.numel() * (5 * 4 * NMS_RADIUS + 10.0), PEAK_FP32,
+                     2 * heat.numel() * 4),
+    }
+
+
+def write_hpatches_tree(root: Path, dev: torch.device, seed: int) -> None:
+    """An HPatches-layout tree of HP_SEQ sequences at HP_RAW: ``1.ppm`` with
+    rectangles on noise in color (binary P6, as HPatches ships), views warped
+    by mild seeded homographies with ``inv_warp_image`` on the card, and
+    ``H_1_<i>`` (pixel coordinates, reference → view)."""
+    rng = np.random.default_rng(seed)
+    h, w = HP_RAW
+    # pixel → the normalised coordinates of ``inv_warp_image``
+    T = np.array([[2.0 / (w - 1), 0, -1.0], [0, 2.0 / (h - 1), -1.0], [0, 0, 1.0]])
+    C = np.array([[1, 0, -(w - 1) / 2], [0, 1, -(h - 1) / 2], [0, 0, 1.0]])
+    for s in range(HP_SEQ):
+        seq = root / f"{'iv'[s % 2]}_synth{s:02d}"
+        seq.mkdir(parents=True)
+        gray = structured_images(1, h, w, seed + s)[0, ..., 0]
+        rgb = np.stack([gray, gray, rng.uniform(0.0, 1.0, (h, w))], axis=-1)
+        write_pnm(seq / "1.ppm", (rgb * 255).astype(np.uint8))
+        for i in HP_VIEWS:
+            th, sc = np.radians(rng.uniform(-8, 8)), rng.uniform(0.9, 1.1)
+            Hm = np.array([[sc * np.cos(th), -sc * np.sin(th), rng.uniform(-15, 15)],
+                           [sc * np.sin(th), sc * np.cos(th), rng.uniform(-15, 15)],
+                           [rng.uniform(-5e-5, 5e-5), rng.uniform(-5e-5, 5e-5), 1.0]])
+            Hm = np.linalg.inv(C) @ Hm @ C  # about the image centre
+            H_inv = torch.from_numpy((T @ np.linalg.inv(Hm) @ np.linalg.inv(T)).astype(np.float32))
+            with torch.inference_mode():
+                view = inv_warp_image(torch.from_numpy(rgb.astype(np.float32)).to(dev),
+                                      H_inv.to(dev)).cpu().numpy()
+            write_pnm(seq / f"{i}.ppm", np.rint(view.clip(0, 1) * 255).astype(np.uint8))
+            np.savetxt(seq / f"H_1_{i}", Hm)
 
 
 def reset_launches() -> None:
@@ -546,21 +639,7 @@ def main() -> None:
         f"{err['vresample_coef']:.2e}}}")
 
     # ---- 11. kernel times at their paths' shapes -----------------------------
-    # bounds from this run's inputs: each input read once, each output
-    # written once, every multiply-add of the convs at the bf16 peak
-    affine_bytes = 4 * 64 * 4
-    px = images[..., 0].numel()  # stem pixels
-    stem_flops = 2.0 * px * 64 * 9 * (1 + 64)
-    stem_w_bytes = 9 * 64 * 65 * 2 + affine_bytes
-    stem_bytes = images.numel() * 4 + stem_out.numel() * 2 + stem_w_bytes
-    stem_v1_bytes = images.numel() * 4 + px * 64 * 2 + stem_w_bytes
-    px2 = stem_out[..., 0].numel()  # down1 pixels
-    d1_flops = 2.0 * px2 * 64 * 9 * 64 * 2
-    d1_bytes = stem_out.numel() * 2 * 5 // 4 + 2 * 9 * 64 * 64 * 2 + affine_bytes
-    # NMS: per cell, 2·iterations − 1 = 5 separable window maxes of 4r max
-    # operations, plus ~10 compares and selects; fp32 outside the tensor cores
-    nms_ops = heat_main.numel() * (5 * 4 * NMS_RADIUS + 10.0)
-    nms_bytes = 2 * heat_main.numel() * 4
+    main_bounds = conv_nms_bounds(images, stem_out, heat_main)
     stem_lib = (cudnn_weights(*folded["inc0"]), cudnn_weights(*folded["inc1"]))
     d1_lib = (cudnn_weights(*folded["d1a"]), cudnn_weights(*folded["d1b"]))
     # the kernels' weights laid out once, as the forward holds them
@@ -646,17 +725,17 @@ def main() -> None:
              lambda: stem_mod.stem_prepared(images, stem_prep),
              lambda: stem_mod.stem_plain(images, *stem_p),
              lambda: cudnn_pair(images, *stem_lib[0], *stem_lib[1]),
-             bound(stem_flops, PEAK_BF16, stem_bytes)),
+             main_bounds["stem"]),
             ("down1", "ssp/kernels/down1_pallas.py:107", "ssp_torch/csrc/down1.cu",
              lambda: down1_mod.down1_prepared(stem_out, down1_prep),
              lambda: down1_mod.down1_plain(stem_out, *down1_p),
              lambda: cudnn_pair(stem_out, *d1_lib[0], *d1_lib[1]),
-             bound(d1_flops, PEAK_BF16, d1_bytes)),
+             main_bounds["down1"]),
             ("nms", "ssp/kernels/nms_pallas.py:124", "ssp_torch/csrc/nms.cu",
              lambda: nms_mod.nms(heat_main, radius=NMS_RADIUS, border=BORDER),
              lambda: nms_mod.nms_plain(heat_main, radius=NMS_RADIUS, border=BORDER),
              None,
-             bound(nms_ops, PEAK_FP32, nms_bytes)),
+             main_bounds["nms"]),
             ("vresample", "ssp/kernels/vresample_pallas.py:176", "ssp_torch/csrc/vresample.cu",
              None, None, None, resample_bound(coef=False)),
             ("vresample_coef", "ssp/kernels/vresample_pallas.py:141",
@@ -667,7 +746,7 @@ def main() -> None:
              lambda: stem_mod.stem_prepared(images, stem_prep, pool=False),
              lambda: stem_mod.stem_plain(images, *stem_p, pool=False),
              lambda: cudnn_pair(images, *stem_lib[0], *stem_lib[1], pool=False),
-             bound(stem_flops, PEAK_BF16, stem_v1_bytes)),
+             main_bounds["stem_v1"]),
         ]
         on_main = {**launches, "stem_v1": 0}
         on_ha = {**ha_launches, "stem_v1": 0}
@@ -703,10 +782,217 @@ def main() -> None:
             f"nms at the group's {G}x{HH}x{HW} {nms_ha_ms:.4f} ms (exact)")
     torch.cuda.synchronize()
 
+    # ---- 12. [hpatches] the stage-4 descriptor export -------------------------
+    export_launches, export_times = hpatches_phase(dev)
+    for row in kernels:
+        row["launches_export"] = export_launches.get(row["name"], 0)
+        if row["name"] in export_times:
+            row["export_1x240x320"] = export_times[row["name"]]
+
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
+
+
+def hpatches_phase(dev: torch.device):
+    """Phase 12: the stage-4 HPatches export through the CLI on a synthetic
+    corpus, against the same export on the kernels' plain versions; its
+    throughput and where a pair's time goes; the kernels at 1×240×320.
+    Returns (launches of the CLI's export per kernel, {kernel: times at
+    1×240×320})."""
+    hh, hw = HPATCHES_CONFIG["data"]["preprocessing"]["resize"]
+    m = HPATCHES_CONFIG["model"]
+    dd_kw = dict(top_k=m["top_k"], conf_thresh=m["detection_threshold"], nms_radius=m["nms"],
+                 subpixel=m["subpixel"]["enable"], patch_size=m["subpixel"]["patch_size"])
+    config = {**HPATCHES_CONFIG, "pretrained": str(ROOT / HPATCHES_CONFIG["pretrained"])}
+    saved_env = {k: os.environ.get(k) for k in ("SSP_DATA_PATH", "SSP_EXPER_PATH")}
+    with tempfile.TemporaryDirectory() as td:
+        td = Path(td)
+        os.environ["SSP_DATA_PATH"], os.environ["SSP_EXPER_PATH"] = str(td), str(td / "logs")
+        try:
+            t0 = time.perf_counter()
+            write_hpatches_tree(td / "HPatches", dev, SEED + 7)
+            log(f"[hpatches] corpus: {HP_SEQ} sequences x {len(HP_VIEWS)} views at "
+                f"{HP_RAW[0]}x{HP_RAW[1]}, binary P6, written in {time.perf_counter() - t0:.1f} s")
+            dataset = PatchesDataset(preprocessing={"resize": [hh, hw]})
+            n_pairs = len(dataset)
+            ss = load_flax_npz(NPZ, m["name"], device=dev)
+            fast = best_apply_fn(ss, input_hw=(hh, hw), device=dev)
+            dd = make_detect_describe_fn(fast, device=dev, **dd_kw)
+            dd(torch.from_numpy(dataset[0]["image"]))  # warm-up: cuDNN autotuning at 240×320
+            torch.cuda.synchronize()
+
+            # the main path of this phase: the CLI, counted
+            reset_launches()
+            t0 = time.perf_counter()
+            written = export_descriptor(config, "smoke", device=dev)
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+            launches = read_launches()
+            log(f"[hpatches] export_descriptor: {written} pairs in {cli_s:.2f} s with the model "
+                f"load; launches {launches} (one image per call: stem, down1 and nms "
+                f"{2 * n_pairs} each = 2 per pair)")
+            if written != n_pairs or any(launches[k] != 2 * n_pairs
+                                         for k in ("stem", "down1", "nms")):
+                raise AssertionError(f"export: {written} pairs, launches {launches}")
+            if launches["vresample"] or launches["vresample_coef"]:
+                raise AssertionError(f"resample kernels launched by the export: {launches}")
+            again = export_descriptor(config, "smoke", device=dev)
+            if again != 0:
+                raise AssertionError(f"the second export wrote {again} files")
+
+            # the same export on the kernels' plain versions.  The files hold
+            # subpixel-refined points, where two different detections can land
+            # within SAME_PX of each other: they are held to the share of
+            # shared points; the detections themselves (subpixel off, all K
+            # points) to the main path's bars, as ``agreement`` holds them
+            plain = make_detect_describe_fn(make_fast_apply(ss, device=dev, reference=True),
+                                            device=dev, reference=True, **dd_kw)
+            run_descriptor_export(plain, iter(dataset), td / "plain", nn_thresh=m["nn_thresh"])
+            files_shared, counts, images = 1.0, [], []
+            for i in range(n_pairs):
+                with np.load(td / "logs" / "smoke" / "predictions" / f"{i}.npz") as a, \
+                        np.load(td / "plain" / f"{i}.npz") as b:
+                    a, b = dict(a), dict(b)
+                for key in ("image", "warped_image", "homography"):
+                    if not np.array_equal(a[key], b[key]):
+                        raise AssertionError(f"pair {i}: {key} differs")
+                if a["matches"].ndim != 2 or a["matches"].shape[1] != 4 or \
+                        not np.isfinite(a["desc"]).all():
+                    raise AssertionError(f"pair {i}: matches {a['matches'].shape}")
+                for side in ("prob", "warped_prob"):
+                    p, q = torch.from_numpy(a[side])[None], torch.from_numpy(b[side])[None]
+                    files_shared = min(files_shared, same_points(
+                        p, torch.ones(p.shape[:2], dtype=torch.bool), q,
+                        torch.ones(q.shape[:2], dtype=torch.bool)))
+                counts.append((len(a["prob"]), len(b["prob"]), len(a["matches"]),
+                               len(b["matches"])))
+                images += [a["image"], a["warped_image"]]
+            log("[hpatches] per pair (points ref, kernels/plain; matches, kernels/plain): "
+                + " ".join(f"{p}/{q},{u}/{v}" for p, q, u, v in counts))
+            log(f"[hpatches] written files vs the plain versions, worst image of {n_pairs} "
+                f"pairs: {files_shared:.4f} of the valid refined points within {SAME_PX} px")
+            if files_shared < SHARED_MIN:
+                raise AssertionError(f"export files: {files_shared:.4f} shared < {SHARED_MIN}")
+            unrefined = {**dd_kw, "subpixel": False}
+            det = make_detect_describe_fn(fast, device=dev, **unrefined)
+            det_plain = make_detect_describe_fn(make_fast_apply(ss, device=dev, reference=True),
+                                                device=dev, reference=True, **unrefined)
+            worst = {"shared": 1.0, "strong_recall": 1.0, "cos": 1.0}
+            stack = torch.from_numpy(np.stack(images)).to(dev)
+            for c in range(0, len(stack), 16):
+                pts, _, desc = det(stack[c:c + 16])
+                ref_pts, _, ref_desc = det_plain(stack[c:c + 16])
+                w = agreement(pts, desc, ref_pts, ref_desc)
+                worst = {k: min(worst[k], w[k]) for k in worst}
+            log(f"[hpatches] detections vs the plain versions (subpixel off), worst of "
+                f"{len(stack)} images: {worst['shared']:.4f} of the K keypoints shared, "
+                f"{worst['strong_recall']:.4f} of the points over {STRONG} found, descriptor "
+                f"cosine >= {worst['cos']:.6f}")
+
+            # throughput by the host clock, and where a pair's time goes
+            recorded = []
+
+            def recording(image):
+                out = dd(image)
+                recorded.append(out)
+                return out
+
+            t0 = time.perf_counter()
+            run_descriptor_export(recording, iter(dataset), td / "timed", nn_thresh=m["nn_thresh"])
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            pairs = list(dataset)
+            decode_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for pair in pairs:  # the calls as the export makes them: host arrays in, copies back
+                for key in ("image", "warped_image"):
+                    [t.cpu() for t in dd(pair[key])]
+            device_s = time.perf_counter() - t0
+            replay = iter(recorded)
+            t0 = time.perf_counter()
+            run_descriptor_export(lambda image: next(replay), pairs, td / "replay",
+                                  nn_thresh=m["nn_thresh"])
+            host_s = time.perf_counter() - t0
+            img = torch.from_numpy(pairs[0]["image"]).to(dev)
+            dd_ms = time_ms(lambda: dd(img), iters=20)
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    dd(img)
+                torch.cuda.synchronize()
+            on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy_ms = sum(e.device_time_total for e in on_card) / 10 / 1e3
+            per_pair = {k: v * 1e3 / n_pairs for k, v in (
+                ("export", export_s), ("decode", decode_s), ("calls", device_s), ("host", host_s))}
+            per_pair["rest"] = per_pair["export"] - per_pair["decode"] - per_pair["calls"] \
+                - per_pair["host"]
+            log(f"[hpatches] {n_pairs / export_s:.2f} pairs/s by the host clock over the whole "
+                f"export ({per_pair['export']:.2f} ms/pair): decode and resize "
+                f"{per_pair['decode']:.2f}, two detect+describe calls with the copies "
+                f"{per_pair['calls']:.2f}, matching and npz writes {per_pair['host']:.2f}, the "
+                f"rest {per_pair['rest']:.2f} ms/pair; host work (decode, matching, writes) "
+                f"{(decode_s + host_s) / export_s:.4f} of the time")
+            log(f"[hpatches] detect+describe at 1x{hh}x{hw}: {dd_ms:.3f} ms/image by CUDA events; "
+                f"{len(on_card) / 10:.0f} device operations and {busy_ms:.3f} ms of device time "
+                f"per image (torch.profiler), so the card idles "
+                f"{max(0.0, 1 - busy_ms / dd_ms):.3f} of the call")
+            slam = torch.from_numpy(structured_images(1, *SLAM_HW, SEED + 8)[0, ..., 0]).to(dev)
+            slam_fn = make_detect_describe_fn(best_apply_fn(ss, input_hw=SLAM_HW, device=dev),
+                                              device=dev, **{**dd_kw, "subpixel": False})
+            slam_ms = time_ms(lambda: slam_fn(slam), iters=20)
+            log(f"[hpatches] detect+describe at 1x{SLAM_HW[0]}x{SLAM_HW[1]} (the sequence "
+                f"export's shape, K={m['top_k']}, no subpixel): {slam_ms:.3f} ms/image by CUDA "
+                f"events")
+        finally:
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+    # the three kernels at the export's 1×240×320, each against its plain
+    # version first
+    folded = {k: tuple(t.to(dev) for t in v) for k, v in fold_variables(ss).items()}
+    stem_p, down1_p = (*folded["inc0"], *folded["inc1"]), (*folded["d1a"], *folded["d1b"])
+    stem_prep, down1_prep = stem_mod.prepare_stem(*stem_p), down1_mod.prepare_down1(*down1_p)
+    x = img[None, ..., None].contiguous()
+    times = {}
+    with torch.inference_mode():
+        x_stem = stem_mod.stem_plain(x, *stem_p)
+        heat = flatten_detection(make_fast_apply(ss, device=dev, reference=True)(x)["semi"])[..., 0]
+        heat = heat.contiguous()
+        err = {"stem": stem_mod.assert_bf16_close(stem_mod.stem_prepared(x, stem_prep), x_stem),
+               "down1": stem_mod.assert_bf16_close(down1_mod.down1_prepared(x_stem, down1_prep),
+                                                   down1_mod.down1_plain(x_stem, *down1_p))}
+        if not torch.equal(nms_mod.nms(heat, radius=4, border=4),
+                           nms_mod.nms_plain(heat, radius=4, border=4)):
+            raise AssertionError(f"nms 1x{hh}x{hw} not exact")
+        err["nms"] = 0.0
+        bounds = conv_nms_bounds(x, x_stem, heat)
+        stem_lib = (cudnn_weights(*folded["inc0"]), cudnn_weights(*folded["inc1"]))
+        d1_lib = (cudnn_weights(*folded["d1a"]), cudnn_weights(*folded["d1b"]))
+        for name, kern, plain_fn, lib in (
+                ("stem", lambda: stem_mod.stem_prepared(x, stem_prep),
+                 lambda: stem_mod.stem_plain(x, *stem_p),
+                 lambda: cudnn_pair(x, *stem_lib[0], *stem_lib[1])),
+                ("down1", lambda: down1_mod.down1_prepared(x_stem, down1_prep),
+                 lambda: down1_mod.down1_plain(x_stem, *down1_p),
+                 lambda: cudnn_pair(x_stem, *d1_lib[0], *d1_lib[1])),
+                ("nms", lambda: nms_mod.nms(heat, radius=4, border=4),
+                 lambda: nms_mod.nms_plain(heat, radius=4, border=4), None)):
+            t = {"ms": time_ms(kern, iters=50), "plain_ms": time_ms(plain_fn, iters=10),
+                 "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                 "library_ms": time_ms(lib, iters=50) if lib is not None else None,
+                 "max_abs_err": err[name]}
+            times[name] = t
+            lib_text = "n/a" if lib is None else f"{t['library_ms']:.4f} ms"
+            log(f"[time] {name} at 1x{hh}x{hw}: {t['ms']:.4f} ms (bound {t['bound_ms']:.4f} ms "
+                f"by {t['bound_by']}), plain {t['plain_ms']:.4f} ms, library {lib_text}")
+    torch.cuda.synchronize()
+    return launches, times
 
 
 if __name__ == "__main__":

@@ -15,4 +15,5 @@ version.  On a CUDA tensor a wrapper launches its kernel or raises.
 __version__ = "0.1.0"
 
 from ssp_torch import registry  # noqa: F401
+from ssp_torch import data as _data  # noqa: F401, E402  (registers the dataset names)
 from ssp_torch import models as _models  # noqa: F401, E402  (registers the model names)

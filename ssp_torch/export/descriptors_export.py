@@ -1,0 +1,133 @@
+"""HPatches keypoint, descriptor and match export, stage 4a (port of
+``ssp/export/descriptors_export.py``).
+
+Reference pipeline (``export.py:66-189``): per image pair, run the model,
+NMS + threshold + top-k keypoints, optional soft-argmax subpixel
+refinement, sample descriptors at the keypoints, two-way-match the pair,
+and write one npz per pair with keys ``image, prob, desc, warped_image,
+warped_prob, warped_desc, homography, matches`` (read by the evaluation).
+
+Detection and description run on the device, one image per call, as the
+JAX package runs them; matching and the npz writes stay on the host (the
+evaluation protocol's arithmetic).  The JAX package's ``topk_method=
+"approx"`` and ``desc_sampler="mxu"`` are TPU workarounds and are not
+carried over (``ssp_torch/postprocess/points.py``): the exact top-k and the
+gather sampler are the path.  The form that takes the weights as an
+argument (``make_detect_describe_var_fn``, for checkpoint sweeps) comes
+with the evaluation half.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Any, Callable, Dict, Iterable
+
+import numpy as np
+import torch
+
+from ssp_torch._device import resolve_device
+from ssp_torch.core.grid import flatten_detection
+from ssp_torch.kernels.nms import nms_plain
+from ssp_torch.postprocess.nms import batched_nms
+from ssp_torch.postprocess.points import extract_keypoints, sample_descriptors, soft_argmax_refine
+from ssp_torch.postprocess.tracker import PointTracker
+
+
+def make_detect_describe_fn(
+    apply_fn: Callable[[torch.Tensor], Dict[str, torch.Tensor]],
+    *,
+    device="cuda",
+    top_k: int = 1000,
+    conf_thresh: float = 0.015,
+    nms_radius: int = 4,
+    subpixel: bool = True,
+    patch_size: int = 5,
+    nms_iterations: int = 3,
+    reference: bool = False,
+):
+    """``detect_describe(image [H, W]) → (pts [k, 3] (x, y, score), valid
+    [k], desc [k, D])`` on ``device``; a ``[B, H, W]`` batch gives batched
+    results.
+
+    ``apply_fn(images [B, H, W, 1]) → {"semi", "desc", ...}`` is the model
+    on ``device`` (``ssp_torch.models.fast_infer.best_apply_fn``).  The steps
+    are the JAX package's: flatten the detector logits; suppress with the
+    4-px border removed (the NMS kernel on the card); top-k over the
+    suppressed map; refine the points on the un-suppressed heatmap; sample
+    the descriptors at the refined points.  ``reference=True`` runs the NMS
+    kernel's plain version instead (the card-side check of the kernels;
+    give it an ``apply_fn`` built the same way).
+    """
+    dev = resolve_device(device)
+    suppress = nms_plain if reference else batched_nms
+
+    @torch.inference_mode()
+    def detect_describe(image):
+        # a plain copy, not ``to_device``'s pinned one: the export waits for
+        # each call's results before the next, so nothing is queued that the
+        # copy could wait for, and pinning a fresh buffer per image cost ~7 ms
+        # of host time per call inside the export on the H100's host
+        x = torch.as_tensor(image, dtype=torch.float32).to(dev)
+        squeeze = x.dim() == 2
+        if squeeze:
+            x = x[None]
+        out = apply_fn(x[..., None])
+        heat = flatten_detection(out["semi"])[..., 0].contiguous()
+        heat_nms = suppress(heat, nms_radius, nms_iterations, border=4)
+        pts, valid = extract_keypoints(heat_nms, k=top_k, conf_thresh=conf_thresh,
+                                       nms_radius=0, border=0, nms_iterations=1)
+        if subpixel:
+            pts = soft_argmax_refine(heat, pts, patch_size)
+        desc = sample_descriptors(out["desc"], pts)
+        return (pts[0], valid[0], desc[0]) if squeeze else (pts, valid, desc)
+
+    return detect_describe
+
+
+def _host(result):
+    """(pts, valid, desc) on the device → the valid rows as numpy."""
+    pts, valid, desc = (t.cpu().numpy() for t in result)
+    return pts[valid], desc[valid]
+
+
+def run_descriptor_export(
+    dd_fn,
+    pairs: Iterable[Dict[str, Any]],
+    out_dir: Path,
+    *,
+    nn_thresh: float = 1.0,
+) -> int:
+    """Export every pair dict (from ``PatchesDataset``) to
+    ``<out_dir>/<idx>.npz`` and return how many files were written.
+
+    File naming is the reference's sequential integer scheme
+    (``evaluation.py:124`` sorts numerically).  A file that exists is
+    skipped, so a stopped run resumes; only new writes are counted."""
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    count = 0
+    for idx, pair in enumerate(pairs):
+        out_file = out_dir / f"{idx}.npz"
+        if out_file.exists():
+            continue
+        pts1, desc1 = _host(dd_fn(pair["image"]))
+        pts2, desc2 = _host(dd_fn(pair["warped_image"]))
+
+        tracker = PointTracker(max_length=2, nn_thresh=nn_thresh)
+        tracker.update(pts1.T, desc1.T)
+        tracker.update(pts2.T, desc2.T)
+        matches = tracker.get_matches()  # [4, L]
+
+        np.savez_compressed(
+            out_file,
+            image=pair["image"],
+            warped_image=pair["warped_image"],
+            prob=pts1,
+            warped_prob=pts2,
+            desc=desc1,
+            warped_desc=desc2,
+            homography=pair["homography"],
+            matches=matches.T if matches is not None else np.zeros((0, 4)),
+        )
+        count += 1
+    return count

@@ -12,7 +12,10 @@ reference's PyTorch state dicts.
 * The port's own parameter names are the reference's
   (``inc.conv.conv.0.weight``, ``bnPa.running_mean``, …, the table of
   ``ssp/models/weights.py``), so :func:`load_reference_state_dict` is a
-  strict ``load_state_dict`` of a reference ``.pth.tar`` payload.
+  strict ``load_state_dict`` of a reference ``.pth.tar`` payload, which
+  :func:`load_torch_checkpoint` reads.
+* :func:`load_weights` loads what a config's ``pretrained`` names: a flax
+  npz or a reference checkpoint (an orbax directory needs the JAX package).
 
 Layout: flax conv kernels are HWIO, torch's OIHW; flax BN ``scale``/
 ``bias``/``mean``/``var`` are torch BN ``weight``/``bias``/
@@ -22,7 +25,7 @@ Layout: flax conv kernels are HWIO, torch's OIHW; flax BN ``scale``/
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Any, Dict, Mapping, Union
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -124,4 +127,52 @@ def load_flax_npz(path_or_dict: Union[str, Path, Mapping[str, Any]], model_name:
         params["n_classes"] = int(np.asarray(flat["params/convSout/kernel"]).shape[-1])
     model = build_model(model_name, device="cpu", **params)
     load_reference_state_dict(model, flax_to_state_dict(flat))
+    return model.to(dev).eval()
+
+
+def load_torch_checkpoint(path: Union[str, Path]) -> Tuple[Dict[str, torch.Tensor], int]:
+    """A reference checkpoint file → (state dict, ``n_iter``), as
+    ``ssp/models/weights.py::load_torch_checkpoint`` reads it.  Three
+    payloads: ``{"model_state_dict", "n_iter", ...}``; the Sener split
+    model's ``model_*`` submodule state dicts (``model_enc``, ``model_semi``,
+    ``model_desc``, ``model_sem``; reference ``models/senner_models.py:109-123``),
+    whose layer names are the joint model's and are merged into one dict;
+    and a bare state dict (``n_iter`` 0).  Only tensors and plain
+    containers are unpickled (``weights_only=True``)."""
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(payload, dict) and "model_state_dict" in payload:
+        return dict(payload["model_state_dict"]), int(payload.get("n_iter", 0))
+    if isinstance(payload, dict) and any(
+            k.startswith("model_") and isinstance(v, dict) for k, v in payload.items()):
+        merged: Dict[str, torch.Tensor] = {}
+        for k, sub in payload.items():
+            if k.startswith("model_") and isinstance(sub, dict):
+                merged.update(sub)
+        return merged, int(payload.get("n_iter", 0))
+    return dict(payload), 0
+
+
+def load_weights(path: Union[str, Path], model_name: str,
+                 params: Optional[Mapping[str, Any]] = None, *,
+                 device="cuda") -> SuperPointGauss2:
+    """The model ``model_name`` (built with ``params``) with the weights at
+    ``path``, in eval mode on ``device``: a ``.npz`` through
+    :func:`load_flax_npz`, a reference checkpoint file through
+    :func:`load_torch_checkpoint`.  An orbax checkpoint directory raises:
+    reading one needs the JAX package."""
+    path = Path(path)
+    params = dict(params or {})
+    if path.is_dir():
+        raise ValueError(f"{path} is a directory (an orbax checkpoint); reading it needs the "
+                         f"JAX package: export it with ssp.train.checkpoint.save_weights_npz")
+    if path.suffix == ".npz":
+        model = load_flax_npz(path, model_name, device=device)
+        if model.semantic and params.get("n_classes", model.n_classes) != model.n_classes:
+            raise ValueError(f"{path} has {model.n_classes} classes, the config "
+                             f"{params['n_classes']}")
+        return model
+    dev = resolve_device(device)
+    state_dict, _ = load_torch_checkpoint(path)
+    model = build_model(model_name, device="cpu", **params)
+    load_reference_state_dict(model, state_dict)
     return model.to(dev).eval()

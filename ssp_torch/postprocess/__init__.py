@@ -1,4 +1,4 @@
-"""Post-processing: heatmap → fixed-K keypoints + descriptors."""
+"""Post-processing: heatmap → fixed-K keypoints + descriptors; matching."""
 
 from ssp_torch.postprocess.nms import batched_nms, simple_nms, zero_border  # noqa: F401
 from ssp_torch.postprocess.points import (  # noqa: F401
@@ -7,3 +7,4 @@ from ssp_torch.postprocess.points import (  # noqa: F401
     soft_argmax_refine,
     top_k,
 )
+from ssp_torch.postprocess.tracker import PointTracker, nn_match_two_way  # noqa: F401

@@ -19,7 +19,8 @@ import torch
 import torch.nn.functional as F
 
 from ssp_torch.core.warp import bilinear_sample
-from ssp_torch.postprocess.nms import simple_nms, zero_border
+from ssp_torch.kernels.nms import nms
+from ssp_torch.postprocess.nms import zero_border
 
 BORDER_REMOVE = 4  # reference border margin (utils/utils.py:588)
 
@@ -43,13 +44,20 @@ def extract_keypoints(
     """heatmap [*L, H, W] → (pts [*L, k, 3] (x, y, score) desc-sorted,
     valid [*L, k]).
 
-    NMS → border removal → top-k → threshold mask.  ``nms_radius=0`` takes
-    the heatmap as already suppressed.
+    NMS → border removal → top-k → threshold mask.  With ``nms_radius > 0``
+    suppression and border removal run in one call of
+    ``ssp_torch.kernels.nms.nms`` (the kernel on a CUDA tensor, its plain
+    version on a CPU one); ``nms_radius=0`` takes the heatmap as already
+    suppressed.
     """
-    W = heatmap.shape[-1]
-    nmsed = simple_nms(heatmap, nms_radius, nms_iterations) if nms_radius > 0 else heatmap
-    if border:
-        nmsed = zero_border(nmsed, border)
+    H, W = heatmap.shape[-2:]
+    if nms_radius > 0:
+        flat = heatmap.reshape(-1, H, W).contiguous()
+        nmsed = nms(flat, nms_radius, nms_iterations, border).reshape(heatmap.shape)
+    elif border:
+        nmsed = zero_border(heatmap, border)
+    else:
+        nmsed = heatmap
     scores, idx = top_k(nmsed.flatten(-2), k)
     pts = torch.stack([(idx % W).float(), (idx // W).float(), scores], dim=-1)
     return pts, scores >= conf_thresh

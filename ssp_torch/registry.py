@@ -3,16 +3,15 @@
 The port's copy of ``ssp/registry.py``: the same public names
 (``SuperPointNet_gauss2``, ``SuperPointNet_gauss2_ssmall``), resolved
 through an explicit table rather than reflection, so names stay
-greppable and several names can alias one implementation.  Only models
-are registered so far; the ``dataset`` and ``agent`` kinds come with the
-modules that register them.
+greppable and several names can alias one implementation.  Models and
+datasets are registered so far; the ``agent`` kind comes with training.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Dict
 
-_REGISTRIES: Dict[str, Dict[str, Callable[..., Any]]] = {"model": {}}
+_REGISTRIES: Dict[str, Dict[str, Callable[..., Any]]] = {"model": {}, "dataset": {}}
 
 
 def register(kind: str, *names: str) -> Callable[[Callable], Callable]:

@@ -429,3 +429,84 @@ def test_folded_convs_keep_the_fp32_accumulator(cuda, image_shape):
     errors = accumulator_errors(model, image_shape, device=cuda)
     assert set(errors) == {"d2a", "d2b", "d3a", "d3b", "pa", "pb", "da", "db", "ds"}
     assert max(errors.values()) <= 2.0 ** -14, errors
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius,border", [(4, 4), (4, 0), (2, 4)])
+def test_extract_keypoints_launches_the_nms_kernel(cuda, radius, border, monkeypatch):
+    """``extract_keypoints`` on a CUDA tensor suppresses through the NMS
+    kernel (one launch for all leading dimensions), never through the plain
+    max-pool chain, and gives exactly what the plain chain gives; so does
+    ``SuperPointProcess.heatmap_to_nms``."""
+    import ssp_torch.postprocess.nms as post_nms
+    from ssp_torch.postprocess.points import extract_keypoints, top_k
+    from ssp_torch.postprocess.process import SuperPointProcess
+
+    heat = torch.from_numpy(_heat("pow4", (2, 3, 64, 96), seed=21)).to(cuda)
+    heat[0, 1, 10:14, 20:24] = 0.5  # a plateau of ties
+    want_nms = nms_mod.nms_plain(heat.reshape(6, 64, 96), radius=radius, border=border)
+    scores, idx = top_k(want_nms.reshape(2, 3, -1), 50)
+    want = torch.stack([(idx % 96).float(), (idx // 96).float(), scores], dim=-1)
+    want_process = nms_mod.nms_plain(heat[0], radius=radius)
+
+    def plain_chain(*args, **kwargs):
+        raise AssertionError("the plain max-pool chain ran on a CUDA tensor")
+
+    monkeypatch.setattr(post_nms, "simple_nms", plain_chain)
+    before = nms_mod.launches
+    pts, valid = extract_keypoints(heat, k=50, nms_radius=radius, border=border)
+    suppressed = SuperPointProcess(nms_dist=radius).heatmap_to_nms(heat[0])
+    torch.cuda.synchronize()
+    assert nms_mod.launches == before + 2
+    assert pts.shape == (2, 3, 50, 3) and torch.equal(pts, want)
+    assert torch.equal(valid, scores >= 0.015)
+    assert torch.equal(suppressed, want_process)
+
+
+@pytest.mark.cuda
+def test_descriptor_export_on_the_card_matches_plain_versions(cuda, tmp_path):
+    """``make_detect_describe_fn`` on the card against the same function on
+    the kernels' plain versions (``reference=True``), with the trained
+    weights at 240×320: one launch of the stem, of down1 and of NMS per
+    image; the bars of ``chip_smoke.py``'s main path (≥ 90% of the valid
+    points shared within 0.5 px, cosine ≥ 0.999); the npz files written by
+    ``run_descriptor_export`` carry the same keys and point counts within
+    the same bar."""
+    from pathlib import Path
+
+    from ssp_torch.bench import structured_images
+    from ssp_torch.export import make_detect_describe_fn, run_descriptor_export
+    from ssp_torch.models.fast_infer import best_apply_fn, make_fast_apply
+    from ssp_torch.models.weights import load_flax_npz
+
+    npz = Path(__file__).resolve().parents[1] / "evidence" / "wsem_weights.npz"
+    model = load_flax_npz(npz, "SuperPointNet_gauss2_ssmall", device=cuda)
+    fn = make_detect_describe_fn(best_apply_fn(model, input_hw=(240, 320), device=cuda),
+                                 device=cuda)
+    plain = make_detect_describe_fn(make_fast_apply(model, device=cuda, reference=True),
+                                    device=cuda, reference=True)
+    images = structured_images(4, 240, 320, 31)[..., 0]
+    before = (stem_mod.launches, down1_mod.launches, nms_mod.launches)
+    outs = [fn(img) for img in images]
+    torch.cuda.synchronize()
+    after = (stem_mod.launches, down1_mod.launches, nms_mod.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (4, 4, 4)
+    for img, (pts, valid, desc) in zip(images, outs):
+        ref_pts, ref_valid, ref_desc = plain(img)
+        a, r = pts[valid], ref_pts[ref_valid]
+        assert len(r) > 20 and torch.isfinite(desc).all()
+        dist = torch.cdist(a[:, :2], r[:, :2], p=float("inf"))
+        near = dist.min(dim=1)
+        paired = near.values <= 0.5
+        assert int(paired.sum()) >= 0.9 * max(len(a), len(r))
+        cos = (desc[valid][paired] * ref_desc[ref_valid][near.indices[paired]]).sum(-1)
+        assert float(cos.min()) >= 0.999
+    pairs = [{"image": images[i], "warped_image": images[i + 1], "homography": np.eye(3)}
+             for i in (0, 2)]
+    assert run_descriptor_export(fn, pairs, tmp_path / "card") == 2
+    assert run_descriptor_export(plain, pairs, tmp_path / "plain") == 2
+    for i in range(2):
+        with np.load(tmp_path / "card" / f"{i}.npz") as a, \
+                np.load(tmp_path / "plain" / f"{i}.npz") as b:
+            assert set(a.files) == set(b.files)
+            assert abs(len(a["prob"]) - len(b["prob"])) <= 0.1 * len(b["prob"])

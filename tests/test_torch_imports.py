@@ -33,7 +33,11 @@ def test_port_files_found():
     assert {"ssp_torch/bench_ha.py", "ssp_torch/core/homography.py",
             "ssp_torch/export/homography_adaptation.py", "ssp_torch/kernels/vresample.py",
             "ssp_torch/kernels/warp_twopass.py"} <= names
-    assert len(names) > 15
+    assert {"ssp_torch/utils/config.py", "ssp_torch/utils/experiment.py",
+            "ssp_torch/data/base.py", "ssp_torch/data/hpatches.py",
+            "ssp_torch/postprocess/tracker.py", "ssp_torch/postprocess/process.py",
+            "ssp_torch/export/descriptors_export.py", "ssp_torch/cli/export.py"} <= names
+    assert len(names) > 25
 
 
 def test_fresh_interpreter_imports_every_module_without_jax_ssp_cv2():
