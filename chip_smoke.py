@@ -69,18 +69,43 @@ failure (nothing is caught):
     share of host work (decode and resize, matching and npz writes),
     detect+describe ms per image at 1×240×320 and at the sequence export's
     1×384×1248 by CUDA events, and the three kernels' times at 1×240×320
-    beside their bounds.
+    beside their bounds;
+13. ``[evaluate]``, the stage-4 evaluation and checkpoint sweep on phase
+    12's corpus: both of its exports through ``ssp_torch.cli.evaluate.
+    evaluate`` (every column side by side, host seconds per pair and the
+    RANSAC fit's share), the kernels' export a second time (an equal
+    ``result.npz``: the fit is deterministic), and the kernels against the
+    plain versions within ``EVAL_BARS`` (repeatability, matching score and
+    NN mAP within 0.03 absolute, localization error within 0.05 px, each
+    ``correctness_ε`` within 3 of the 32 pairs).  Then
+    ``ssp_torch.cli.export_eval.sweep`` over a folder of
+    ``superPointNet_1000.npz`` and ``superPointNet_2000.npz`` (the trained
+    weights) and ``superPointNet_1500_checkpoint.pth.tar`` (a state dict
+    without ``convDb.bias``): launch counts set to 0 before and read after,
+    the stem, down1 and NMS 2 × 32 pairs × 2 readable checkpoints each and
+    no resample kernel; rows 1000 and 2000 equal to each other and to the
+    evaluation of phase 12's export, row 1500 zeros, both CSV headers the
+    JAX package's; seconds per checkpoint by part.  Last, MagicLeap
+    SuperPoint (``SuperPointNet_pretrained``, seeded weights): its forward
+    at 1×240×320 on the card with TF32 off within ``ML_ATOL`` of the CPU,
+    an ``export_descriptor`` of 4 pairs (NMS twice per pair, no stem or
+    down1), detect+describe ms/image by CUDA events.
 
 Prints a ``{"kernels": [...]}`` line (each row also with the launches of
-phase 12's export, ``launches_export``, and for the stem, down1 and NMS
-their times at 1×240×320, ``export_1x240x320``), then the ``nvidia-smi``
-line, and last ``{"ok": true, "device": {...}}``.
+phase 12's export, ``launches_export``, and of phase 13's sweep,
+``launches_sweep``, and for the stem, down1 and NMS their times at
+1×240×320, ``export_1x240x320``), then the ``nvidia-smi`` line, and last
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
+import csv
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -110,7 +135,8 @@ from ssp_torch.kernels import vresample as vres_mod
 from ssp_torch.kernels import warp_twopass
 from ssp_torch.models.fast_infer import (accumulator_errors, best_apply_fn, fold_variables,
                                          make_fast_apply)
-from ssp_torch.models.weights import load_flax_npz
+from ssp_torch.models.superpoint import build_model
+from ssp_torch.models.weights import load_flax_npz, read_state_dict
 
 ROOT = Path(__file__).resolve().parent
 NPZ = ROOT / "evidence" / "wsem_weights.npz"
@@ -155,6 +181,17 @@ REL_MAX = 0.05
 # products summed in fp32 in another order differ by a few 2⁻²⁴ of the sum of
 # magnitudes; an accumulator rounded to bf16 is off by 2⁻⁹ of the value
 ACC_MAX = 2.0 ** -14
+# phase 13: the evaluation of the export on the kernels against that of the
+# export on their plain versions, 32 pairs.  The two exports share ~94% of
+# their refined points (phase 12 prints the share), so the columns move by a
+# few points or matches: repeatability, matching score and NN mAP within 0.03 absolute,
+# localization error within 0.05 px, each correctness_ε within 3 of the 32
+# pairs.  A bar that fails is a finding, not a bar to widen.
+EVAL_BARS = {"repeatability": 0.03, "matching_score": 0.03, "nn_map": 0.03,
+             "localization_err": 0.05, "correctness_pairs": 3}
+# MagicLeap SuperPoint on the card against the CPU, TF32 off: fp32 sums in
+# another order, the fp32 forward bar of the port's parity tests
+ML_ATOL = 2e-4
 # resample kernels against their plain versions, as a share of max|img|:
 # both are fp32 blends of the same two taps, (1−f)·v0 + f·v1; the kernel may
 # contract the sum to one FMA (one rounding fewer, half an ulp of the result)
@@ -782,10 +819,13 @@ def main() -> None:
             f"nms at the group's {G}x{HH}x{HW} {nms_ha_ms:.4f} ms (exact)")
     torch.cuda.synchronize()
 
-    # ---- 12. [hpatches] the stage-4 descriptor export -------------------------
-    export_launches, export_times = hpatches_phase(dev)
+    # ---- 12. [hpatches] the stage-4 descriptor export; 13. [evaluate] ---------
+    with hpatches_workdir() as td:
+        export_launches, export_times = hpatches_phase(dev, td)
+        sweep_launches = evaluate_phase(dev, td)
     for row in kernels:
         row["launches_export"] = export_launches.get(row["name"], 0)
+        row["launches_sweep"] = sweep_launches.get(row["name"], 0)
         if row["name"] in export_times:
             row["export_1x240x320"] = export_times[row["name"]]
 
@@ -795,10 +835,30 @@ def main() -> None:
                                              "count": torch.cuda.device_count()}}), flush=True)
 
 
-def hpatches_phase(dev: torch.device):
+@contextlib.contextmanager
+def hpatches_workdir():
+    """A temporary directory for phases 12 and 13, with ``SSP_DATA_PATH`` set
+    to it and ``SSP_EXPER_PATH`` to its ``logs``; both restored after."""
+    saved_env = {k: os.environ.get(k) for k in ("SSP_DATA_PATH", "SSP_EXPER_PATH")}
+    with tempfile.TemporaryDirectory() as td:
+        td = Path(td)
+        os.environ["SSP_DATA_PATH"], os.environ["SSP_EXPER_PATH"] = str(td), str(td / "logs")
+        try:
+            yield td
+        finally:
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+
+def hpatches_phase(dev: torch.device, td: Path):
     """Phase 12: the stage-4 HPatches export through the CLI on a synthetic
-    corpus, against the same export on the kernels' plain versions; its
-    throughput and where a pair's time goes; the kernels at 1×240×320.
+    corpus written under ``td``, against the same export on the kernels'
+    plain versions; its throughput and where a pair's time goes; the kernels
+    at 1×240×320.  Leaves the corpus in ``td/HPatches``, the CLI's export in
+    ``td/logs/smoke/predictions`` and the plain one in ``td/plain``.
     Returns (launches of the CLI's export per kernel, {kernel: times at
     1×240×320})."""
     hh, hw = HPATCHES_CONFIG["data"]["preprocessing"]["resize"]
@@ -806,152 +866,141 @@ def hpatches_phase(dev: torch.device):
     dd_kw = dict(top_k=m["top_k"], conf_thresh=m["detection_threshold"], nms_radius=m["nms"],
                  subpixel=m["subpixel"]["enable"], patch_size=m["subpixel"]["patch_size"])
     config = {**HPATCHES_CONFIG, "pretrained": str(ROOT / HPATCHES_CONFIG["pretrained"])}
-    saved_env = {k: os.environ.get(k) for k in ("SSP_DATA_PATH", "SSP_EXPER_PATH")}
-    with tempfile.TemporaryDirectory() as td:
-        td = Path(td)
-        os.environ["SSP_DATA_PATH"], os.environ["SSP_EXPER_PATH"] = str(td), str(td / "logs")
-        try:
-            t0 = time.perf_counter()
-            write_hpatches_tree(td / "HPatches", dev, SEED + 7)
-            log(f"[hpatches] corpus: {HP_SEQ} sequences x {len(HP_VIEWS)} views at "
-                f"{HP_RAW[0]}x{HP_RAW[1]}, binary P6, written in {time.perf_counter() - t0:.1f} s")
-            dataset = PatchesDataset(preprocessing={"resize": [hh, hw]})
-            n_pairs = len(dataset)
-            ss = load_flax_npz(NPZ, m["name"], device=dev)
-            fast = best_apply_fn(ss, input_hw=(hh, hw), device=dev)
-            dd = make_detect_describe_fn(fast, device=dev, **dd_kw)
-            dd(torch.from_numpy(dataset[0]["image"]))  # warm-up: cuDNN autotuning at 240×320
-            torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    write_hpatches_tree(td / "HPatches", dev, SEED + 7)
+    log(f"[hpatches] corpus: {HP_SEQ} sequences x {len(HP_VIEWS)} views at "
+        f"{HP_RAW[0]}x{HP_RAW[1]}, binary P6, written in {time.perf_counter() - t0:.1f} s")
+    dataset = PatchesDataset(preprocessing={"resize": [hh, hw]})
+    n_pairs = len(dataset)
+    ss = load_flax_npz(NPZ, m["name"], device=dev)
+    fast = best_apply_fn(ss, input_hw=(hh, hw), device=dev)
+    dd = make_detect_describe_fn(fast, device=dev, **dd_kw)
+    dd(torch.from_numpy(dataset[0]["image"]))  # warm-up: cuDNN autotuning at 240×320
+    torch.cuda.synchronize()
 
-            # the main path of this phase: the CLI, counted
-            reset_launches()
-            t0 = time.perf_counter()
-            written = export_descriptor(config, "smoke", device=dev)
-            torch.cuda.synchronize()
-            cli_s = time.perf_counter() - t0
-            launches = read_launches()
-            log(f"[hpatches] export_descriptor: {written} pairs in {cli_s:.2f} s with the model "
-                f"load; launches {launches} (one image per call: stem, down1 and nms "
-                f"{2 * n_pairs} each = 2 per pair)")
-            if written != n_pairs or any(launches[k] != 2 * n_pairs
-                                         for k in ("stem", "down1", "nms")):
-                raise AssertionError(f"export: {written} pairs, launches {launches}")
-            if launches["vresample"] or launches["vresample_coef"]:
-                raise AssertionError(f"resample kernels launched by the export: {launches}")
-            again = export_descriptor(config, "smoke", device=dev)
-            if again != 0:
-                raise AssertionError(f"the second export wrote {again} files")
+    # the main path of this phase: the CLI, counted
+    reset_launches()
+    t0 = time.perf_counter()
+    written = export_descriptor(config, "smoke", device=dev)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = read_launches()
+    log(f"[hpatches] export_descriptor: {written} pairs in {cli_s:.2f} s with the model "
+        f"load; launches {launches} (one image per call: stem, down1 and nms "
+        f"{2 * n_pairs} each = 2 per pair)")
+    if written != n_pairs or any(launches[k] != 2 * n_pairs
+                                 for k in ("stem", "down1", "nms")):
+        raise AssertionError(f"export: {written} pairs, launches {launches}")
+    if launches["vresample"] or launches["vresample_coef"]:
+        raise AssertionError(f"resample kernels launched by the export: {launches}")
+    again = export_descriptor(config, "smoke", device=dev)
+    if again != 0:
+        raise AssertionError(f"the second export wrote {again} files")
 
-            # the same export on the kernels' plain versions.  The files hold
-            # subpixel-refined points, where two different detections can land
-            # within SAME_PX of each other: they are held to the share of
-            # shared points; the detections themselves (subpixel off, all K
-            # points) to the main path's bars, as ``agreement`` holds them
-            plain = make_detect_describe_fn(make_fast_apply(ss, device=dev, reference=True),
-                                            device=dev, reference=True, **dd_kw)
-            run_descriptor_export(plain, iter(dataset), td / "plain", nn_thresh=m["nn_thresh"])
-            files_shared, counts, images = 1.0, [], []
-            for i in range(n_pairs):
-                with np.load(td / "logs" / "smoke" / "predictions" / f"{i}.npz") as a, \
-                        np.load(td / "plain" / f"{i}.npz") as b:
-                    a, b = dict(a), dict(b)
-                for key in ("image", "warped_image", "homography"):
-                    if not np.array_equal(a[key], b[key]):
-                        raise AssertionError(f"pair {i}: {key} differs")
-                if a["matches"].ndim != 2 or a["matches"].shape[1] != 4 or \
-                        not np.isfinite(a["desc"]).all():
-                    raise AssertionError(f"pair {i}: matches {a['matches'].shape}")
-                for side in ("prob", "warped_prob"):
-                    p, q = torch.from_numpy(a[side])[None], torch.from_numpy(b[side])[None]
-                    files_shared = min(files_shared, same_points(
-                        p, torch.ones(p.shape[:2], dtype=torch.bool), q,
-                        torch.ones(q.shape[:2], dtype=torch.bool)))
-                counts.append((len(a["prob"]), len(b["prob"]), len(a["matches"]),
-                               len(b["matches"])))
-                images += [a["image"], a["warped_image"]]
-            log("[hpatches] per pair (points ref, kernels/plain; matches, kernels/plain): "
-                + " ".join(f"{p}/{q},{u}/{v}" for p, q, u, v in counts))
-            log(f"[hpatches] written files vs the plain versions, worst image of {n_pairs} "
-                f"pairs: {files_shared:.4f} of the valid refined points within {SAME_PX} px")
-            if files_shared < SHARED_MIN:
-                raise AssertionError(f"export files: {files_shared:.4f} shared < {SHARED_MIN}")
-            unrefined = {**dd_kw, "subpixel": False}
-            det = make_detect_describe_fn(fast, device=dev, **unrefined)
-            det_plain = make_detect_describe_fn(make_fast_apply(ss, device=dev, reference=True),
-                                                device=dev, reference=True, **unrefined)
-            worst = {"shared": 1.0, "strong_recall": 1.0, "cos": 1.0}
-            stack = torch.from_numpy(np.stack(images)).to(dev)
-            for c in range(0, len(stack), 16):
-                pts, _, desc = det(stack[c:c + 16])
-                ref_pts, _, ref_desc = det_plain(stack[c:c + 16])
-                w = agreement(pts, desc, ref_pts, ref_desc)
-                worst = {k: min(worst[k], w[k]) for k in worst}
-            log(f"[hpatches] detections vs the plain versions (subpixel off), worst of "
-                f"{len(stack)} images: {worst['shared']:.4f} of the K keypoints shared, "
-                f"{worst['strong_recall']:.4f} of the points over {STRONG} found, descriptor "
-                f"cosine >= {worst['cos']:.6f}")
+    # the same export on the kernels' plain versions.  The files hold
+    # subpixel-refined points, where two different detections can land
+    # within SAME_PX of each other: they are held to the share of
+    # shared points; the detections themselves (subpixel off, all K
+    # points) to the main path's bars, as ``agreement`` holds them
+    plain = make_detect_describe_fn(make_fast_apply(ss, device=dev, reference=True),
+                                    device=dev, reference=True, **dd_kw)
+    run_descriptor_export(plain, iter(dataset), td / "plain", nn_thresh=m["nn_thresh"])
+    files_shared, counts, images = 1.0, [], []
+    for i in range(n_pairs):
+        with np.load(td / "logs" / "smoke" / "predictions" / f"{i}.npz") as a, \
+                np.load(td / "plain" / f"{i}.npz") as b:
+            a, b = dict(a), dict(b)
+        for key in ("image", "warped_image", "homography"):
+            if not np.array_equal(a[key], b[key]):
+                raise AssertionError(f"pair {i}: {key} differs")
+        if a["matches"].ndim != 2 or a["matches"].shape[1] != 4 or \
+                not np.isfinite(a["desc"]).all():
+            raise AssertionError(f"pair {i}: matches {a['matches'].shape}")
+        for side in ("prob", "warped_prob"):
+            p, q = torch.from_numpy(a[side])[None], torch.from_numpy(b[side])[None]
+            files_shared = min(files_shared, same_points(
+                p, torch.ones(p.shape[:2], dtype=torch.bool), q,
+                torch.ones(q.shape[:2], dtype=torch.bool)))
+        counts.append((len(a["prob"]), len(b["prob"]), len(a["matches"]),
+                       len(b["matches"])))
+        images += [a["image"], a["warped_image"]]
+    log("[hpatches] per pair (points ref, kernels/plain; matches, kernels/plain): "
+        + " ".join(f"{p}/{q},{u}/{v}" for p, q, u, v in counts))
+    log(f"[hpatches] written files vs the plain versions, worst image of {n_pairs} "
+        f"pairs: {files_shared:.4f} of the valid refined points within {SAME_PX} px")
+    if files_shared < SHARED_MIN:
+        raise AssertionError(f"export files: {files_shared:.4f} shared < {SHARED_MIN}")
+    unrefined = {**dd_kw, "subpixel": False}
+    det = make_detect_describe_fn(fast, device=dev, **unrefined)
+    det_plain = make_detect_describe_fn(make_fast_apply(ss, device=dev, reference=True),
+                                        device=dev, reference=True, **unrefined)
+    worst = {"shared": 1.0, "strong_recall": 1.0, "cos": 1.0}
+    stack = torch.from_numpy(np.stack(images)).to(dev)
+    for c in range(0, len(stack), 16):
+        pts, _, desc = det(stack[c:c + 16])
+        ref_pts, _, ref_desc = det_plain(stack[c:c + 16])
+        w = agreement(pts, desc, ref_pts, ref_desc)
+        worst = {k: min(worst[k], w[k]) for k in worst}
+    log(f"[hpatches] detections vs the plain versions (subpixel off), worst of "
+        f"{len(stack)} images: {worst['shared']:.4f} of the K keypoints shared, "
+        f"{worst['strong_recall']:.4f} of the points over {STRONG} found, descriptor "
+        f"cosine >= {worst['cos']:.6f}")
 
-            # throughput by the host clock, and where a pair's time goes
-            recorded = []
+    # throughput by the host clock, and where a pair's time goes
+    recorded = []
 
-            def recording(image):
-                out = dd(image)
-                recorded.append(out)
-                return out
+    def recording(image):
+        out = dd(image)
+        recorded.append(out)
+        return out
 
-            t0 = time.perf_counter()
-            run_descriptor_export(recording, iter(dataset), td / "timed", nn_thresh=m["nn_thresh"])
-            export_s = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            pairs = list(dataset)
-            decode_s = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            for pair in pairs:  # the calls as the export makes them: host arrays in, copies back
-                for key in ("image", "warped_image"):
-                    [t.cpu() for t in dd(pair[key])]
-            device_s = time.perf_counter() - t0
-            replay = iter(recorded)
-            t0 = time.perf_counter()
-            run_descriptor_export(lambda image: next(replay), pairs, td / "replay",
-                                  nn_thresh=m["nn_thresh"])
-            host_s = time.perf_counter() - t0
-            img = torch.from_numpy(pairs[0]["image"]).to(dev)
-            dd_ms = time_ms(lambda: dd(img), iters=20)
-            from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    run_descriptor_export(recording, iter(dataset), td / "timed", nn_thresh=m["nn_thresh"])
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pairs = list(dataset)
+    decode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for pair in pairs:  # the calls as the export makes them: host arrays in, copies back
+        for key in ("image", "warped_image"):
+            [t.cpu() for t in dd(pair[key])]
+    device_s = time.perf_counter() - t0
+    replay = iter(recorded)
+    t0 = time.perf_counter()
+    run_descriptor_export(lambda image: next(replay), pairs, td / "replay",
+                          nn_thresh=m["nn_thresh"])
+    host_s = time.perf_counter() - t0
+    img = torch.from_numpy(pairs[0]["image"]).to(dev)
+    dd_ms = time_ms(lambda: dd(img), iters=20)
+    from torch.profiler import ProfilerActivity, profile
 
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                for _ in range(10):
-                    dd(img)
-                torch.cuda.synchronize()
-            on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-            busy_ms = sum(e.device_time_total for e in on_card) / 10 / 1e3
-            per_pair = {k: v * 1e3 / n_pairs for k, v in (
-                ("export", export_s), ("decode", decode_s), ("calls", device_s), ("host", host_s))}
-            per_pair["rest"] = per_pair["export"] - per_pair["decode"] - per_pair["calls"] \
-                - per_pair["host"]
-            log(f"[hpatches] {n_pairs / export_s:.2f} pairs/s by the host clock over the whole "
-                f"export ({per_pair['export']:.2f} ms/pair): decode and resize "
-                f"{per_pair['decode']:.2f}, two detect+describe calls with the copies "
-                f"{per_pair['calls']:.2f}, matching and npz writes {per_pair['host']:.2f}, the "
-                f"rest {per_pair['rest']:.2f} ms/pair; host work (decode, matching, writes) "
-                f"{(decode_s + host_s) / export_s:.4f} of the time")
-            log(f"[hpatches] detect+describe at 1x{hh}x{hw}: {dd_ms:.3f} ms/image by CUDA events; "
-                f"{len(on_card) / 10:.0f} device operations and {busy_ms:.3f} ms of device time "
-                f"per image (torch.profiler), so the card idles "
-                f"{max(0.0, 1 - busy_ms / dd_ms):.3f} of the call")
-            slam = torch.from_numpy(structured_images(1, *SLAM_HW, SEED + 8)[0, ..., 0]).to(dev)
-            slam_fn = make_detect_describe_fn(best_apply_fn(ss, input_hw=SLAM_HW, device=dev),
-                                              device=dev, **{**dd_kw, "subpixel": False})
-            slam_ms = time_ms(lambda: slam_fn(slam), iters=20)
-            log(f"[hpatches] detect+describe at 1x{SLAM_HW[0]}x{SLAM_HW[1]} (the sequence "
-                f"export's shape, K={m['top_k']}, no subpixel): {slam_ms:.3f} ms/image by CUDA "
-                f"events")
-        finally:
-            for k, v in saved_env.items():
-                if v is None:
-                    os.environ.pop(k, None)
-                else:
-                    os.environ[k] = v
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            dd(img)
+        torch.cuda.synchronize()
+    on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.device_time_total for e in on_card) / 10 / 1e3
+    per_pair = {k: v * 1e3 / n_pairs for k, v in (
+        ("export", export_s), ("decode", decode_s), ("calls", device_s), ("host", host_s))}
+    per_pair["rest"] = per_pair["export"] - per_pair["decode"] - per_pair["calls"] \
+        - per_pair["host"]
+    log(f"[hpatches] {n_pairs / export_s:.2f} pairs/s by the host clock over the whole "
+        f"export ({per_pair['export']:.2f} ms/pair): decode and resize "
+        f"{per_pair['decode']:.2f}, two detect+describe calls with the copies "
+        f"{per_pair['calls']:.2f}, matching and npz writes {per_pair['host']:.2f}, the "
+        f"rest {per_pair['rest']:.2f} ms/pair; host work (decode, matching, writes) "
+        f"{(decode_s + host_s) / export_s:.4f} of the time")
+    log(f"[hpatches] detect+describe at 1x{hh}x{hw}: {dd_ms:.3f} ms/image by CUDA events; "
+        f"{len(on_card) / 10:.0f} device operations and {busy_ms:.3f} ms of device time "
+        f"per image (torch.profiler), so the card idles "
+        f"{max(0.0, 1 - busy_ms / dd_ms):.3f} of the call")
+    slam = torch.from_numpy(structured_images(1, *SLAM_HW, SEED + 8)[0, ..., 0]).to(dev)
+    slam_fn = make_detect_describe_fn(best_apply_fn(ss, input_hw=SLAM_HW, device=dev),
+                                      device=dev, **{**dd_kw, "subpixel": False})
+    slam_ms = time_ms(lambda: slam_fn(slam), iters=20)
+    log(f"[hpatches] detect+describe at 1x{SLAM_HW[0]}x{SLAM_HW[1]} (the sequence "
+        f"export's shape, K={m['top_k']}, no subpixel): {slam_ms:.3f} ms/image by CUDA "
+        f"events")
 
     # the three kernels at the export's 1×240×320, each against its plain
     # version first
@@ -993,6 +1042,168 @@ def hpatches_phase(dev: torch.device):
                 f"by {t['bound_by']}), plain {t['plain_ms']:.4f} ms, library {lib_text}")
     torch.cuda.synchronize()
     return launches, times
+
+
+def evaluate_phase(dev: torch.device, td: Path) -> dict:
+    """Phase 13: the stage-4 evaluation and the checkpoint sweep, on phase
+    12's corpus and exports under ``td``; MagicLeap SuperPoint on the card.
+    Returns the sweep's launches per kernel."""
+    from ssp_torch.cli import export_eval
+    from ssp_torch.cli.evaluate import evaluate
+    from ssp_torch.evaluations import homography_fit
+
+    n_pairs = HP_SEQ * len(HP_VIEWS)
+    fit_s = [0.0]
+    fit = homography_fit.find_homography
+
+    def timed_fit(src, dst):  # the host seconds of the RANSAC fit, read beside the total
+        t0 = time.perf_counter()
+        try:
+            return fit(src, dst)
+        finally:
+            fit_s[0] += time.perf_counter() - t0
+
+    homography_fit.find_homography = timed_fit
+    try:
+        # both exports of phase 12 through the evaluation, the kernels' twice
+        summaries, host_s, fit_share = {}, {}, {}
+        kernel_dir = td / "logs" / "smoke" / "predictions"
+        for name, out in (("kernels", kernel_dir), ("plain", td / "plain")):
+            fit_s[0] = 0.0
+            t0 = time.perf_counter()
+            summaries[name] = evaluate(out)
+            host_s[name] = (time.perf_counter() - t0) / n_pairs
+            fit_share[name] = fit_s[0] / n_pairs / host_s[name]
+        with np.load(kernel_dir / "result.npz") as z:
+            first = {k: z[k] for k in z.files}
+        again = evaluate(kernel_dir)
+        with np.load(kernel_dir / "result.npz") as z:
+            if set(z.files) != set(first) or \
+                    not all(np.array_equal(z[k], first[k]) for k in z.files):
+                raise AssertionError("a second evaluation of the same files differs")
+        if again != summaries["kernels"]:
+            raise AssertionError(f"evaluation not deterministic: {again} vs {summaries['kernels']}")
+        log(f"[evaluate] column: kernels / plain versions ({n_pairs} pairs, phase 12's exports)")
+        for k, v in summaries["kernels"].items():
+            log(f"[evaluate]   {k}: {v} / {summaries['plain'][k]}")
+        log(f"[evaluate] host seconds per pair: kernels' export {host_s['kernels']:.4f} (fit "
+            f"{fit_share['kernels']:.4f} of it), plain {host_s['plain']:.4f} (fit "
+            f"{fit_share['plain']:.4f}); a second evaluation gives an equal result.npz")
+        got, want = summaries["kernels"], summaries["plain"]
+        worst = {k: abs(got[k] - want[k]) for k in got if k != "n_files"}
+        bars = {**{k: EVAL_BARS[k] for k in ("repeatability", "matching_score", "nn_map",
+                                             "localization_err")},
+                **{k: EVAL_BARS["correctness_pairs"] / n_pairs for k in got
+                   if k.startswith("correctness_")}}
+        over = {k: (worst[k], bars[k]) for k in bars if worst[k] > bars[k] + 1e-12}
+        if got["n_files"] != n_pairs or over:
+            raise AssertionError(f"kernels against plain versions over the bars: {over}")
+
+        # the sweep through the CLI's function, counted
+        folder = td / "ckpts"
+        folder.mkdir()
+        for it in (1000, 2000):
+            shutil.copy(NPZ, folder / f"superPointNet_{it}.npz")
+        broken = read_state_dict(NPZ, HPATCHES_CONFIG["model"]["name"])
+        del broken["convDb.bias"]
+        torch.save({"model_state_dict": broken, "n_iter": 1500},
+                   folder / "superPointNet_1500_checkpoint.pth.tar")
+        config = {**HPATCHES_CONFIG, "model": {**HPATCHES_CONFIG["model"], "folder": str(folder)}}
+        eval_s = [0.0]
+        evaluate_fn = export_eval.evaluate
+
+        def timed_evaluate(path):
+            t0 = time.perf_counter()
+            try:
+                return evaluate_fn(path)
+            finally:
+                eval_s[0] += time.perf_counter() - t0
+
+        export_eval.evaluate = timed_evaluate
+        fit_s[0] = 0.0
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            csv_path = export_eval.sweep(config, "sweep", device=dev)
+        finally:
+            export_eval.evaluate = evaluate_fn
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        homography_fit.find_homography = fit
+    want_launches = 2 * n_pairs * 2
+    log(f"[evaluate] sweep of 2 readable checkpoints and a broken one: {sweep_s:.2f} s, "
+        f"{sweep_s / 2:.2f} s per readable checkpoint (export {(sweep_s - eval_s[0]) / 2:.2f}, "
+        f"evaluation {eval_s[0] / 2:.2f}, of which the fit {fit_s[0] / 2:.2f}); launches "
+        f"{launches} (stem, down1 and nms {want_launches} each = 2 per pair per checkpoint)")
+    if any(launches[k] != want_launches for k in ("stem", "down1", "nms")) or \
+            launches["vresample"] or launches["vresample_coef"]:
+        raise AssertionError(f"sweep launches {launches}")
+    with open(csv_path, newline="") as f:
+        reader = csv.DictReader(f)
+        header, rows = reader.fieldnames, list(reader)
+    with open(csv_path.with_name("results_ref.csv"), newline="") as f:
+        ref_header = next(csv.reader(f))
+    if header != export_eval.CSV_FIELDS or ref_header != export_eval.REF_CSV_FIELDS:
+        raise AssertionError(f"CSV headers {header}, {ref_header}")
+    by_iter = {r["iter"]: {k: float(v) for k, v in r.items() if k != "iter"} for r in rows}
+    if sorted(by_iter) != ["1000", "1500", "2000"] or any(by_iter["1500"].values()):
+        raise AssertionError(f"sweep rows {rows}")
+    export_row = {k: float(summaries["kernels"][k]) for k in export_eval.CSV_FIELDS[1:]}
+    if not by_iter["1000"] == by_iter["2000"] == export_row:
+        raise AssertionError(f"rows 1000 {by_iter['1000']} and 2000 {by_iter['2000']} against "
+                             f"phase 12's export {export_row}")
+    log("[evaluate] rows 1000 and 2000 equal each other and the evaluation of phase 12's "
+        "export; row 1500 (a state dict without convDb.bias) is zeros; both headers are "
+        "the JAX package's")
+
+    # MagicLeap SuperPoint, seeded weights: the card against the CPU, then an export
+    ml_cpu = build_model("SuperPointNet_pretrained", device="cpu",
+                         generator=torch.Generator().manual_seed(SEED))
+    hh, hw = HPATCHES_CONFIG["data"]["preprocessing"]["resize"]
+    x = torch.from_numpy(structured_images(1, hh, hw, SEED + 9))
+    ml = copy.deepcopy(ml_cpu).to(dev)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want_ml, got_ml = ml_cpu(x), ml(x.to(dev))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    ml_err = {k: float((got_ml[k].cpu() - want_ml[k]).abs().max()) for k in ("semi", "desc")}
+    if max(ml_err.values()) > ML_ATOL:
+        raise AssertionError(f"MagicLeap on the card against the CPU: {ml_err}")
+    pth = td / "superpoint_v1.pth"
+    torch.save(ml_cpu.state_dict(), pth)
+    four = td / "HPatches4"
+    four.mkdir()
+    for seq in sorted((td / "HPatches").iterdir())[:2]:
+        (four / seq.name).symlink_to(seq, target_is_directory=True)
+    ml_config = {"data": {**HPATCHES_CONFIG["data"], "root": str(four)},
+                 "model": {**{k: v for k, v in HPATCHES_CONFIG["model"].items()
+                              if k not in ("params", "folder")},
+                           "name": "SuperPointNet_pretrained"},
+                 "pretrained": str(pth)}
+    reset_launches()
+    written = export_descriptor(ml_config, "magicleap", device=dev)
+    torch.cuda.synchronize()
+    ml_launches = read_launches()
+    if written != 4 or ml_launches != {"stem": 0, "down1": 0, "nms": 8, "vresample": 0,
+                                       "vresample_coef": 0}:
+        raise AssertionError(f"MagicLeap export: {written} pairs, launches {ml_launches}")
+    m = HPATCHES_CONFIG["model"]
+    ml_dd = make_detect_describe_fn(best_apply_fn(ml, input_hw=(hh, hw), device=dev), device=dev,
+                                    top_k=m["top_k"], conf_thresh=m["detection_threshold"],
+                                    nms_radius=m["nms"], subpixel=m["subpixel"]["enable"],
+                                    patch_size=m["subpixel"]["patch_size"])
+    img = x[0, ..., 0].to(dev)
+    ml_ms = time_ms(lambda: ml_dd(img), iters=20)
+    log(f"[evaluate] MagicLeap (seeded weights) at 1x{hh}x{hw}: card vs CPU with TF32 off, "
+        f"max abs err semi {ml_err['semi']:.3g}, desc {ml_err['desc']:.3g} (bar {ML_ATOL}); "
+        f"export_descriptor of 4 pairs: launches {ml_launches}; detect+describe "
+        f"{ml_ms:.3f} ms/image by CUDA events")
+    return launches
 
 
 if __name__ == "__main__":

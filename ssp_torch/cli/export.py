@@ -23,9 +23,10 @@ import logging
 from typing import Any, Dict
 
 import torch
+import torch.nn as nn
 
 from ssp_torch import registry
-from ssp_torch.models.superpoint import SuperPointGauss2, build_model
+from ssp_torch.models.superpoint import build_model
 from ssp_torch.models.weights import load_weights
 from ssp_torch.utils.config import load_config
 from ssp_torch.utils.experiment import ExperimentPaths
@@ -33,7 +34,7 @@ from ssp_torch.utils.experiment import ExperimentPaths
 log = logging.getLogger(__name__)
 
 
-def _load_model(config: Dict[str, Any], *, device="cuda") -> SuperPointGauss2:
+def _load_model(config: Dict[str, Any], *, device="cuda") -> nn.Module:
     """The configured model with the weights of ``config['pretrained']``
     (or ``model.pretrained``), in eval mode on ``device``; without either,
     a seeded initialisation."""

@@ -12,18 +12,19 @@ JAX package runs them; matching and the npz writes stay on the host (the
 evaluation protocol's arithmetic).  The JAX package's ``topk_method=
 "approx"`` and ``desc_sampler="mxu"`` are TPU workarounds and are not
 carried over (``ssp_torch/postprocess/points.py``): the exact top-k and the
-gather sampler are the path.  The form that takes the weights as an
-argument (``make_detect_describe_var_fn``, for checkpoint sweeps) comes
-with the evaluation half.
+gather sampler are the path.  :func:`make_detect_describe_var_fn` is the
+form that takes the weights as an argument, for checkpoint sweeps
+(``ssp_torch/cli/export_eval.py``).
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Any, Callable, Dict, Iterable
+from typing import Any, Callable, Dict, Iterable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from ssp_torch._device import resolve_device
 from ssp_torch.core.grid import flatten_detection
@@ -82,6 +83,45 @@ def make_detect_describe_fn(
         return (pts[0], valid[0], desc[0]) if squeeze else (pts, valid, desc)
 
     return detect_describe
+
+
+def make_detect_describe_var_fn(
+    model: nn.Module,
+    *,
+    device="cuda",
+    input_hw: Optional[Tuple[int, int]] = None,
+    fast_inference: bool = True,
+    **kw,
+):
+    """``fn(state_dict, image) → (pts, valid, desc)``: the weights as an
+    argument, as the JAX package's form takes its variables, for checkpoint
+    sweeps.
+
+    PyTorch has no traced weights, so ``fn`` loads ``state_dict`` (reference
+    names, :func:`ssp_torch.models.weights.read_state_dict`) into ``model``
+    strictly and builds :func:`make_detect_describe_fn` over
+    ``best_apply_fn(model, input_hw, fast_inference)`` (``kw`` goes to it),
+    only when it is given another state dict object than the last call: a
+    sweep folds the BatchNorm once per checkpoint.  A state dict that does
+    not load raises, and the next call loads again."""
+    from ssp_torch.models.fast_infer import best_apply_fn
+    from ssp_torch.models.weights import load_reference_state_dict
+
+    dev = resolve_device(device)
+    model = model.to(dev).eval()
+    loaded: Dict[str, Any] = {"weights": None, "fn": None}
+
+    def fn(state_dict: Mapping[str, Any], image):
+        if state_dict is not loaded["weights"]:
+            loaded["weights"] = None  # a failed load leaves the module partly written
+            load_reference_state_dict(model, state_dict)
+            loaded["fn"] = make_detect_describe_fn(
+                best_apply_fn(model, input_hw=input_hw, enable=fast_inference, device=dev),
+                device=dev, **kw)
+            loaded["weights"] = state_dict
+        return loaded["fn"](image)
+
+    return fn
 
 
 def _host(result):

@@ -1,6 +1,8 @@
 """SuperPoint / Semantic-SuperPoint backbone as a PyTorch ``nn.Module``.
 
-Port of ``ssp/models/superpoint.py::SuperPointGauss2``.  Parameter and
+Port of ``ssp/models/superpoint.py::SuperPointGauss2`` and
+``SuperPointMagicLeap`` (the public MagicLeap SuperPoint, registered as
+``SuperPointNet_pretrained``).  Parameter and
 buffer names are the reference's own (``inc.conv.conv.0.weight``,
 ``down1.mpconv.1.conv.3.weight``, ``convPa``/``bnPa``, …, reference
 ``models/SuperPointNet_gauss2_ssmall.py``), so reference state dicts load
@@ -119,6 +121,44 @@ class SuperPointGauss2(nn.Module):
         return out
 
 
+class SuperPointMagicLeap(nn.Module):
+    """MagicLeap SuperPoint: a plain VGG encoder, no BatchNorm (reference
+    ``models/SuperPointNet_pretrained.py:21-60``).
+
+    Channels 64,64 | 64,64 | 128,128 | 128,128 with a 2×2 max pool after
+    each of the first three pairs and ReLU after every 3×3 conv; heads
+    ``convPa`` (3×3, 128→256, ReLU) → ``convPb`` (1×1, 65) and ``convDa`` →
+    ``convDb`` (1×1, 256), the descriptors divided by their norm + 1e-12.
+    Parameter names are the reference's (``conv1a.weight``, …), so
+    ``superpoint_v1.pth`` loads strictly.  ``forward(x [B, H, W, 1])``
+    returns NHWC ``semi`` and ``desc``, as :class:`SuperPointGauss2` does.
+    """
+
+    def __init__(self):
+        super().__init__()
+        widths = (("conv1a", 1, 64), ("conv1b", 64, 64), ("conv2a", 64, 64), ("conv2b", 64, 64),
+                  ("conv3a", 64, 128), ("conv3b", 128, 128), ("conv4a", 128, 128),
+                  ("conv4b", 128, 128))
+        for name, cin, cout in widths:
+            setattr(self, name, nn.Conv2d(cin, cout, 3, padding=1))
+        self.convPa = nn.Conv2d(128, 256, 3, padding=1)
+        self.convPb = nn.Conv2d(256, 65, 1)
+        self.convDa = nn.Conv2d(128, 256, 3, padding=1)
+        self.convDb = nn.Conv2d(256, 256, 1)
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        x = x.permute(0, 3, 1, 2)  # NHWC → NCHW
+        for stage in ("1", "2", "3", "4"):
+            x = F.relu(getattr(self, f"conv{stage}a")(x))
+            x = F.relu(getattr(self, f"conv{stage}b")(x))
+            if stage != "4":
+                x = F.max_pool2d(x, 2)
+        semi = self.convPb(F.relu(self.convPa(x)))
+        desc = self.convDb(F.relu(self.convDa(x)))
+        desc = desc / (torch.linalg.vector_norm(desc, dim=1, keepdim=True) + 1e-12)
+        return {"semi": semi.permute(0, 2, 3, 1), "desc": desc.permute(0, 2, 3, 1)}
+
+
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Re-initialise as the flax module does: He-uniform conv kernels,
     zero conv biases, BN scale 1 / bias 0 / mean 0 / var 1; random draws
@@ -147,8 +187,13 @@ def _gauss2_ssmall(n_classes: int = 133, **params) -> SuperPointGauss2:
     return SuperPointGauss2(semantic=True, n_classes=n_classes, **params)
 
 
+@register("model", "SuperPointNet_pretrained")
+def _magicleap(**params) -> SuperPointMagicLeap:
+    return SuperPointMagicLeap(**params)
+
+
 def build_model(name: str, *, device="cuda", generator: Optional[torch.Generator] = None,
-                **params) -> SuperPointGauss2:
+                **params) -> nn.Module:
     """Model factory by reference-compatible name, in eval mode on
     ``device``.  With ``generator`` the weights are drawn from it
     (:func:`init_weights`); otherwise they are PyTorch's defaults, to be

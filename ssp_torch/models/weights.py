@@ -15,7 +15,12 @@ reference's PyTorch state dicts.
   strict ``load_state_dict`` of a reference ``.pth.tar`` payload, which
   :func:`load_torch_checkpoint` reads.
 * :func:`load_weights` loads what a config's ``pretrained`` names: a flax
-  npz or a reference checkpoint (an orbax directory needs the JAX package).
+  npz or a reference checkpoint (an orbax directory needs the JAX package);
+  :func:`read_state_dict` reads either as a reference-named state dict.
+* The MagicLeap model (``SuperPointNet_pretrained``) has no BatchNorm and
+  flat scopes, ``params/conv1a/kernel`` ↔ ``conv1a.weight``: its flax npz
+  (``ssp/models/weights.py::import_torch_magicleap``'s params) and its
+  bare ``superpoint_v1.pth`` state dict load through the same functions.
 
 Layout: flax conv kernels are HWIO, torch's OIHW; flax BN ``scale``/
 ``bias``/``mean``/``var`` are torch BN ``weight``/``bias``/
@@ -29,9 +34,10 @@ from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from ssp_torch._device import resolve_device
-from ssp_torch.models.superpoint import SuperPointGauss2, build_model
+from ssp_torch.models.superpoint import build_model
 
 # flax scope → reference prefix of the DoubleConv's Sequential
 _BLOCKS = {
@@ -54,7 +60,10 @@ _SEMANTIC_SCOPES = ("convDS", "convSout")
 def _flax_to_torch_name(key: str) -> str:
     """``params/down1/ConvBNRelu_1/Conv_0/kernel`` → ``down1.mpconv.1.conv.3.weight``."""
     kind, scope, *rest = key.split("/")
-    if scope in _BLOCKS:
+    if len(rest) == 1:  # a bare conv: convSout, or any conv of the MagicLeap model
+        (leaf,) = rest
+        prefix = scope
+    elif scope in _BLOCKS:
         cbr, layer, leaf = rest
         i = int(cbr.rsplit("_", 1)[1])
         idx = 3 * i + (0 if layer == "Conv_0" else 1)
@@ -62,9 +71,6 @@ def _flax_to_torch_name(key: str) -> str:
     elif scope in _HEADS:
         layer, leaf = rest
         prefix = _HEADS[scope][0 if layer == "Conv_0" else 1]
-    elif scope == "convSout":
-        (leaf,) = rest
-        prefix = "convSout"
     else:
         raise KeyError(f"unknown flax scope in {key!r}")
     names = {
@@ -98,8 +104,7 @@ def flax_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def load_reference_state_dict(model: SuperPointGauss2,
-                              state_dict: Mapping[str, Any]) -> SuperPointGauss2:
+def load_reference_state_dict(model: nn.Module, state_dict: Mapping[str, Any]) -> nn.Module:
     """Strict load of a reference-layout state dict (tensors or arrays).
     BN ``num_batches_tracked`` counters, which the JAX exporter does not
     write, default to 0 as in any unversioned state dict."""
@@ -109,21 +114,30 @@ def load_reference_state_dict(model: SuperPointGauss2,
     return model
 
 
-def load_flax_npz(path_or_dict: Union[str, Path, Mapping[str, Any]], model_name: str,
-                  *, device="cuda") -> SuperPointGauss2:
-    """A flax-keyed npz file (or its dict) → the port's model, in eval
-    mode on ``device``.  ``n_classes`` comes from the checkpoint's
-    ``convSout`` kernel for ``SuperPointNet_gauss2_ssmall``."""
-    dev = resolve_device(device)
+def _read_flax(path_or_dict: Union[str, Path, Mapping[str, Any]],
+               model_name: str) -> Dict[str, Any]:
+    """Flat flax keys of an npz file (or its dict) for ``model_name``: a
+    semantic checkpoint read as ``SuperPointNet_gauss2`` loses its
+    ``convDS``/``convSout`` scopes, as the JAX factory drops ``n_classes``."""
     if isinstance(path_or_dict, (str, Path)):
         with np.load(Path(path_or_dict)) as data:
             flat = {k: data[k] for k in data.files}
     else:
         flat = _flatten(path_or_dict)
-    params = {}
     if model_name == "SuperPointNet_gauss2":
         flat = {k: v for k, v in flat.items() if k.split("/")[1] not in _SEMANTIC_SCOPES}
-    elif "params/convSout/kernel" in flat:
+    return flat
+
+
+def load_flax_npz(path_or_dict: Union[str, Path, Mapping[str, Any]], model_name: str,
+                  *, device="cuda") -> nn.Module:
+    """A flax-keyed npz file (or its dict) → the port's model, in eval
+    mode on ``device``.  ``n_classes`` comes from the checkpoint's
+    ``convSout`` kernel for ``SuperPointNet_gauss2_ssmall``."""
+    dev = resolve_device(device)
+    flat = _read_flax(path_or_dict, model_name)
+    params = {}
+    if model_name == "SuperPointNet_gauss2_ssmall" and "params/convSout/kernel" in flat:
         params["n_classes"] = int(np.asarray(flat["params/convSout/kernel"]).shape[-1])
     model = build_model(model_name, device="cpu", **params)
     load_reference_state_dict(model, flax_to_state_dict(flat))
@@ -152,9 +166,26 @@ def load_torch_checkpoint(path: Union[str, Path]) -> Tuple[Dict[str, torch.Tenso
     return dict(payload), 0
 
 
+def _not_orbax(path: Path) -> None:
+    if path.is_dir():
+        raise ValueError(f"{path} is a directory (an orbax checkpoint); reading it needs the "
+                         f"JAX package: export it with ssp.train.checkpoint.save_weights_npz")
+
+
+def read_state_dict(path: Union[str, Path], model_name: str) -> Dict[str, torch.Tensor]:
+    """The reference-named state dict of a weights file for ``model_name``:
+    a flax ``.npz`` or a reference checkpoint file (``.pth.tar``, or a bare
+    state dict as ``superpoint_v1.pth``).  An orbax directory raises."""
+    path = Path(path)
+    _not_orbax(path)
+    if path.suffix == ".npz":
+        return flax_to_state_dict(_read_flax(path, model_name))
+    return load_torch_checkpoint(path)[0]
+
+
 def load_weights(path: Union[str, Path], model_name: str,
                  params: Optional[Mapping[str, Any]] = None, *,
-                 device="cuda") -> SuperPointGauss2:
+                 device="cuda") -> nn.Module:
     """The model ``model_name`` (built with ``params``) with the weights at
     ``path``, in eval mode on ``device``: a ``.npz`` through
     :func:`load_flax_npz`, a reference checkpoint file through
@@ -162,17 +193,15 @@ def load_weights(path: Union[str, Path], model_name: str,
     reading one needs the JAX package."""
     path = Path(path)
     params = dict(params or {})
-    if path.is_dir():
-        raise ValueError(f"{path} is a directory (an orbax checkpoint); reading it needs the "
-                         f"JAX package: export it with ssp.train.checkpoint.save_weights_npz")
+    _not_orbax(path)
     if path.suffix == ".npz":
         model = load_flax_npz(path, model_name, device=device)
-        if model.semantic and params.get("n_classes", model.n_classes) != model.n_classes:
-            raise ValueError(f"{path} has {model.n_classes} classes, the config "
+        n_classes = getattr(model, "n_classes", None)
+        if getattr(model, "semantic", False) and params.get("n_classes", n_classes) != n_classes:
+            raise ValueError(f"{path} has {n_classes} classes, the config "
                              f"{params['n_classes']}")
         return model
     dev = resolve_device(device)
-    state_dict, _ = load_torch_checkpoint(path)
     model = build_model(model_name, device="cpu", **params)
-    load_reference_state_dict(model, state_dict)
+    load_reference_state_dict(model, read_state_dict(path, model_name))
     return model.to(dev).eval()

@@ -1,9 +1,10 @@
 """Name → factory registry.
 
 The port's copy of ``ssp/registry.py``: the same public names
-(``SuperPointNet_gauss2``, ``SuperPointNet_gauss2_ssmall``), resolved
-through an explicit table rather than reflection, so names stay
-greppable and several names can alias one implementation.  Models and
+(``SuperPointNet_gauss2``, ``SuperPointNet_gauss2_ssmall``,
+``SuperPointNet_pretrained``), resolved through an explicit table rather
+than reflection, so names stay greppable and several names can alias one
+implementation.  Models and
 datasets are registered so far; the ``agent`` kind comes with training.
 """
 

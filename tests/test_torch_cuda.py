@@ -510,3 +510,72 @@ def test_descriptor_export_on_the_card_matches_plain_versions(cuda, tmp_path):
                 np.load(tmp_path / "plain" / f"{i}.npz") as b:
             assert set(a.files) == set(b.files)
             assert abs(len(a["prob"]) - len(b["prob"])) <= 0.1 * len(b["prob"])
+
+
+@pytest.mark.cuda
+def test_magicleap_forward_on_the_card_matches_the_cpu(cuda):
+    """``SuperPointNet_pretrained`` with seeded weights at 1×240×320: the
+    module on the card (TF32 off) against the same module on the CPU, atol
+    2e-4 on ``semi`` and ``desc``."""
+    from ssp_torch.models.superpoint import build_model
+
+    model = build_model("SuperPointNet_pretrained", device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(4).uniform(size=(1, 240, 320, 1))
+                         .astype(np.float32))
+    with torch.no_grad():
+        want = model(x)
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            got = model.to(cuda)(x.to(cuda))
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+    for key in ("semi", "desc"):
+        assert float((got[key].cpu() - want[key]).abs().max()) <= 2e-4, key
+
+
+@pytest.mark.cuda
+def test_sweep_of_one_checkpoint_on_the_card(cuda, tmp_path, monkeypatch):
+    """``ssp_torch.cli.export_eval.sweep`` on the card over one flax npz
+    checkpoint (the trained weights) and a tree of two sequences with two
+    views each: the stem, down1 and NMS kernels launch twice per pair, no
+    resample kernel does, and the row is scored."""
+    import csv
+    import shutil
+    from pathlib import Path
+
+    from ssp_torch.bench import structured_images
+    from ssp_torch.cli.export_eval import CSV_FIELDS, sweep
+    from ssp_torch.data.base import write_pnm
+
+    root = Path(__file__).resolve().parents[1]
+    for s in range(2):
+        seq = tmp_path / "hp" / f"v_seq{s}"
+        seq.mkdir(parents=True)
+        base = (structured_images(1, 240, 320, 40 + s)[0, ..., 0] * 255).astype(np.uint8)
+        write_pnm(seq / "1.ppm", np.repeat(base[..., None], 3, -1))
+        for i, (dx, dy) in ((2, (3, 2)), (3, (-4, 5))):
+            view = np.roll(base, (dy, dx), (0, 1))
+            write_pnm(seq / f"{i}.ppm", np.repeat(view[..., None], 3, -1))
+            np.savetxt(seq / f"H_1_{i}", np.array([[1.0, 0, dx], [0, 1, dy], [0, 0, 1]]))
+    (tmp_path / "ckpts").mkdir()
+    shutil.copy(root / "evidence" / "wsem_weights.npz",
+                tmp_path / "ckpts" / "superPointNet_1000.npz")
+    config = {"data": {"name": "patches_dataset", "dataset": "hpatches", "alteration": "all",
+                       "root": str(tmp_path / "hp"), "preprocessing": {"resize": [240, 320]}},
+              "model": {"name": "SuperPointNet_gauss2_ssmall", "params": {"n_classes": 133},
+                        "folder": str(tmp_path / "ckpts"), "detection_threshold": 0.015,
+                        "nms": 4, "top_k": 1000, "nn_thresh": 1.0,
+                        "subpixel": {"enable": True, "patch_size": 5}}}
+    monkeypatch.setenv("SSP_EXPER_PATH", str(tmp_path / "logs"))
+    counts = (stem_mod, down1_mod, nms_mod)
+    before = [m.launches for m in counts] + [vres_mod.launches, vres_mod.coef_launches]
+    csv_path = sweep(config, "card", device=cuda)
+    torch.cuda.synchronize()
+    after = [m.launches for m in counts] + [vres_mod.launches, vres_mod.coef_launches]
+    assert [a - b for a, b in zip(after, before)] == [8, 8, 8, 0, 0]
+    with open(csv_path, newline="") as f:
+        rows = list(csv.DictReader(f))
+    assert list(rows[0]) == CSV_FIELDS and rows[0]["iter"] == "1000"
+    assert float(rows[0]["repeatability"]) > 0 and float(rows[0]["correctness_50"]) > 0

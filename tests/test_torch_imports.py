@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no module of ``ssp_torch`` and not
 ``chip_smoke.py`` imports ``jax``, ``flax``, the JAX package ``ssp``
-(importing any ``ssp`` module runs ``ssp/__init__.py``, which loads flax)
-or ``cv2`` (the machine with the card has no OpenCV)."""
+(importing any ``ssp`` module runs ``ssp/__init__.py``, which loads flax),
+``cv2`` or ``sklearn`` (the machine with the card has neither OpenCV nor
+scikit-learn)."""
 
 import ast
 import os
@@ -13,7 +14,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "ssp", "cv2"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "ssp", "cv2", "sklearn"}
 FILES = sorted((ROOT / "ssp_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -37,7 +38,11 @@ def test_port_files_found():
             "ssp_torch/data/base.py", "ssp_torch/data/hpatches.py",
             "ssp_torch/postprocess/tracker.py", "ssp_torch/postprocess/process.py",
             "ssp_torch/export/descriptors_export.py", "ssp_torch/cli/export.py"} <= names
-    assert len(names) > 25
+    assert {"ssp_torch/evaluations/__init__.py", "ssp_torch/evaluations/detector.py",
+            "ssp_torch/evaluations/descriptor.py", "ssp_torch/evaluations/semantic.py",
+            "ssp_torch/evaluations/matching.py", "ssp_torch/evaluations/homography_fit.py",
+            "ssp_torch/cli/evaluate.py", "ssp_torch/cli/export_eval.py"} <= names
+    assert len(names) > 33
 
 
 def test_fresh_interpreter_imports_every_module_without_jax_ssp_cv2():
