@@ -9,7 +9,8 @@ failure (nothing is caught):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. builds every CUDA kernel from ``ssp_torch/csrc`` (one ``nvcc`` per
-   source, all started together) and prints the build seconds;
+   source) and the host image decoder (``imageio_host.cpp``, ``g++``), all
+   started together, and prints the build seconds of each;
 3. the main path: the trained weights of ``evidence/wsem_weights.npz``
    loaded as ``SuperPointNet_gauss2``, detect+describe at 480×640, B=16,
    K=1000 through ``ssp_torch.bench.build_pipeline``.  Every kernel's
@@ -89,12 +90,41 @@ failure (nothing is caught):
     SuperPoint (``SuperPointNet_pretrained``, seeded weights): its forward
     at 1×240×320 on the card with TF32 off within ``ML_ATOL`` of the CPU,
     an ``export_descriptor`` of 4 pairs (NMS twice per pair, no stem or
-    down1), detect+describe ms/image by CUDA events.
+    down1), detect+describe ms/image by CUDA events;
+14. ``[imageio]``, the host decoder on a machine without OpenCV: every
+    fixture of ``tests/data/torch_imageio`` decodes to the hash of OpenCV's
+    decode in its ``manifest.json``; seeded 375×1242 RGB and 240×320 gray
+    frames written by :func:`write_png` (each row's filter cycling through
+    0-4) read back exactly; ms per image of decoding by the host clock;
+15. ``[sequence]``, the SLAM sequence export: a KITTI tree under
+    ``SSP_DATA_PATH`` (2 drives × 16 structured 375×1242 color PNG frames)
+    through ``ssp_torch.cli.export.export_sequence`` with
+    ``SEQUENCE_CONFIG`` (``configs/kitti384_sequence_r5.yaml``: ssmall-133,
+    the trained weights, 384×1248, the enlarging resize, K=1000, NMS 4).
+    Launch counts from 0: the stem, down1 and NMS once per frame; a second
+    call writes nothing.  The same export on the kernels' plain versions,
+    each frame held with the main path's bars (``agreement``); frames/s by
+    the host clock with ms/frame by part (decode and resize, detect+describe,
+    npz write); the stem, down1 and NMS at 1×384×1248 beside their bounds,
+    each held against its plain version first;
+16. ``[ha_cli]``, stage-2 pseudo-labels: the JPEG fixtures under 16
+    twelve-digit names in ``SSP_DATA_PATH/COCO/train2017`` through
+    ``export_detector_homoAdapt`` with ``HA_CLI_CONFIG``
+    (``configs/magicpoint_coco_export.yaml`` with the trained weights:
+    ``SuperPointNet_gauss2``, 100 warps, ``sum``, top-600, NMS 4, subpixel),
+    one image per call.  Launch counts from 0, per image: the stem, down1
+    and NMS once, ``vresample_coef`` 4 times.  The layout
+    (``predictions/train2017/<stem>.npz``, ``export.txt``), a second call
+    that writes nothing, the points against the same export on the plain
+    versions (≥ SHARED_MIN within SAME_PX), img/s by the host clock with the
+    decode's share.
 
 Prints a ``{"kernels": [...]}`` line (each row also with the launches of
-phase 12's export, ``launches_export``, and of phase 13's sweep,
-``launches_sweep``, and for the stem, down1 and NMS their times at
-1×240×320, ``export_1x240x320``), then the ``nvidia-smi`` line, and last
+phase 12's export, ``launches_export``, of phase 13's sweep,
+``launches_sweep``, of phases 15 and 16, ``launches_sequence`` and
+``launches_ha_cli``, and for the stem, down1 and NMS their times at
+1×240×320, ``export_1x240x320``, and at 1×384×1248,
+``sequence_1x384x1248``), then the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -103,13 +133,16 @@ from __future__ import annotations
 import contextlib
 import copy
 import csv
+import hashlib
 import json
 import os
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -119,13 +152,17 @@ import torch.nn.functional as F
 from ssp_torch.bench import (BATCH, BORDER, NMS_RADIUS, TOP_K, H, W, build_pipeline,
                              structured_images)
 from ssp_torch import bench_ha
-from ssp_torch.cli.export import export_descriptor
+from ssp_torch.cli.export import export_descriptor, export_detector_homoAdapt, export_sequence
 from ssp_torch.core.grid import flatten_detection
 from ssp_torch.core.homography import inv3, sample_homographies
 from ssp_torch.core.warp import inv_warp_image
+from ssp_torch.data import imageio
 from ssp_torch.data.base import write_pnm
+from ssp_torch.data.coco import CocoDataset
 from ssp_torch.data.hpatches import PatchesDataset
-from ssp_torch.export.descriptors_export import make_detect_describe_fn, run_descriptor_export
+from ssp_torch.data.kitti import KittiDataset
+from ssp_torch.export.descriptors_export import (make_detect_describe_fn, run_descriptor_export,
+                                                 run_sequence_export)
 from ssp_torch.export.homography_adaptation import DEFAULT_HA, make_ha_fn, run_ha_export
 from ssp_torch.kernels import _build
 from ssp_torch.kernels import down1 as down1_mod
@@ -156,7 +193,39 @@ HPATCHES_CONFIG = {
               "subpixel": {"enable": True, "patch_size": 5}},
     "pretrained": "evidence/wsem_weights.npz",
 }
-HP_SEQ, HP_VIEWS, HP_RAW = 16, (2, 3), (600, 800)  # the corpus: 32 pairs at HPatches' size
+# the SLAM sequence export: configs/kitti384_sequence_r5.yaml (its root and
+# split list are pointed at the smoke's tree); the stage-2 HA export:
+# configs/magicpoint_coco_export.yaml with the trained weights
+SEQUENCE_CONFIG = {
+    "data": {"dataset": "Kitti_inh", "export_folder": "train", "root": "datasets/KITTI_synth",
+             "root_split_txt": "datasets/KITTI_synth", "preprocessing": {"resize": [384, 1248]},
+             "augmentation": {"photometric": {"enable": False}}},
+    "front_end_model": "Val_model_heatmap",
+    "model": {"name": "SuperPointNet_gauss2_ssmall", "params": {"n_classes": 133},
+              "batch_size": 1, "detection_threshold": 0.015, "nms": 4, "top_k": 1000},
+    "pretrained": "evidence/wsem_weights.npz",
+}
+HA_CLI_CONFIG = {
+    "data": {"dataset": "Coco", "export_folder": "train", "preprocessing": {"resize": [240, 320]},
+             "augmentation": {"photometric": {"enable": False}},
+             "homography_adaptation": {
+                 "enable": True, "num": 100, "aggregation": "sum", "filter_counts": 0,
+                 "homographies": {"params": {
+                     "translation": True, "rotation": True, "scaling": True, "perspective": True,
+                     "scaling_amplitude": 0.2, "perspective_amplitude_x": 0.2,
+                     "perspective_amplitude_y": 0.2, "allow_artifacts": True,
+                     "patch_ratio": 0.85}}}},
+    "model": {"name": "SuperPointNet_gauss2", "params": {}, "batch_size": 1, "eval_batch_size": 1,
+              "detection_threshold": 0.015, "nms": 4, "top_k": 600,
+              "subpixel": {"enable": True, "patch_size": 5}},
+    "pretrained": "evidence/wsem_weights.npz",
+}
+HP_SEQ, HP_VIEWS, HP_RAW = 16, (2, 3), (600, 800)
+# the decoder's fixtures, made with OpenCV, each with the hash of its decode
+FIXTURES = ROOT / "tests" / "data" / "torch_imageio"
+KITTI_RAW = (375, 1242)  # a KITTI color frame
+SEQ_DRIVES, SEQ_FRAMES = 2, 16  # the sequence corpus: 2 drives of 16 frames
+HA_CLI_IMAGES = 16  # the stage-2 corpus: the JPEG fixtures under 16 COCO names  # the corpus: 32 pairs at HPatches' size
 SLAM_HW = (384, 1248)  # the SLAM sequence export's shape (configs/kitti384_sequence_r5.yaml)
 
 # published H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores,
@@ -353,6 +422,84 @@ def write_hpatches_tree(root: Path, dev: torch.device, seed: int) -> None:
             np.savetxt(seq / f"H_1_{i}", Hm)
 
 
+def write_png(path: Path, img: np.ndarray) -> None:
+    """uint8 [H, W] gray or [H, W, 3] RGB → an 8-bit PNG written with
+    ``zlib`` and ``struct`` alone, row y filtered with type y % 5 (None, Sub,
+    Up, Average, Paeth), so that reading it back takes every filter."""
+    img = np.ascontiguousarray(img, np.uint8)
+    h, w = img.shape[:2]
+    ch = 1 if img.ndim == 2 else 3
+    px = img.reshape(h, w * ch).astype(np.int16)
+    pad = np.zeros(ch, np.int16)
+    prev = np.zeros(w * ch, np.int16)
+    rows = []
+    for y in range(h):
+        cur = px[y]
+        a = np.concatenate([pad, cur[:-ch]])  # left
+        c = np.concatenate([pad, prev[:-ch]])  # up-left
+        p = a + prev - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - prev), np.abs(p - c)
+        pred = (0, a, prev, (a + prev) >> 1,
+                np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, prev, c)))[y % 5]
+        rows.append(bytes([y % 5]) + ((cur - pred) & 0xFF).astype(np.uint8).tobytes())
+        prev = cur
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+    Path(path).write_bytes(
+        b"\x89PNG\r\n\x1a\n"
+        + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0 if ch == 1 else 2, 0, 0, 0))
+        + chunk(b"IDAT", zlib.compress(b"".join(rows), 6)) + chunk(b"IEND", b""))
+
+
+def conv_nms_times(model, img: torch.Tensor, dev: torch.device) -> dict:
+    """The stem, down1 and NMS (radius 4) at one image ``img [H, W]`` on the
+    card, each against its plain version first (stem and down1 within the
+    bf16 bars, NMS exactly), then timed beside its plain version, its cuDNN
+    composition (none for NMS) and its bound: ``{kernel: {ms, plain_ms,
+    bound_ms, bound_by, library_ms, max_abs_err}}``."""
+    hh, hw = img.shape
+    folded = {k: tuple(t.to(dev) for t in v) for k, v in fold_variables(model).items()}
+    stem_p, down1_p = (*folded["inc0"], *folded["inc1"]), (*folded["d1a"], *folded["d1b"])
+    stem_prep, down1_prep = stem_mod.prepare_stem(*stem_p), down1_mod.prepare_down1(*down1_p)
+    x = img[None, ..., None].contiguous()
+    times = {}
+    with torch.inference_mode():
+        x_stem = stem_mod.stem_plain(x, *stem_p)
+        heat = flatten_detection(make_fast_apply(model, device=dev, reference=True)(x)["semi"])
+        heat = heat[..., 0].contiguous()
+        err = {"stem": stem_mod.assert_bf16_close(stem_mod.stem_prepared(x, stem_prep), x_stem),
+               "down1": stem_mod.assert_bf16_close(down1_mod.down1_prepared(x_stem, down1_prep),
+                                                   down1_mod.down1_plain(x_stem, *down1_p))}
+        if not torch.equal(nms_mod.nms(heat, radius=4, border=4),
+                           nms_mod.nms_plain(heat, radius=4, border=4)):
+            raise AssertionError(f"nms 1x{hh}x{hw} not exact")
+        err["nms"] = 0.0
+        bounds = conv_nms_bounds(x, x_stem, heat)
+        stem_lib = (cudnn_weights(*folded["inc0"]), cudnn_weights(*folded["inc1"]))
+        d1_lib = (cudnn_weights(*folded["d1a"]), cudnn_weights(*folded["d1b"]))
+        for name, kern, plain_fn, lib in (
+                ("stem", lambda: stem_mod.stem_prepared(x, stem_prep),
+                 lambda: stem_mod.stem_plain(x, *stem_p),
+                 lambda: cudnn_pair(x, *stem_lib[0], *stem_lib[1])),
+                ("down1", lambda: down1_mod.down1_prepared(x_stem, down1_prep),
+                 lambda: down1_mod.down1_plain(x_stem, *down1_p),
+                 lambda: cudnn_pair(x_stem, *d1_lib[0], *d1_lib[1])),
+                ("nms", lambda: nms_mod.nms(heat, radius=4, border=4),
+                 lambda: nms_mod.nms_plain(heat, radius=4, border=4), None)):
+            t = {"ms": time_ms(kern, iters=50), "plain_ms": time_ms(plain_fn, iters=10),
+                 "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                 "library_ms": time_ms(lib, iters=50) if lib is not None else None,
+                 "max_abs_err": err[name]}
+            times[name] = t
+            lib_text = "n/a" if lib is None else f"{t['library_ms']:.4f} ms"
+            log(f"[time] {name} at 1x{hh}x{hw}: {t['ms']:.4f} ms (bound {t['bound_ms']:.4f} ms "
+                f"by {t['bound_by']}), plain {t['plain_ms']:.4f} ms, library {lib_text}")
+    torch.cuda.synchronize()
+    return times
+
+
 def reset_launches() -> None:
     stem_mod.launches = down1_mod.launches = nms_mod.launches = 0
     vres_mod.launches = vres_mod.coef_launches = 0
@@ -382,9 +529,11 @@ def main() -> None:
     dev = torch.device("cuda")
 
     # ---- 2. build ----------------------------------------------------------
-    t0 = time.perf_counter()
-    _build.build_all()
-    log(f"[build] {', '.join(_build.SOURCES)} built in {time.perf_counter() - t0:.1f} s")
+    seconds = _build.build_all()
+    log(f"[build] {', '.join(_build.SOURCES)} built with nvcc in "
+        f"{max(seconds[n] for n in _build.SOURCES):.1f} s; the host image decoder "
+        f"({', '.join(_build.HOST_SOURCES)}.cpp) with g++ in "
+        f"{max(seconds[n] for n in _build.HOST_SOURCES):.1f} s, all started together")
 
     # ---- 3. main path ------------------------------------------------------
     model = load_flax_npz(NPZ, "SuperPointNet_gauss2", device=dev)
@@ -820,14 +969,22 @@ def main() -> None:
     torch.cuda.synchronize()
 
     # ---- 12. [hpatches] the stage-4 descriptor export; 13. [evaluate] ---------
+    # ---- 14. [imageio]; 15. [sequence]; 16. [ha_cli] -------------------------
     with hpatches_workdir() as td:
         export_launches, export_times = hpatches_phase(dev, td)
         sweep_launches = evaluate_phase(dev, td)
+        imageio_phase(td)
+        sequence_launches, sequence_times = sequence_phase(dev, td)
+        ha_cli_launches = ha_cli_phase(dev, td)
     for row in kernels:
         row["launches_export"] = export_launches.get(row["name"], 0)
         row["launches_sweep"] = sweep_launches.get(row["name"], 0)
+        row["launches_sequence"] = sequence_launches.get(row["name"], 0)
+        row["launches_ha_cli"] = ha_cli_launches.get(row["name"], 0)
         if row["name"] in export_times:
             row["export_1x240x320"] = export_times[row["name"]]
+        if row["name"] in sequence_times:
+            row["sequence_1x384x1248"] = sequence_times[row["name"]]
 
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -837,7 +994,7 @@ def main() -> None:
 
 @contextlib.contextmanager
 def hpatches_workdir():
-    """A temporary directory for phases 12 and 13, with ``SSP_DATA_PATH`` set
+    """A temporary directory for phases 12 to 16, with ``SSP_DATA_PATH`` set
     to it and ``SSP_EXPER_PATH`` to its ``logs``; both restored after."""
     saved_env = {k: os.environ.get(k) for k in ("SSP_DATA_PATH", "SSP_EXPER_PATH")}
     with tempfile.TemporaryDirectory() as td:
@@ -1004,42 +1161,7 @@ def hpatches_phase(dev: torch.device, td: Path):
 
     # the three kernels at the export's 1×240×320, each against its plain
     # version first
-    folded = {k: tuple(t.to(dev) for t in v) for k, v in fold_variables(ss).items()}
-    stem_p, down1_p = (*folded["inc0"], *folded["inc1"]), (*folded["d1a"], *folded["d1b"])
-    stem_prep, down1_prep = stem_mod.prepare_stem(*stem_p), down1_mod.prepare_down1(*down1_p)
-    x = img[None, ..., None].contiguous()
-    times = {}
-    with torch.inference_mode():
-        x_stem = stem_mod.stem_plain(x, *stem_p)
-        heat = flatten_detection(make_fast_apply(ss, device=dev, reference=True)(x)["semi"])[..., 0]
-        heat = heat.contiguous()
-        err = {"stem": stem_mod.assert_bf16_close(stem_mod.stem_prepared(x, stem_prep), x_stem),
-               "down1": stem_mod.assert_bf16_close(down1_mod.down1_prepared(x_stem, down1_prep),
-                                                   down1_mod.down1_plain(x_stem, *down1_p))}
-        if not torch.equal(nms_mod.nms(heat, radius=4, border=4),
-                           nms_mod.nms_plain(heat, radius=4, border=4)):
-            raise AssertionError(f"nms 1x{hh}x{hw} not exact")
-        err["nms"] = 0.0
-        bounds = conv_nms_bounds(x, x_stem, heat)
-        stem_lib = (cudnn_weights(*folded["inc0"]), cudnn_weights(*folded["inc1"]))
-        d1_lib = (cudnn_weights(*folded["d1a"]), cudnn_weights(*folded["d1b"]))
-        for name, kern, plain_fn, lib in (
-                ("stem", lambda: stem_mod.stem_prepared(x, stem_prep),
-                 lambda: stem_mod.stem_plain(x, *stem_p),
-                 lambda: cudnn_pair(x, *stem_lib[0], *stem_lib[1])),
-                ("down1", lambda: down1_mod.down1_prepared(x_stem, down1_prep),
-                 lambda: down1_mod.down1_plain(x_stem, *down1_p),
-                 lambda: cudnn_pair(x_stem, *d1_lib[0], *d1_lib[1])),
-                ("nms", lambda: nms_mod.nms(heat, radius=4, border=4),
-                 lambda: nms_mod.nms_plain(heat, radius=4, border=4), None)):
-            t = {"ms": time_ms(kern, iters=50), "plain_ms": time_ms(plain_fn, iters=10),
-                 "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-                 "library_ms": time_ms(lib, iters=50) if lib is not None else None,
-                 "max_abs_err": err[name]}
-            times[name] = t
-            lib_text = "n/a" if lib is None else f"{t['library_ms']:.4f} ms"
-            log(f"[time] {name} at 1x{hh}x{hw}: {t['ms']:.4f} ms (bound {t['bound_ms']:.4f} ms "
-                f"by {t['bound_by']}), plain {t['plain_ms']:.4f} ms, library {lib_text}")
+    times = conv_nms_times(ss, img, dev)
     torch.cuda.synchronize()
     return launches, times
 
@@ -1203,6 +1325,239 @@ def evaluate_phase(dev: torch.device, td: Path) -> dict:
         f"max abs err semi {ml_err['semi']:.3g}, desc {ml_err['desc']:.3g} (bar {ML_ATOL}); "
         f"export_descriptor of 4 pairs: launches {ml_launches}; detect+describe "
         f"{ml_ms:.3f} ms/image by CUDA events")
+    return launches
+
+
+def imageio_phase(td: Path) -> None:
+    """Phase 14 [imageio]: the host decoder on the card's machine, which has
+    no OpenCV.  Every committed fixture decodes to the hash of OpenCV's
+    decode in its manifest; seeded RGB and gray frames written by
+    :func:`write_png` read back exactly (RGB as libpng's luma of them); ms
+    per image of decoding, by the host clock."""
+    manifest = json.loads((FIXTURES / "manifest.json").read_text())
+    for name, entry in sorted(manifest.items()):
+        img = imageio.decode_gray(FIXTURES / name)
+        digest = hashlib.sha256(img.tobytes()).hexdigest()
+        if list(img.shape) != entry["shape"] or digest != entry["sha256"]:
+            raise AssertionError(f"{name}: decoded {img.shape} {digest}, manifest {entry}")
+    log(f"[imageio] {len(manifest)} fixtures decode to their manifest's hashes: "
+        f"{', '.join(sorted(manifest))}")
+    rng = np.random.default_rng(SEED + 10)
+    for shape in ((*KITTI_RAW, 3), (240, 320)):
+        img = rng.integers(0, 256, shape, dtype=np.uint8)
+        write_png(td / "roundtrip.png", img)
+        got = imageio.decode_gray(td / "roundtrip.png")
+        if img.ndim == 3:
+            r, g, b = (img[..., c].astype(np.int64) for c in range(3))
+            img = ((9797 * r + 19234 * g + 3737 * b) >> 15).astype(np.uint8)
+        if not np.array_equal(got, img):
+            raise AssertionError(f"PNG round trip of a {shape} frame: "
+                                 f"{int((got != img).sum())} pixels differ")
+    log(f"[imageio] seeded {KITTI_RAW[0]}x{KITTI_RAW[1]} RGB and 240x320 gray frames, "
+        f"written with every row filter, read back exactly")
+    for name in ("ycc420_480x640_q90.jpg", "rgb_375x1242.png", "gray_240x320_q96.jpg"):
+        imageio.decode_gray(FIXTURES / name)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            imageio.decode_gray(FIXTURES / name)
+        log(f"[imageio] decode {name}: {(time.perf_counter() - t0) / 20 * 1e3:.3f} ms per "
+            f"image by the host clock (one thread)")
+    # the decoder's calls release the GIL (ctypes, zlib): threads scale it
+    from concurrent.futures import ThreadPoolExecutor
+
+    paths = [FIXTURES / "ycc420_480x640_q90.jpg", FIXTURES / "rgb_375x1242.png"] * 16
+    rates = {}
+    for threads in (1, 4):
+        with ThreadPoolExecutor(threads) as pool:
+            t0 = time.perf_counter()
+            list(pool.map(imageio.decode_gray, paths))
+            rates[threads] = len(paths) / (time.perf_counter() - t0)
+    log(f"[imageio] {len(paths)} decodes (the JPEG and the PNG, alternating): "
+        f"{rates[1]:.1f} img/s on 1 thread, {rates[4]:.1f} img/s on 4 threads "
+        f"({rates[4] / rates[1]:.2f}x)")
+
+
+def sequence_phase(dev: torch.device, td: Path):
+    """Phase 15 [sequence]: the SLAM sequence export through the CLI on a
+    KITTI tree written under ``td`` (SEQ_DRIVES drives of SEQ_FRAMES color
+    PNG frames at KITTI_RAW), against the same export on the kernels' plain
+    versions; its throughput and where a frame's time goes; the kernels at
+    1×384×1248.  Returns (launches of the CLI's export, {kernel: times})."""
+    root = td / "kitti"
+    t0 = time.perf_counter()
+    drives = [f"2011_09_26_drive_{d + 1:04d}_sync" for d in range(SEQ_DRIVES)]
+    for d, drive in enumerate(drives):
+        out = root / drive / "image_02" / "data"
+        out.mkdir(parents=True)
+        frames = structured_images(SEQ_FRAMES, *KITTI_RAW, SEED + 20 + d)[..., 0]
+        for i, frame in enumerate(frames):
+            gray = (frame * 255).astype(np.uint8)
+            write_png(out / f"{i:010d}.png",
+                      np.stack([gray, np.roll(gray, 3, axis=1), gray // 2 + 64], axis=-1))
+    (root / "train.txt").write_text("".join(f"{d}\n" for d in drives))
+    log(f"[sequence] corpus: {SEQ_DRIVES} drives x {SEQ_FRAMES} frames, {KITTI_RAW[0]}x"
+        f"{KITTI_RAW[1]} RGB PNG, written in {time.perf_counter() - t0:.1f} s")
+    config = copy.deepcopy(SEQUENCE_CONFIG)
+    config["data"]["root"] = config["data"]["root_split_txt"] = str(root)
+    config["pretrained"] = str(ROOT / config["pretrained"])
+    m, hw = config["model"], tuple(config["data"]["preprocessing"]["resize"])
+    dataset = KittiDataset(task="train", root=root, root_split_txt=root,
+                           preprocessing={"resize": list(hw)})
+    n = len(dataset)
+    ss = load_flax_npz(NPZ, m["name"], device=dev)
+    dd_kw = dict(top_k=m["top_k"], conf_thresh=m["detection_threshold"], nms_radius=m["nms"],
+                 subpixel=False)
+    dd = make_detect_describe_fn(best_apply_fn(ss, input_hw=hw, device=dev), device=dev, **dd_kw)
+    dd(torch.from_numpy(dataset[0]["image"]))  # warm-up: cuDNN autotuning at 384×1248
+    torch.cuda.synchronize()
+
+    reset_launches()
+    written = export_sequence(config, "sequence", device=dev)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"[sequence] export_sequence: {written} frames; launches {launches} (stem, down1 and "
+        f"nms {n} each = 1 per frame)")
+    if written != n or any(launches[k] != n for k in ("stem", "down1", "nms")) or \
+            launches["vresample"] or launches["vresample_coef"]:
+        raise AssertionError(f"sequence export: {written} frames, launches {launches}")
+    again = export_sequence(config, "sequence", device=dev)
+    if again != 0:
+        raise AssertionError(f"the second sequence export wrote {again} files")
+
+    # the same export on the kernels' plain versions, frame by frame with
+    # the main path's bars
+    plain = make_detect_describe_fn(make_fast_apply(ss, device=dev, reference=True), device=dev,
+                                    reference=True, **dd_kw)
+    run_sequence_export(plain, dataset.images(), td / "sequence_plain")
+    out_root = td / "logs" / "sequence" / "predictions" / "train"
+    worst, counts = {"shared": 1.0, "strong_recall": 1.0, "cos": 1.0}, []
+    for rec in dataset.frames:
+        with np.load(out_root / f"{rec['name']}.npz") as a, \
+                np.load(td / "sequence_plain" / f"{rec['name']}.npz") as b:
+            got = [torch.from_numpy(a[k])[None].to(dev) for k in ("pts", "desc")]
+            want = [torch.from_numpy(b[k])[None].to(dev) for k in ("pts", "desc")]
+        if got[0].shape[1] == 0 or got[1].shape[2] != 256 or not torch.isfinite(got[1]).all():
+            raise AssertionError(f"{rec['name']}: pts {tuple(got[0].shape)}, desc "
+                                 f"{tuple(got[1].shape)}")
+        w = agreement(got[0], got[1], want[0], want[1])
+        worst = {k: min(worst[k], w[k]) for k in worst}
+        counts.append(f"{got[0].shape[1]}/{want[0].shape[1]}")
+    log(f"[sequence] points per frame, kernels/plain: {' '.join(counts)}")
+    log(f"[sequence] vs the plain versions, worst of {n} frames: {worst['shared']:.4f} of the "
+        f"points shared, {worst['strong_recall']:.4f} of the points over {STRONG} found, "
+        f"descriptor cosine >= {worst['cos']:.6f}")
+
+    # throughput by the host clock, and where a frame's time goes
+    recorded = []
+
+    def recording(image):
+        out = dd(image)
+        recorded.append(out)
+        return out
+
+    t0 = time.perf_counter()
+    run_sequence_export(recording, dataset.images(), td / "sequence_timed")
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    frames = list(dataset.images())
+    decode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _, image in frames:  # the calls as the export makes them: host arrays in, copies back
+        [t.cpu() for t in dd(image)]
+    device_s = time.perf_counter() - t0
+    replay = iter(recorded)
+    t0 = time.perf_counter()
+    run_sequence_export(lambda image: next(replay), frames, td / "sequence_replay")
+    write_s = time.perf_counter() - t0
+    ms = {k: v * 1e3 / n for k, v in (("export", export_s), ("decode", decode_s),
+                                      ("calls", device_s), ("write", write_s))}
+    log(f"[sequence] {n / export_s:.2f} frames/s by the host clock ({ms['export']:.2f} ms/frame): "
+        f"decode and resize {ms['decode']:.2f}, detect+describe with the copies "
+        f"{ms['calls']:.2f}, npz write {ms['write']:.2f}, the rest "
+        f"{ms['export'] - ms['decode'] - ms['calls'] - ms['write']:.2f} ms/frame")
+    times = conv_nms_times(ss, torch.from_numpy(frames[0][1]).to(dev), dev)
+    return launches, times
+
+
+def ha_cli_phase(dev: torch.device, td: Path) -> dict:
+    """Phase 16 [ha_cli]: stage-2 pseudo-labels through
+    ``export_detector_homoAdapt`` on a COCO tree under ``td`` (the JPEG
+    fixtures under HA_CLI_IMAGES twelve-digit names), against the same
+    export on the kernels' plain versions; img/s with the decode's share.
+    Returns the CLI's launches per kernel."""
+    folder = td / "COCO" / "train2017"
+    folder.mkdir(parents=True)
+    jpegs = sorted(FIXTURES.glob("*.jpg"))
+    stems = [f"{139 + 4099 * i:012d}" for i in range(HA_CLI_IMAGES)]
+    for i, stem in enumerate(stems):
+        shutil.copy(jpegs[i % len(jpegs)], folder / f"{stem}.jpg")
+    config = {**HA_CLI_CONFIG, "pretrained": str(ROOT / HA_CLI_CONFIG["pretrained"])}
+    m, ha_cfg = config["model"], config["data"]["homography_adaptation"]
+    hw = tuple(config["data"]["preprocessing"]["resize"])
+    n = len(stems)
+
+    reset_launches()
+    t0 = time.perf_counter()
+    written = export_detector_homoAdapt(config, "ha_cli", device=dev)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = read_launches()
+    # from the code, per image (group 1, one chunk of 100 warps): two coef
+    # passes for the warp stack and two for the heatmaps' back-warp, one
+    # forward, one NMS
+    per_image = {"stem": 1, "down1": 1, "nms": 1, "vresample": 0, "vresample_coef": 4}
+    log(f"[ha_cli] export_detector_homoAdapt: {written} images in {cli_s:.2f} s with the model "
+        f"load; launches {launches}, per image {({k: v / n for k, v in launches.items()})}")
+    if written != n or launches != {k: v * n for k, v in per_image.items()}:
+        raise AssertionError(f"HA CLI: {written} images, launches {launches}")
+    exper = td / "logs" / "ha_cli"
+    files = sorted(p.relative_to(exper / "predictions").as_posix()
+                   for p in (exper / "predictions").rglob("*.npz"))
+    audit = f"load model: {config['pretrained']}\nhomography adaptation: {ha_cfg['num']}\n"
+    if files != [f"train2017/{s}.npz" for s in stems] or \
+            (exper / "export.txt").read_text() != audit:
+        raise AssertionError(f"HA CLI layout: {files}, {(exper / 'export.txt').read_text()!r}")
+    again = export_detector_homoAdapt(config, "ha_cli", device=dev)
+    if again != 0 or (exper / "export.txt").read_text() != audit * 2:
+        raise AssertionError(f"the second HA export wrote {again} files")
+
+    # the same export on the kernels' plain versions, the same homographies
+    model = load_flax_npz(NPZ, m["name"], device=dev)
+    ha_plain = make_ha_fn(make_fast_apply(model, device=dev, reference=True), reference=True,
+                          device=dev, num_h=ha_cfg["num"],
+                          homography_params=ha_cfg["homographies"]["params"],
+                          aggregation=ha_cfg["aggregation"], filter_counts=ha_cfg["filter_counts"],
+                          top_k=m["top_k"], conf_thresh=m["detection_threshold"],
+                          nms_radius=m["nms"], subpixel=m["subpixel"]["enable"],
+                          patch_size=m["subpixel"]["patch_size"])
+    dataset = CocoDataset(task="train", preprocessing={"resize": list(hw)})
+    run_ha_export(ha_plain, dataset.images(), td / "ha_plain", seed=config.get("seed", 0),
+                  group=1)
+    worst, counts = 1.0, []
+    for stem in stems:
+        with np.load(exper / "predictions" / "train2017" / f"{stem}.npz") as a, \
+                np.load(td / "ha_plain" / f"{stem}.npz") as b:
+            p, q = torch.from_numpy(a["pts"])[None], torch.from_numpy(b["pts"])[None]
+        if not torch.isfinite(p).all():
+            raise AssertionError(f"{stem}: non-finite points")
+        worst = min(worst, same_points(p, torch.ones(p.shape[:2], dtype=torch.bool), q,
+                                       torch.ones(q.shape[:2], dtype=torch.bool)))
+        counts.append(f"{p.shape[1]}/{q.shape[1]}")
+    log(f"[ha_cli] points per image, kernels/plain: {' '.join(counts)}; worst image: "
+        f"{worst:.4f} of the valid keypoints within {SAME_PX} px of the plain export's")
+    if worst < SHARED_MIN:
+        raise AssertionError(f"HA CLI points: {worst:.4f} shared < {SHARED_MIN}")
+
+    t0 = time.perf_counter()
+    export_detector_homoAdapt(config, "ha_cli_timed", device=dev)
+    torch.cuda.synchronize()
+    timed_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    list(dataset.images())
+    decode_s = time.perf_counter() - t0
+    log(f"[ha_cli] {n / timed_s:.2f} img/s by the host clock over a second export with the "
+        f"model load ({timed_s * 1e3 / n:.2f} ms/image); decode and resize "
+        f"{decode_s * 1e3 / n:.2f} ms/image, {decode_s / timed_s:.4f} of the time")
     return launches
 
 

@@ -2,18 +2,23 @@
 
 Usage::
 
-  python -m ssp_torch.cli.export export_descriptor <config> <exper_name> [--device cpu]
+  python -m ssp_torch.cli.export export_detector_homoAdapt <config> <exper_name> [--device cpu]
+  python -m ssp_torch.cli.export export_descriptor        <config> <exper_name> [--device cpu]
+  python -m ssp_torch.cli.export export_sequence          <config> <exper_name> [--device cpu]
 
-``export_descriptor`` writes the stage-4 HPatches predictions, one npz per
-pair, to ``<EXPER_PATH>/<exper_name>/predictions/``.  It runs on the card
-unless ``--device cpu`` is given.
+* ``export_detector_homoAdapt`` (stage 2) writes homography-adaptation
+  pseudo-labels, one ``pts`` npz per image, to ``<EXPER_PATH>/<exper_name>/
+  predictions/<split dir>/`` and appends its audit lines to
+  ``<exper_name>/export.txt`` (``configs/magicpoint_coco_export.yaml``,
+  ``configs/magicpoint_kitti_export.yaml``);
+* ``export_descriptor`` (stage 4) writes the HPatches predictions, one npz
+  per pair, to ``<exper_name>/predictions/``;
+* ``export_sequence`` writes per-frame keypoints and descriptors for a
+  SLAM front end to ``<exper_name>/predictions/<split dir>/<scene>/
+  <frame>.npz`` (``configs/kitti384_sequence_r5.yaml``).
 
-Not ported yet: ``export_detector_homoAdapt`` (stage-2 pseudo-labels over
-COCO JPEGs) and ``export_sequence`` (SLAM sequence export over KITTI PNG
-frames).  Their compute path is ported (``ssp_torch.export.make_ha_fn``,
-:func:`ssp_torch.export.make_detect_describe_fn`), but their datasets need
-JPEG and PNG decoding, which the port does without OpenCV only from a
-later slice on.
+Each runs on the card unless ``--device cpu`` is given, and skips the files
+that exist, so a stopped export resumes.
 """
 
 from __future__ import annotations
@@ -81,16 +86,103 @@ def export_descriptor(config: Dict[str, Any], exper_name: str, *, device="cuda")
     return n
 
 
+def _dataset(config: Dict[str, Any]):
+    """(the configured dataset for ``data.export_folder``, that split)."""
+    data_cfg = dict(config["data"])
+    name = data_cfg.pop("dataset")
+    split = data_cfg.pop("export_folder", "train")
+    return registry.get("dataset", name)(task=split, **data_cfg), split
+
+
+def export_detector_homoAdapt(config: Dict[str, Any], exper_name: str, *, device="cuda") -> int:
+    """Stage-2 homography-adaptation pseudo-labels from ``config`` (see
+    ``configs/magicpoint_coco_export.yaml``); returns the number of npz
+    files written.  One image per call (``group=1``), as the JAX CLI runs on
+    one device; its ``one_dispatch`` mode is not carried over and raises."""
+    from ssp_torch.export.homography_adaptation import make_ha_fn, run_ha_export
+    from ssp_torch.models.fast_infer import best_apply_fn
+
+    ha_cfg = config["data"].get("homography_adaptation", {})
+    if ha_cfg.get("one_dispatch"):
+        raise ValueError("homography_adaptation.one_dispatch is not supported by the port: "
+                         "the export runs its stages as separate launches")
+    dataset, split = _dataset(config)
+    size = config["data"].get("preprocessing", {}).get("resize", [240, 320])
+    model = _load_model(config, device=device)
+    m = config["model"]
+    sub = m.get("subpixel", {})
+    num = int(ha_cfg.get("num", 100))
+    ha_fn = make_ha_fn(
+        best_apply_fn(model, input_hw=tuple(size), enable=bool(m.get("fast_inference", True)),
+                      device=device),
+        device=device,
+        num_h=num,
+        homography_params=ha_cfg.get("homographies", {}).get("params"),
+        aggregation=ha_cfg.get("aggregation", "sum"),
+        filter_counts=int(ha_cfg.get("filter_counts", 0)),
+        top_k=int(m.get("top_k", 600)),
+        conf_thresh=float(m.get("detection_threshold", 0.015)),
+        nms_radius=int(m.get("nms", 4)),
+        subpixel=bool(sub.get("enable", False)),
+        patch_size=int(sub.get("patch_size", 5)),
+    )
+    exper = ExperimentPaths(exper_name)
+    out_dir = exper.predictions / type(dataset).split_dir(split)
+    # audit log, appended across resumed runs (reference export.py:263-275)
+    with open(exper.root / "export.txt", "a") as audit:
+        audit.write(f"load model: {config.get('pretrained') or m.get('pretrained')}\n")
+        audit.write(f"homography adaptation: {num}\n")
+    n = run_ha_export(ha_fn, dataset.images(), out_dir, seed=int(config.get("seed", 0)),
+                      group=1)
+    log.info("exported %d predictions to %s", n, out_dir)
+    return n
+
+
+def export_sequence(config: Dict[str, Any], exper_name: str, *, device="cuda") -> int:
+    """Per-frame keypoints and descriptors for a SLAM front end (the
+    reference feeds KITTI/TUM sequences to Semantic ORB-SLAM2) from
+    ``config`` (see ``configs/kitti384_sequence_r5.yaml``); subpixel
+    refinement is off unless configured.  Returns the number of npz files
+    written."""
+    from ssp_torch.export.descriptors_export import make_detect_describe_fn, run_sequence_export
+    from ssp_torch.models.fast_infer import best_apply_fn
+
+    dataset, split = _dataset(config)
+    size = config["data"].get("preprocessing", {}).get("resize", [240, 320])
+    model = _load_model(config, device=device)
+    m = config["model"]
+    sub = m.get("subpixel", {})
+    dd_fn = make_detect_describe_fn(
+        best_apply_fn(model, input_hw=tuple(size), enable=bool(m.get("fast_inference", True)),
+                      device=device),
+        device=device,
+        top_k=int(m.get("top_k", 1000)),
+        conf_thresh=float(m.get("detection_threshold", 0.015)),
+        nms_radius=int(m.get("nms", 4)),
+        subpixel=bool(sub.get("enable", False)),
+        patch_size=int(sub.get("patch_size", 5)),
+    )
+    out_root = ExperimentPaths(exper_name).predictions / type(dataset).split_dir(split)
+    n = run_sequence_export(dd_fn, dataset.images(), out_root)
+    log.info("exported %d frames to %s", n, out_root)
+    return n
+
+
+COMMANDS = {"export_detector_homoAdapt": export_detector_homoAdapt,
+            "export_descriptor": export_descriptor, "export_sequence": export_sequence}
+
+
 def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
     ap = argparse.ArgumentParser(description="ssp_torch export")
     sub = ap.add_subparsers(dest="command", required=True)
-    p = sub.add_parser("export_descriptor")
-    p.add_argument("config")
-    p.add_argument("exper_name")
-    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    for command in COMMANDS:
+        p = sub.add_parser(command)
+        p.add_argument("config")
+        p.add_argument("exper_name")
+        p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    export_descriptor(load_config(args.config), args.exper_name, device=args.device)
+    COMMANDS[args.command](load_config(args.config), args.exper_name, device=args.device)
 
 
 if __name__ == "__main__":

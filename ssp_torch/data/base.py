@@ -1,19 +1,19 @@
 """Shared host-side dataset machinery (port of ``ssp/data/base.py``).
 
 The host decodes, resizes and pads; everything else runs on the device.
-``read_gray`` decodes binary netpbm (P5 gray, P6 color, maxval 255) with
-numpy, which is what HPatches ships as, and reproduces what the JAX package
-gets from OpenCV for such files: ``cv2.imread(..., IMREAD_GRAYSCALE)``
-(:func:`rgb_to_gray`) and ``cv2.resize(..., INTER_AREA)`` to uint8
-(:func:`resize_area`), then /255.  JPEG and PNG decoding, which the JAX
-package takes from OpenCV or its native decoder, is not ported yet.
+``read_gray`` decodes JPEG, PNG and binary netpbm without OpenCV
+(:func:`ssp_torch.data.imageio.decode_gray`) and reproduces what the JAX
+package gets from OpenCV: ``cv2.imread(..., IMREAD_GRAYSCALE)``, then
+``cv2.resize(..., INTER_AREA)`` to uint8 (:func:`resize_area`), then /255.
+This module also holds the netpbm reader (:func:`read_pnm`) and OpenCV's
+``cvtColor`` luma (:func:`rgb_to_gray`), which is what OpenCV applies to
+color netpbm files (PNG goes through libpng's own weights instead).
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from pathlib import Path
 from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
@@ -40,8 +40,7 @@ def _parse_pnm_header(head: bytes, path):
     """Parse magic, width, height and maxval; None if ``head`` ends first."""
     magic = head[:2]
     if magic not in _PNM_CHANNELS:
-        raise ValueError(f"{path}: not a binary netpbm (P5/P6) file; JPEG and PNG decoding "
-                         f"is not ported yet (it comes with the decoder slice)")
+        raise ValueError(f"{path}: not a binary netpbm (P5/P6) file")
     values, pos = [], 2
     while len(values) < 3:
         while pos < len(head) and head[pos:pos + 1].isspace():
@@ -197,15 +196,14 @@ def resize_area(img: np.ndarray, hw: Sequence[int]) -> np.ndarray:
 
 
 def read_gray(path, resize: Optional[Sequence[int]] = None) -> np.ndarray:
-    """Grayscale float32 ∈ [0, 1] of a binary netpbm file, optionally
-    resized to (H, W) with INTER_AREA (the reference's resize mode,
-    ``datasets/Coco.py:158``).  Other formats raise ``ValueError``."""
-    path = Path(path)
-    if not path.exists():
-        raise FileNotFoundError(f"unreadable image: {path}")
-    img = read_pnm(path)
-    if img.ndim == 3:
-        img = rgb_to_gray(img)
+    """Grayscale float32 ∈ [0, 1] of a JPEG, PNG or binary netpbm file (as
+    ``cv2.imread(..., IMREAD_GRAYSCALE)`` decodes it), optionally resized to
+    (H, W) with INTER_AREA (the reference's resize mode,
+    ``datasets/Coco.py:158``).  A form the decoder does not read raises
+    ``ValueError`` (:mod:`ssp_torch.data.imageio`)."""
+    from ssp_torch.data.imageio import decode_gray
+
+    img = decode_gray(path)
     if resize is not None:
         img = resize_area(img, resize)
     return img.astype(np.float32) / 255.0

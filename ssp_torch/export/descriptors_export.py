@@ -14,7 +14,9 @@ evaluation protocol's arithmetic).  The JAX package's ``topk_method=
 carried over (``ssp_torch/postprocess/points.py``): the exact top-k and the
 gather sampler are the path.  :func:`make_detect_describe_var_fn` is the
 form that takes the weights as an argument, for checkpoint sweeps
-(``ssp_torch/cli/export_eval.py``).
+(``ssp_torch/cli/export_eval.py``).  :func:`run_sequence_export` is the SLAM
+sequence export's loop (``ssp/cli/export.py:126-168``): one npz of valid
+points and descriptors per frame.
 """
 
 from __future__ import annotations
@@ -169,5 +171,23 @@ def run_descriptor_export(
             homography=pair["homography"],
             matches=matches.T if matches is not None else np.zeros((0, 4)),
         )
+        count += 1
+    return count
+
+
+def run_sequence_export(dd_fn, images: Iterable[Tuple[str, np.ndarray]], out_root: Path) -> int:
+    """Write ``<out_root>/<name>.npz`` with the valid rows of ``pts`` (x, y,
+    score) and ``desc`` for every (name, image [H, W]) pair, skipping files
+    that exist (a stopped run resumes); returns how many were written.
+    Names may hold a directory (``<scene>/<frame>``)."""
+    out_root = Path(out_root)
+    count = 0
+    for name, image in images:
+        out_file = out_root / f"{name}.npz"
+        if out_file.exists():
+            continue
+        out_file.parent.mkdir(parents=True, exist_ok=True)
+        pts, desc = _host(dd_fn(image))
+        np.savez_compressed(out_file, pts=pts, desc=desc)
         count += 1
     return count

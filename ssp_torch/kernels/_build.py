@@ -1,12 +1,15 @@
-"""Build the port's CUDA kernels with ``nvcc`` and load them with ctypes.
+"""Build the port's native code and load it with ctypes: the CUDA kernels
+with ``nvcc``, the host image decoder with the system ``g++``.
 
-Each ``ssp_torch/csrc/<name>.cu`` compiles on its own into
-``ssp_torch/_build/lib<name>-<hash>.so``: a plain C interface, no PyTorch
-headers, so a build takes seconds.  The hash covers the source, the
-headers beside it and the flags, so an edited source is never served by a
-stale library.  Building happens at first use (or up front through
-:func:`build_all`, which starts one ``nvcc`` per source, all at once); it
-needs the CUDA toolkit that ``torch.utils.cpp_extension`` finds.
+Each ``ssp_torch/csrc/<name>.cu`` (and the host source ``<name>.cpp``)
+compiles on its own into ``ssp_torch/_build/lib<name>-<hash>.so``: a plain
+C interface, no PyTorch headers, so a build takes seconds.  The hash covers
+the source, the headers beside it and the flags, so an edited source is
+never served by a stale library.  A build writes a file of its own process
+and is put in place with ``os.replace``, so processes that build at once do
+not race.  Building happens at first use (or up front through
+:func:`build_all`, which starts one compiler per source, all at once); the
+kernels need the CUDA toolkit that ``torch.utils.cpp_extension`` finds.
 """
 
 from __future__ import annotations
@@ -14,18 +17,24 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = ("down1", "nms", "stem", "vresample")
+HOST_SOURCES = ("imageio_host",)  # csrc/<name>.cpp, built with g++
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+# integer code only, and no -ffast-math: every machine gives the same bytes
+GXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -39,18 +48,37 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def _lib_path(name: str, flags=NVCC_FLAGS) -> Path:
-    h = hashlib.sha256(" ".join(flags).encode())
-    h.update((CSRC / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
-        h.update(header.read_bytes())
+def _gxx() -> str:
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("no g++ on the PATH: cannot build the host image decoder")
+    return gxx
+
+
+def _source(name: str) -> Path:
+    return CSRC / (f"{name}.cpp" if name in HOST_SOURCES else f"{name}.cu")
+
+
+def _default_flags(name: str):
+    return GXX_FLAGS if name in HOST_SOURCES else NVCC_FLAGS
+
+
+def _lib_path(name: str, flags=None) -> Path:
+    src = _source(name)
+    h = hashlib.sha256(" ".join(flags or _default_flags(name)).encode())
+    h.update(src.read_bytes())
+    if src.suffix == ".cu":
+        for header in sorted(CSRC.glob("*.cuh")):
+            h.update(header.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def _start(name: str, out: Path, flags=NVCC_FLAGS) -> subprocess.Popen:
+def _start(name: str, out: Path, flags=None) -> subprocess.Popen:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *flags, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    src = _source(name)
+    compiler = _gxx() if src.suffix == ".cpp" else _nvcc()
+    cmd = [compiler, *(flags or _default_flags(name)), "-o", str(tmp), str(src)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
@@ -58,7 +86,9 @@ def _finish(name: str, out: Path, proc: subprocess.Popen) -> str:
     log, _ = proc.communicate()
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
+        compiler = Path(proc.args[0]).name
+        raise RuntimeError(f"{compiler} failed for {_source(name).name} (exit "
+                           f"{proc.returncode}):\n{log}")
     os.replace(tmp, out)
     return log
 
@@ -72,14 +102,26 @@ def resource_usage(name: str) -> str:
     return _finish(name, out, _start(name, out, flags))
 
 
-def build_all() -> None:
-    """Compile every source that has no current library, in parallel."""
+def build_all() -> Dict[str, float]:
+    """Compile every source (the kernels and the host decoder) that has no
+    current library, all at once; returns the seconds from the start to
+    each build's end (0 for a library that was current)."""
+    names = SOURCES + HOST_SOURCES
     with _LOCK:
-        todo = {n: _lib_path(n) for n in SOURCES}
+        todo = {n: _lib_path(n) for n in names}
+        t0 = time.perf_counter()
         procs = {n: (p, _start(n, p)) for n, p in todo.items() if not p.exists()}
+        seconds = {n: 0.0 for n in names}
+
+        def finish(item):
+            n, (p, proc) = item
+            _finish(n, p, proc)
+            return n, time.perf_counter() - t0
+
         try:
-            for n, (p, proc) in procs.items():
-                _finish(n, p, proc)
+            with ThreadPoolExecutor(max(len(procs), 1)) as pool:
+                seconds.update(pool.map(finish, procs.items()))
+            return seconds
         finally:
             for _, proc in procs.values():
                 if proc.poll() is None:
@@ -88,7 +130,8 @@ def build_all() -> None:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
+    """The loaded library for ``csrc/<name>.cu`` (or ``.cpp``), building it
+    if needed."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is not None:

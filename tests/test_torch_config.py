@@ -72,3 +72,18 @@ def test_chip_smoke_config_is_the_sweep_config():
     want = load_config(ROOT / "configs" / "pipeline240_sweep_wsem.yaml")
     want["pretrained"] = "evidence/wsem_weights.npz"
     assert smoke.HPATCHES_CONFIG == want
+
+
+@pytest.mark.parametrize("name,config_file", [
+    ("SEQUENCE_CONFIG", "kitti384_sequence_r5.yaml"),
+    ("HA_CLI_CONFIG", "magicpoint_coco_export.yaml"),
+])
+def test_chip_smoke_export_configs_are_the_shipped_configs(name, config_file):
+    """The sequence and stage-2 phases of ``chip_smoke.py`` carry their
+    configs as dicts: the shipped files, with the trained weights."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    want = load_config(ROOT / "configs" / config_file)
+    want["pretrained"] = "evidence/wsem_weights.npz"
+    assert getattr(smoke, name) == want

@@ -99,9 +99,9 @@ def test_pnm_header_with_comments(tmp_path):
 
 
 @pytest.mark.parametrize("content,message", [
-    (b"\xff\xd8\xff\xe0" + bytes(64), "JPEG and PNG"),
-    (b"\x89PNG\r\n\x1a\n" + bytes(64), "JPEG and PNG"),
-    (b"P2\n2 2\n255\n1 2 3 4\n", "JPEG and PNG"),
+    (b"\xff\xd8\xff\xe0" + bytes(64), "truncated JPEG"),
+    (b"\x89PNG\r\n\x1a\n" + bytes(64), "bad CRC"),
+    (b"P2\n2 2\n255\n1 2 3 4\n", "not a JPEG, PNG or binary netpbm"),
     (b"P5\n2 2\n65535\n" + bytes(8), "maxval"),
     (b"P5\n2 2\n255\n" + bytes(3), "truncated"),
 ])

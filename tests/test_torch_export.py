@@ -321,4 +321,4 @@ def test_cli_main_on_the_cpu_resumes(tmp_path, monkeypatch):
     cli.main(argv)
     assert {f: (out / f).stat().st_mtime_ns for f in os.listdir(out)} == stamp
     with pytest.raises(SystemExit):
-        cli.main(["export_sequence", str(path), "cli"])
+        cli.main(["export_everything", str(path), "cli"])

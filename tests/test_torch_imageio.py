@@ -1,0 +1,596 @@
+"""The port's image decoder (``ssp_torch.data.imageio``, C++ in
+``ssp_torch/csrc/imageio_host.cpp``) against ``cv2.imread(path,
+cv2.IMREAD_GRAYSCALE)``, which is how the JAX package reads images.
+
+Bar: exact, the same shape and every byte, on JPEGs that OpenCV writes
+(qualities, chroma samplings, gray, restart intervals, optimised Huffman
+tables, odd sizes down to 1×1, EXIF orientations 1-8 spliced in as APP1, a
+noisy quality-100 image whose inverse DCT saturates) and on PNGs, both those
+OpenCV writes (every compression level, so all five row filters appear)
+and those written here (gray at 1, 2, 4, 8 and 16 bits, gray+alpha, palette,
+RGB and RGBA at 8 and 16 bits, every filter in turn, an ``eXIf``
+orientation).  The forms the decoder refuses raise ``ValueError`` naming the
+form.  The committed fixtures of ``tests/data/torch_imageio`` (read on the
+card's machine by ``chip_smoke.py``, which has no OpenCV) decode to the
+hashes of their manifest through both OpenCV and the port;
+:func:`make_fixtures` wrote them.
+"""
+
+import hashlib
+import importlib.util
+import json
+import os
+import shutil
+import struct
+import subprocess
+import sys
+import zlib
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from ssp_torch.data import imageio
+from ssp_torch.data.base import read_gray
+from ssp_torch.kernels import _build
+
+cv2 = pytest.importorskip("cv2")
+
+ROOT = Path(__file__).resolve().parents[1]
+FIXTURES = ROOT / "tests" / "data" / "torch_imageio"
+PNG_SIG = b"\x89PNG\r\n\x1a\n"
+
+
+def _scene(h, w, channels=3, seed=0, noise=12.0):
+    """uint8 [h, w, channels] (or [h, w] for 1): gradients, rectangles and
+    Gaussian noise, each channel shifted so that color matters."""
+    rng = np.random.default_rng(seed)
+    ys, xs = np.mgrid[0:h, 0:w]
+    out = []
+    for c in range(channels):
+        img = 110 + 60 * np.sin(xs / (9.0 + 3 * c)) + 40 * np.cos(ys / (13.0 + 2 * c))
+        for _ in range(max(2, h * w // 3000)):
+            y0, x0 = rng.integers(0, max(h - 2, 1)), rng.integers(0, max(w - 2, 1))
+            img[y0:y0 + rng.integers(2, h // 3 + 3), x0:x0 + rng.integers(2, w // 3 + 3)] = \
+                rng.uniform(0, 255)
+        out.append(img + rng.normal(0, noise, (h, w)))
+    out = np.clip(np.rint(np.stack(out, -1)), 0, 255).astype(np.uint8)
+    return out[..., 0] if channels == 1 else out
+
+
+def _jpeg(img, quality=90, sampling=None, params=()):
+    flags = [cv2.IMWRITE_JPEG_QUALITY, quality, *params]
+    if sampling is not None:
+        flags += [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, sampling]
+    ok, buf = cv2.imencode(".jpg", img, flags)
+    assert ok
+    return buf.tobytes()
+
+
+def _exif_app1(orientation, little=True):
+    """An APP1 segment with a TIFF IFD0 holding only the Orientation tag."""
+    e = "<" if little else ">"
+    tiff = ((b"II" if little else b"MM") + struct.pack(e + "HI", 42, 8) + struct.pack(e + "H", 1)
+            + struct.pack(e + "HHIHH", 0x0112, 3, 1, orientation, 0) + struct.pack(e + "I", 0))
+    body = b"Exif\0\0" + tiff
+    return b"\xff\xe1" + struct.pack(">H", len(body) + 2) + body, tiff
+
+
+def _with_exif(jpeg: bytes, orientation, little=True) -> bytes:
+    return jpeg[:2] + _exif_app1(orientation, little)[0] + jpeg[2:]
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+
+def _filter_rows(raw_rows, bpp, filters):
+    """Filter each row of bytes with the given type (0-4), as an encoder."""
+    out, prev = [], np.zeros(len(raw_rows[0]), np.int16)
+    pad = np.zeros(bpp, np.int16)
+    for y, row in enumerate(raw_rows):
+        cur = np.frombuffer(row, np.uint8).astype(np.int16)
+        a, c = np.concatenate([pad, cur[:-bpp]]), np.concatenate([pad, prev[:-bpp]])
+        p = a + prev - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - prev), np.abs(p - c)
+        f = filters[y % len(filters)]
+        pred = (0, a, prev, (a + prev) >> 1,
+                np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, prev, c)))[f]
+        out.append(bytes([f]) + ((cur - pred) & 0xFF).astype(np.uint8).tobytes())
+        prev = cur
+    return b"".join(out)
+
+
+def _png(samples, depth, ctype, palette=None, extra=b"", filters=(0, 1, 2, 3, 4), interlace=0):
+    """A PNG of ``samples`` [h, w, channels] (ints < 2**depth), written here."""
+    h, w, ch = samples.shape
+    if depth == 16:
+        rows = [samples[y].astype(">u2").tobytes() for y in range(h)]
+    elif depth == 8:
+        rows = [samples[y].astype(np.uint8).tobytes() for y in range(h)]
+    else:
+        per = 8 // depth
+        rows = []
+        for y in range(h):
+            v = samples[y, :, 0].astype(np.uint8)
+            v = np.concatenate([v, np.zeros((-len(v)) % per, np.uint8)]).reshape(-1, per)
+            shifts = (8 - depth * (np.arange(per) + 1)).astype(np.uint8)
+            rows.append((v << shifts).sum(1).astype(np.uint8).tobytes())
+    bpp = max(1, ch * depth // 8)
+    data = PNG_SIG + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, interlace))
+    data += extra
+    if palette is not None:
+        data += _chunk(b"PLTE", palette.astype(np.uint8).tobytes())
+    data += _chunk(b"IDAT", zlib.compress(_filter_rows(rows, bpp, filters)))
+    return data + _chunk(b"IEND", b"")
+
+
+def _png_filters(data: bytes):
+    """The set of row filter types of a non-interlaced PNG."""
+    pos, idat, ihdr = 8, [], None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if kind == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+    w, h, depth, ctype = ihdr[:4]
+    rowbytes = (w * {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[ctype] * depth + 7) // 8
+    raw = zlib.decompress(b"".join(idat))
+    return {raw[y * (rowbytes + 1)] for y in range(h)}
+
+
+def _check(tmp_path, data: bytes, name="img"):
+    """Write ``data``, decode it with both; assert equal; return the image."""
+    path = tmp_path / name
+    path.write_bytes(data)
+    want = cv2.imread(str(path), cv2.IMREAD_GRAYSCALE)
+    assert want is not None
+    got = imageio.decode_gray(path)
+    assert got.dtype == np.uint8 and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    return got
+
+
+# -- JPEG ----------------------------------------------------------------------
+
+S420, S422, S444 = (cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422,
+                    cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444)
+
+
+@pytest.mark.parametrize("quality", [50, 75, 90, 96, 100])
+def test_jpeg_quality(tmp_path, quality):
+    _check(tmp_path, _jpeg(_scene(72, 104, seed=quality), quality, S420))
+
+
+@pytest.mark.parametrize("sampling", ["420", "422", "444", "411", "440"])
+def test_jpeg_chroma_sampling(tmp_path, sampling):
+    factor = getattr(cv2, f"IMWRITE_JPEG_SAMPLING_FACTOR_{sampling}")
+    _check(tmp_path, _jpeg(_scene(61, 83, seed=1), 90, factor))
+
+
+@pytest.mark.parametrize("hw", [(240, 320), (17, 9), (1, 1)])
+def test_jpeg_gray_one_component(tmp_path, hw):
+    """One component, as ``scripts/make_coco_tree.py`` writes COCO's
+    stand-ins (quality 96)."""
+    data = _jpeg(_scene(*hw, channels=1, seed=2), 96)
+    assert data[data.index(b"\xff\xc0") + 9] == 1  # Nf = 1
+    _check(tmp_path, data)
+
+
+@pytest.mark.parametrize("interval,sampling", [(1, S444), (3, S420), (7, S422), (2, None)])
+def test_jpeg_restart_intervals(tmp_path, interval, sampling):
+    img = _scene(67, 91, seed=3) if sampling is not None else _scene(67, 91, 1, seed=3)
+    data = _jpeg(img, 85, sampling, (cv2.IMWRITE_JPEG_RST_INTERVAL, interval))
+    assert b"\xff\xdd" in data and b"\xff\xd1" in data
+    _check(tmp_path, data)
+
+
+@pytest.mark.parametrize("channels", [1, 3])
+def test_jpeg_optimised_huffman_tables(tmp_path, channels):
+    img = _scene(88, 120, channels, seed=4)
+    plain, optimised = _jpeg(img, 90), _jpeg(img, 90, params=(cv2.IMWRITE_JPEG_OPTIMIZE, 1))
+    assert optimised != plain
+    _check(tmp_path, optimised)
+
+
+@pytest.mark.parametrize("hw", [(1, 1), (17, 9), (9, 17), (8, 8), (15, 16), (239, 321)])
+@pytest.mark.parametrize("sampling", [S420, S444])
+def test_jpeg_odd_sizes(tmp_path, hw, sampling):
+    _check(tmp_path, _jpeg(_scene(*hw, seed=hw[0] * hw[1]), 90, sampling))
+
+
+@pytest.mark.parametrize("orientation", range(1, 9))
+@pytest.mark.parametrize("little", [True, False], ids=["II", "MM"])
+def test_jpeg_exif_orientation(tmp_path, orientation, little):
+    """OpenCV applies the EXIF orientation; so does the port (orientations
+    5-8 transpose the shape)."""
+    data = _jpeg(_scene(37, 53, seed=5), 90, S420)
+    upright = imageio.decode_jpeg(data)
+    got = _check(tmp_path, _with_exif(data, orientation, little))
+    assert got.shape == ((53, 37) if orientation >= 5 else (37, 53))
+    if orientation == 6:
+        np.testing.assert_array_equal(got, np.rot90(upright, -1))
+
+
+def test_jpeg_noisy_q100_saturates(tmp_path):
+    """Pixel noise of 0 and 255 at quality 100: the inverse DCT's sums leave
+    0-255 and go through libjpeg's range-limit table."""
+    rng = np.random.default_rng(6)
+    img = (rng.integers(0, 2, (64, 64, 3)) * 255).astype(np.uint8)
+    for sampling in (S444, S420):
+        got = _check(tmp_path, _jpeg(img, 100, sampling))
+        assert (got == 0).mean() > 0.05 and (got == 255).mean() > 0.05
+
+
+# -- PNG -------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("level", [0, 1, 3, 6, 9])
+@pytest.mark.parametrize("channels", [1, 3, 4])
+def test_png_written_by_opencv(tmp_path, level, channels):
+    img = _scene(45, 77, channels, seed=level)
+    ok, buf = cv2.imencode(".png", img, [cv2.IMWRITE_PNG_COMPRESSION, level])
+    assert ok
+    _check(tmp_path, buf.tobytes())
+
+
+def test_png_opencv_filters_cover_all_five(tmp_path):
+    """OpenCV's writer (libpng's adaptive filtering) uses every filter type
+    over these levels; each image decodes exactly."""
+    seen = set()
+    for level in range(10):
+        for channels in (1, 3):
+            img = _scene(60, 90, channels, seed=10 + level, noise=3.0)
+            img[20:30] = np.random.default_rng(level).integers(0, 256, img[20:30].shape)
+            img[40:50] = 7  # a band of noise and a flat band: filter 0 wins on some rows
+            ok, buf = cv2.imencode(".png", img, [cv2.IMWRITE_PNG_COMPRESSION, level])
+            seen |= _png_filters(buf.tobytes())
+            _check(tmp_path, buf.tobytes())
+    assert seen == {0, 1, 2, 3, 4}
+
+
+@pytest.mark.parametrize("channels", [1, 3])
+def test_png_16bit_written_by_opencv(tmp_path, channels):
+    rng = np.random.default_rng(7)
+    img = rng.integers(0, 65536, (33, 47, channels) if channels > 1 else (33, 47),
+                       dtype=np.uint16)
+    ok, buf = cv2.imencode(".png", img)
+    _check(tmp_path, buf.tobytes())
+
+
+PNG_FORMS = [  # (colour type, bit depth, channels)
+    (0, 1, 1), (0, 2, 1), (0, 4, 1), (0, 8, 1), (0, 16, 1),
+    (4, 8, 2), (4, 16, 2), (2, 8, 3), (2, 16, 3), (6, 8, 4), (6, 16, 4),
+    (3, 1, 1), (3, 2, 1), (3, 4, 1), (3, 8, 1),
+]
+
+
+@pytest.mark.parametrize("ctype,depth,channels", PNG_FORMS,
+                         ids=[f"type{c}-{d}bit" for c, d, _ in PNG_FORMS])
+def test_png_forms_written_here(tmp_path, ctype, depth, channels):
+    """Each colour type and bit depth, each row filter in turn; a palette
+    shorter than the index range (indices past it read as black)."""
+    rng = np.random.default_rng(depth * 10 + ctype)
+    h, w = 29, 43
+    top = 2 ** depth
+    samples = rng.integers(0, top, (h, w, channels))
+    samples[:8] = np.linspace(0, top - 1, w).astype(np.int64)[None, :, None]  # ramps
+    palette = None
+    if ctype == 3:
+        n = max(1, min(top - 1, 200))  # the last indices lie past the palette
+        palette = rng.integers(0, 256, (n, 3))
+    data = _png(samples, depth, ctype, palette)
+    assert _png_filters(data) == {0, 1, 2, 3, 4}
+    _check(tmp_path, data)
+
+
+@pytest.mark.parametrize("orientation", [1, 3, 6, 8])
+def test_png_exif_orientation(tmp_path, orientation):
+    """OpenCV applies an ``eXIf`` chunk's orientation to PNG too."""
+    gray = _scene(21, 34, 1, seed=8)[..., None]
+    tiff = _exif_app1(orientation, little=False)[1]
+    got = _check(tmp_path, _png(gray, 8, 0, extra=_chunk(b"eXIf", tiff)))
+    assert got.shape == ((34, 21) if orientation >= 5 else (21, 34))
+
+
+def test_png_rgb_at_kitti_size(tmp_path):
+    """KITTI's 375×1242 color frame: libpng's 15-bit truncated luma, which
+    differs from OpenCV's 14-bit ``cvtColor`` (``rgb_to_gray``)."""
+    from ssp_torch.data.base import rgb_to_gray
+
+    rgb = _scene(375, 1242, 3, seed=9)
+    path = tmp_path / "kitti.png"
+    cv2.imwrite(str(path), rgb[..., ::-1])
+    got = imageio.decode_gray(path)
+    np.testing.assert_array_equal(got, cv2.imread(str(path), cv2.IMREAD_GRAYSCALE))
+    r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
+    np.testing.assert_array_equal(got, (9797 * r + 19234 * g + 3737 * b) >> 15)
+    assert (got != rgb_to_gray(rgb)).mean() > 0.1
+
+
+# -- what is refused ----------------------------------------------------------------
+
+
+def _refused(tmp_path, data: bytes, match: str):
+    path = tmp_path / "bad.bin"
+    path.write_bytes(data)
+    with pytest.raises(ValueError, match=match) as err:
+        imageio.decode_gray(path)
+    assert str(path) in str(err.value)
+
+
+def _sof_replaced(data: bytes, marker: int, body_edit=None) -> bytes:
+    at = data.index(b"\xff\xc0")
+    n = struct.unpack(">H", data[at + 2:at + 4])[0]
+    body = data[at + 4:at + 2 + n]
+    if body_edit is not None:
+        body = body_edit(body)
+    return data[:at] + bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body + \
+        data[at + 2 + n:]
+
+
+def test_progressive_jpeg_refused(tmp_path):
+    data = _jpeg(_scene(40, 56, seed=11), 90, params=(cv2.IMWRITE_JPEG_PROGRESSIVE, 1))
+    assert b"\xff\xc2" in data
+    _refused(tmp_path, data, "progressive")
+
+
+@pytest.mark.parametrize("marker,match", [(0xC3, "lossless"), (0xC5, "hierarchical"),
+                                          (0xC9, "arithmetic"), (0xCA, "arithmetic")])
+def test_other_jpeg_processes_refused(tmp_path, marker, match):
+    _refused(tmp_path, _sof_replaced(_jpeg(_scene(24, 32, seed=12)), marker), match)
+
+
+def test_12bit_cmyk_and_rgb_jpeg_refused(tmp_path):
+    base = _jpeg(_scene(24, 32, seed=13), 90, S444)
+    _refused(tmp_path, _sof_replaced(base, 0xC0, lambda b: bytes([12]) + b[1:]), "12-bit")
+
+    def four(b):
+        return b[:5] + bytes([4]) + b[6:] + bytes([4, 0x11, 1])
+
+    _refused(tmp_path, _sof_replaced(base, 0xC0, four), "CMYK")
+    adobe = b"Adobe" + bytes([0, 100, 0, 0, 0, 0, 0])  # transform 0: RGB
+    app14 = b"\xff\xee" + struct.pack(">H", len(adobe) + 2) + adobe
+    no_jfif = base[:2] + base[4 + struct.unpack(">H", base[4:6])[0]:]  # drop APP0
+    assert no_jfif[2:4] != b"\xff\xe0"
+    _refused(tmp_path, no_jfif[:2] + app14 + no_jfif[2:], "RGB-coded")
+
+
+def test_interlaced_png_refused(tmp_path):
+    gray = _scene(16, 16, 1, seed=14)[..., None]
+    _refused(tmp_path, _png(gray, 8, 0, interlace=1), "interlaced")
+
+
+@pytest.mark.parametrize("kind", ["jpeg", "png"])
+def test_truncated_files_refused(tmp_path, kind):
+    if kind == "jpeg":
+        data = _jpeg(_scene(64, 64, seed=15), 90)
+    else:
+        data = _png(_scene(64, 64, 3, seed=15), 8, 2)
+    for cut in (len(data) // 2, len(data) - 20):
+        _refused(tmp_path, data[:cut], "truncated")
+
+
+def test_bad_crc_refused(tmp_path):
+    data = bytearray(_png(_scene(16, 16, 3, seed=16), 8, 2))
+    at = data.index(b"IDAT")
+    n = struct.unpack(">I", data[at - 4:at])[0]
+    data[at + 4 + n] ^= 0x01  # the CRC's first byte
+    _refused(tmp_path, bytes(data), "IDAT has a bad CRC")
+
+
+def test_corrupt_data_refused(tmp_path):
+    """Image data that is not what the headers promise raises ValueError,
+    never a crash: a deflate stream that does not inflate (its CRC right), a
+    Huffman table with more codes than its lengths allow, a scan that names
+    no table."""
+    bad = _chunk(b"IDAT", b"\x78\x9c\xff\xff\xff")
+    data = _png(_scene(8, 8, 1, seed=21)[..., None], 8, 0)
+    at = data.index(b"IDAT") - 4
+    n = struct.unpack(">I", data[at:at + 4])[0]
+    _refused(tmp_path, data[:at] + bad + data[at + 12 + n:], "corrupt PNG image data")
+    jpeg = bytearray(_jpeg(_scene(16, 16, seed=21), 90))
+    at = jpeg.index(b"\xff\xc4") + 5  # the first DHT's code counts
+    assert jpeg[at:at + 3] == b"\x00\x01\x05"  # libjpeg's standard luma DC table
+    jpeg[at:at + 3] = b"\x03\x00\x03"  # as many codes, 3 of them of length 1
+    _refused(tmp_path, bytes(jpeg), "bad Huffman table")
+    jpeg = bytearray(_jpeg(_scene(16, 16, seed=21), 90))
+    at = jpeg.index(b"\xff\xda") + 6  # the first scan component's table selectors
+    jpeg[at] = 0x33
+    _refused(tmp_path, bytes(jpeg), "Huffman tables")
+
+
+@pytest.mark.parametrize("tag", ["sRGB", "gAMA"])
+def test_gamma_tagged_color_png_refused(tmp_path, tag):
+    """libpng converts a gamma-tagged color PNG to gray through its gamma
+    tables (OpenCV's result differs from the plain luma); the port refuses
+    it.  A gray PNG with the same tag is read (no conversion applies)."""
+    body = b"\0" if tag == "sRGB" else struct.pack(">I", 45455)
+    rgb = _scene(20, 30, 3, seed=17)
+    data = _png(rgb, 8, 2, extra=_chunk(tag.encode(), body))
+    path = tmp_path / "g.png"
+    path.write_bytes(data)
+    r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
+    assert not np.array_equal(cv2.imread(str(path), 0), (9797 * r + 19234 * g + 3737 * b) >> 15)
+    _refused(tmp_path, data, "gamma")
+    gray = _scene(20, 30, 1, seed=17)[..., None]
+    _check(tmp_path, _png(gray, 8, 0, extra=_chunk(tag.encode(), body)))
+
+
+def test_unknown_magic_and_missing_file(tmp_path):
+    _refused(tmp_path, b"GIF89a" + bytes(32), "not a JPEG, PNG or binary netpbm")
+    with pytest.raises(FileNotFoundError):
+        imageio.decode_gray(tmp_path / "none.jpg")
+
+
+def test_dispatch_is_on_magic_bytes_not_suffix(tmp_path):
+    jpg = tmp_path / "really_a_jpeg.png"
+    jpg.write_bytes(_jpeg(_scene(24, 40, seed=18)))
+    np.testing.assert_array_equal(imageio.decode_gray(jpg), cv2.imread(str(jpg), 0))
+    pgm = tmp_path / "frame.jpg"
+    gray = _scene(24, 40, 1, seed=18)
+    pgm.write_bytes(b"P5\n40 24\n255\n" + gray.tobytes())
+    np.testing.assert_array_equal(imageio.decode_gray(pgm), gray)
+
+
+def test_read_gray_resizes_decoded_images(tmp_path):
+    """``read_gray``: the decode, then OpenCV's INTER_AREA, /255 — as the
+    JAX package computes it."""
+    for name, data, hw in (("a.jpg", _jpeg(_scene(480, 640, seed=19), 90), (240, 320)),
+                           ("b.png", cv2.imencode(".png", _scene(75, 250, seed=19))[1].tobytes(),
+                            (80, 256))):
+        path = tmp_path / name
+        path.write_bytes(data)
+        want = cv2.resize(cv2.imread(str(path), 0), hw[::-1], interpolation=cv2.INTER_AREA)
+        np.testing.assert_array_equal(read_gray(path, hw), want.astype(np.float32) / 255.0)
+
+
+# -- the smoke's PNG writer --------------------------------------------------------
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("channels", [1, 3])
+def test_smoke_png_writer_round_trips(tmp_path, channels):
+    """``chip_smoke.write_png`` (each row's filter cycling through 0-4)
+    gives a PNG that OpenCV reads back exactly, in color and in gray."""
+    img = _scene(23, 37, channels, seed=20)
+    path = tmp_path / "w.png"
+    _chip_smoke().write_png(path, img)
+    assert _png_filters(path.read_bytes()) == {0, 1, 2, 3, 4}
+    back = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
+    np.testing.assert_array_equal(back, img if channels == 1 else img[..., ::-1])
+    np.testing.assert_array_equal(imageio.decode_gray(path), cv2.imread(str(path), 0))
+
+
+# -- committed fixtures ----------------------------------------------------------------
+
+
+def make_fixtures(out_dir: Path) -> dict:
+    """Write the fixtures with OpenCV and return their manifest: per file
+    its shape and the sha256 of OpenCV's uint8 gray decode.  Run once to
+    make ``tests/data/torch_imageio`` (``python tests/test_torch_imageio.py``)."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    files = {
+        "gray_240x320_q96.jpg": _jpeg(_scene(240, 320, 1, seed=30, noise=4.0), 96),
+        "ycc420_480x640_q90.jpg": _jpeg(_scene(480, 640, seed=31, noise=6.0), 90, S420),
+        "ycc444_rst4_120x160_q90.jpg": _jpeg(_scene(120, 160, seed=32), 90, S444,
+                                             (cv2.IMWRITE_JPEG_RST_INTERVAL, 4)),
+        "ycc420_optimized_240x320_q85.jpg": _jpeg(_scene(240, 320, seed=33, noise=6.0), 85, S420,
+                                                  (cv2.IMWRITE_JPEG_OPTIMIZE, 1)),
+        "ycc420_odd_239x321_q90.jpg": _jpeg(_scene(239, 321, seed=34, noise=6.0), 90, S420),
+        "exif6_120x160_q90.jpg": _with_exif(_jpeg(_scene(120, 160, seed=35), 90, S420), 6),
+        "rgb_375x1242.png": cv2.imencode(".png", _scene(375, 1242, seed=36, noise=0.6))[1],
+        "gray_240x320.png": cv2.imencode(".png", _scene(240, 320, 1, seed=37, noise=2.0))[1],
+        "palette_120x160.png": _png(np.random.default_rng(38).integers(0, 16, (120, 160, 1)),
+                                    4, 3, np.random.default_rng(39).integers(0, 256, (16, 3))),
+        "rgba_120x160.png": cv2.imencode(".png", _scene(120, 160, 4, seed=40, noise=2.0))[1],
+    }
+    manifest = {}
+    for name, data in files.items():
+        path = out_dir / name
+        path.write_bytes(bytes(data))
+        img = cv2.imread(str(path), cv2.IMREAD_GRAYSCALE)
+        manifest[name] = {"shape": list(img.shape),
+                          "sha256": hashlib.sha256(img.tobytes()).hexdigest()}
+    (out_dir / "manifest.json").write_text(json.dumps(manifest, indent=1, sort_keys=True) + "\n")
+    return manifest
+
+
+def _manifest():
+    return json.loads((FIXTURES / "manifest.json").read_text())
+
+
+def test_fixtures_are_small_and_complete():
+    manifest = _manifest()
+    files = sorted(p.name for p in FIXTURES.iterdir() if p.name != "manifest.json")
+    assert files == sorted(manifest) and len(files) == 10
+    assert sum(p.stat().st_size for p in FIXTURES.iterdir()) < 1 << 20
+
+
+# (empty before the fixtures are made: then the test above fails)
+FIXTURE_NAMES = sorted(_manifest()) if (FIXTURES / "manifest.json").exists() else []
+
+
+@pytest.mark.parametrize("name", FIXTURE_NAMES)
+def test_fixture_matches_manifest_through_opencv_and_the_port(name):
+    entry = _manifest()[name]
+    for img in (cv2.imread(str(FIXTURES / name), cv2.IMREAD_GRAYSCALE),
+                imageio.decode_gray(FIXTURES / name)):
+        assert list(img.shape) == entry["shape"]
+        assert hashlib.sha256(img.tobytes()).hexdigest() == entry["sha256"]
+
+
+def test_fixtures_as_made_decode_alike(tmp_path):
+    """Fixtures made afresh decode alike through OpenCV and the port, and
+    to the manifest's shapes."""
+    manifest = make_fixtures(tmp_path)
+    for name, entry in manifest.items():
+        img = imageio.decode_gray(tmp_path / name)
+        assert list(img.shape) == entry["shape"] == _manifest()[name]["shape"]
+        assert hashlib.sha256(img.tobytes()).hexdigest() == entry["sha256"]
+
+
+# -- the build ------------------------------------------------------------------------
+
+
+def test_library_is_named_by_a_hash_of_source_and_flags():
+    path = _build._lib_path("imageio_host")
+    assert path.parent == _build.BUILD_DIR and path.name.startswith("libimageio_host-")
+    assert _build._lib_path("imageio_host", (*_build.GXX_FLAGS, "-O1")) != path
+    assert "-ffast-math" not in _build.GXX_FLAGS
+
+
+_BUILD_AND_DECODE = """
+import hashlib, sys
+from pathlib import Path
+from ssp_torch.kernels import _build
+_build.BUILD_DIR = Path(sys.argv[1])
+from ssp_torch.data import imageio
+img = imageio.decode_gray(sys.argv[2])
+print(hashlib.sha256(img.tobytes()).hexdigest())
+"""
+
+
+def test_concurrent_builders_do_not_race(tmp_path):
+    """Four processes build the decoder at once into an empty directory:
+    each decodes correctly, and one library is left, with no temporaries."""
+    name = "ycc420_480x640_q90.jpg"
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    procs = [subprocess.Popen([sys.executable, "-c", _BUILD_AND_DECODE, str(tmp_path),
+                               str(FIXTURES / name)], cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for _ in range(4)]
+    outs = [p.communicate(timeout=300) for p in procs]
+    assert all(p.returncode == 0 for p in procs), outs
+    assert {o.strip() for o, _ in outs} == {_manifest()[name]["sha256"]}
+    left = sorted(p.name for p in tmp_path.iterdir())
+    assert len(left) == 1 and left[0].startswith("libimageio_host-") and left[0].endswith(".so")
+
+
+def test_compiler_failure_raises_with_its_output(tmp_path, monkeypatch):
+    """No fallback: a source that does not compile makes the decode raise
+    with g++'s message."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    shutil.copy(_build.CSRC / "imageio_host.cpp", csrc)
+    with open(csrc / "imageio_host.cpp", "a") as f:
+        f.write("\nthis is not C++;\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_LIBS", {})
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed for imageio_host.cpp") as err:
+        imageio.decode_gray(FIXTURES / "gray_240x320.png")
+    assert "this is not" in str(err.value)
+
+
+if __name__ == "__main__":
+    print(json.dumps(make_fixtures(FIXTURES), indent=1))

@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: no module of ``ssp_torch`` and not
 ``chip_smoke.py`` imports ``jax``, ``flax``, the JAX package ``ssp``
 (importing any ``ssp`` module runs ``ssp/__init__.py``, which loads flax),
-``cv2`` or ``sklearn`` (the machine with the card has neither OpenCV nor
-scikit-learn)."""
+``cv2``, ``sklearn`` or ``PIL`` (the machine with the card has neither
+OpenCV nor scikit-learn nor Pillow: the port decodes images itself)."""
 
 import ast
 import os
@@ -14,7 +14,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "ssp", "cv2", "sklearn"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "ssp", "cv2", "sklearn", "PIL"}
 FILES = sorted((ROOT / "ssp_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -42,7 +42,9 @@ def test_port_files_found():
             "ssp_torch/evaluations/descriptor.py", "ssp_torch/evaluations/semantic.py",
             "ssp_torch/evaluations/matching.py", "ssp_torch/evaluations/homography_fit.py",
             "ssp_torch/cli/evaluate.py", "ssp_torch/cli/export_eval.py"} <= names
-    assert len(names) > 33
+    assert {"ssp_torch/data/imageio.py", "ssp_torch/data/kitti.py",
+            "ssp_torch/data/coco.py"} <= names
+    assert len(names) > 36
 
 
 def test_fresh_interpreter_imports_every_module_without_jax_ssp_cv2():
@@ -70,10 +72,12 @@ def test_fresh_interpreter_imports_every_module_without_jax_ssp_cv2():
 
 def test_package_data_ships_the_kernel_sources():
     text = (ROOT / "pyproject.toml").read_text()
-    assert 'ssp_torch = ["csrc/*.cu", "csrc/*.cuh"]' in text
+    assert 'ssp_torch = ["csrc/*.cu", "csrc/*.cuh", "csrc/*.cpp"]' in text
     from ssp_torch.kernels import _build
 
     assert set(_build.SOURCES) == {p.stem for p in (ROOT / "ssp_torch" / "csrc").glob("*.cu")}
+    assert set(_build.HOST_SOURCES) == {p.stem for p in (ROOT / "ssp_torch" / "csrc")
+                                        .glob("*.cpp")}
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
