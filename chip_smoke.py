@@ -117,14 +117,35 @@ failure (nothing is caught):
     (``predictions/train2017/<stem>.npz``, ``export.txt``), a second call
     that writes nothing, the points against the same export on the plain
     versions (≥ SHARED_MIN within SAME_PX), img/s by the host clock with the
-    decode's share.
+    decode's share;
+17. ``[train]``, stage-3 joint training: a ``Coco_sem`` tree of phase 16's
+    JPEGs and pseudo-labels (8 of them again as the val split) with seeded
+    panoptic PNGs (rectangles of the 133 classes on the ignore id, written
+    by :func:`write_png`), and ``python -m ssp_torch.cli.train train_joint``
+    on ``TRAIN_CONFIG`` (the flagship: ``Coco_sem`` at 240×320, B=16,
+    ssmall-133, photometric, warped pair, sparse 1000×100, fused CE,
+    Kendall, Adam, the corpus on the card) in the smoke's own copy with
+    ``TRAIN_RUN``'s schedule, the trained weights and one step per dispatch.
+    Launch counts from 0: ``vresample_coef`` 4 per prepared batch (training
+    and validation), no other kernel.  Every logged loss finite, the rows
+    and checkpoint names at their boundaries.  A step on the kernel against
+    one on the plain versions from the same state, batch and draws (warped
+    images within VRES_TOL, class ids within TRAIN_LABEL_FLIPS, metrics
+    within TRAIN_REL); steps/s and img/s over TRAIN_TIMED steps by CUDA
+    events and by the host clock, the shares of ``prepare_batch``,
+    forward+backward and Adam, device time by operation and the idle share
+    under ``torch.profiler``, host syncs per step by call site, peak
+    memory; ``vresample_coef`` against its plain version and timed at the
+    training shapes; the last npz reloaded through ``load_weights`` and
+    detect+describe run on it.
 
 Prints a ``{"kernels": [...]}`` line (each row also with the launches of
 phase 12's export, ``launches_export``, of phase 13's sweep,
-``launches_sweep``, of phases 15 and 16, ``launches_sequence`` and
-``launches_ha_cli``, and for the stem, down1 and NMS their times at
-1×240×320, ``export_1x240x320``, and at 1×384×1248,
-``sequence_1x384x1248``), then the ``nvidia-smi`` line, and last
+``launches_sweep``, of phases 15, 16 and 17, ``launches_sequence``,
+``launches_ha_cli`` and ``launches_train``; for the stem, down1 and NMS
+their times at 1×240×320, ``export_1x240x320``, and at 1×384×1248,
+``sequence_1x384x1248``; for ``vresample_coef`` its time at the training
+shapes, ``train_16x320x320``), then the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -142,16 +163,20 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 import zlib
 from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+import yaml
+from torch.profiler import ProfilerActivity, profile
 
 from ssp_torch.bench import (BATCH, BORDER, NMS_RADIUS, TOP_K, H, W, build_pipeline,
                              structured_images)
 from ssp_torch import bench_ha
+from ssp_torch.cli import train as train_cli
 from ssp_torch.cli.export import export_descriptor, export_detector_homoAdapt, export_sequence
 from ssp_torch.core.grid import flatten_detection
 from ssp_torch.core.homography import inv3, sample_homographies
@@ -159,12 +184,15 @@ from ssp_torch.core.warp import inv_warp_image
 from ssp_torch.data import imageio
 from ssp_torch.data.base import write_pnm
 from ssp_torch.data.coco import CocoDataset
+from ssp_torch.data.coco_labels import PANOPTIC_IDS
 from ssp_torch.data.hpatches import PatchesDataset
 from ssp_torch.data.kitti import KittiDataset
+from ssp_torch.data.photometric import draw_photometric
 from ssp_torch.export.descriptors_export import (make_detect_describe_fn, run_descriptor_export,
                                                  run_sequence_export)
 from ssp_torch.export.homography_adaptation import DEFAULT_HA, make_ha_fn, run_ha_export
 from ssp_torch.kernels import _build
+from ssp_torch.losses.descriptor_sparse import cell_matches, sample_draws
 from ssp_torch.kernels import down1 as down1_mod
 from ssp_torch.kernels import nms as nms_mod
 from ssp_torch.kernels import stem as stem_mod
@@ -173,7 +201,8 @@ from ssp_torch.kernels import warp_twopass
 from ssp_torch.models.fast_infer import (accumulator_errors, best_apply_fn, fold_variables,
                                          make_fast_apply)
 from ssp_torch.models.superpoint import build_model
-from ssp_torch.models.weights import load_flax_npz, read_state_dict
+from ssp_torch.models.weights import load_flax_npz, load_weights, read_state_dict
+from ssp_torch.train import compute_losses, train_step
 
 ROOT = Path(__file__).resolve().parent
 NPZ = ROOT / "evidence" / "wsem_weights.npz"
@@ -227,6 +256,21 @@ KITTI_RAW = (375, 1242)  # a KITTI color frame
 SEQ_DRIVES, SEQ_FRAMES = 2, 16  # the sequence corpus: 2 drives of 16 frames
 HA_CLI_IMAGES = 16  # the stage-2 corpus: the JPEG fixtures under 16 COCO names  # the corpus: 32 pairs at HPatches' size
 SLAM_HW = (384, 1248)  # the SLAM sequence export's shape (configs/kitti384_sequence_r5.yaml)
+
+# phase 17: the flagship training configuration, run for TRAIN_RUN's schedule,
+# then TRAIN_TIMED steady-state steps
+TRAIN_CONFIG = ROOT / "configs" / "pipeline240_wsem_200k.yaml"
+TRAIN_RUN = {"train_iter": 40, "validation_interval": 20, "save_interval": 20,
+             "tensorboard_interval": 10}
+TRAIN_TIMED = 20
+# a train step on the kernel against one on the kernels' plain versions, same
+# state, batch and draws: the warped images within VRES_TOL of max|img|; at
+# most this share of the warped class ids inside the mask changed (a bilinear
+# float within an ulp of an integer truncates either way) ...
+TRAIN_LABEL_FLIPS = 1e-3
+# ... and every metric within this relative difference (bf16 forwards of
+# inputs that differ by an ulp here and there: a few roundings flip)
+TRAIN_REL = 5e-3
 
 # published H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores,
 # fp32 outside the tensor cores, HBM3
@@ -976,15 +1020,19 @@ def main() -> None:
         imageio_phase(td)
         sequence_launches, sequence_times = sequence_phase(dev, td)
         ha_cli_launches = ha_cli_phase(dev, td)
+        train = train_phase(dev, td, smi)
     for row in kernels:
         row["launches_export"] = export_launches.get(row["name"], 0)
         row["launches_sweep"] = sweep_launches.get(row["name"], 0)
         row["launches_sequence"] = sequence_launches.get(row["name"], 0)
         row["launches_ha_cli"] = ha_cli_launches.get(row["name"], 0)
+        row["launches_train"] = train["launches"].get(row["name"], 0)
         if row["name"] in export_times:
             row["export_1x240x320"] = export_times[row["name"]]
         if row["name"] in sequence_times:
             row["sequence_1x384x1248"] = sequence_times[row["name"]]
+        if row["name"] == "vresample_coef":
+            row["train_16x320x320"] = train["coef"]
 
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -1129,8 +1177,6 @@ def hpatches_phase(dev: torch.device, td: Path):
     host_s = time.perf_counter() - t0
     img = torch.from_numpy(pairs[0]["image"]).to(dev)
     dd_ms = time_ms(lambda: dd(img), iters=20)
-    from torch.profiler import ProfilerActivity, profile
-
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(10):
             dd(img)
@@ -1559,6 +1605,255 @@ def ha_cli_phase(dev: torch.device, td: Path) -> dict:
         f"model load ({timed_s * 1e3 / n:.2f} ms/image); decode and resize "
         f"{decode_s * 1e3 / n:.2f} ms/image, {decode_s / timed_s:.4f} of the time")
     return launches
+
+
+def train_phase(dev: torch.device, td: Path, smi: str) -> dict:
+    """Phase 17 [train]: stage-3 joint training through ``python -m
+    ssp_torch.cli.train train_joint`` (called in this process, so that the
+    launch counts can be read) on a ``Coco_sem`` tree built from phase 16's
+    output, the flagship configuration at full width; then a step on the
+    kernel against one on the plain versions, the steady-state rates by part,
+    the idle share and peak memory, and the written checkpoint reloaded.
+    Returns the CLI run's launches per kernel."""
+    # ---- the tree: phase 16's JPEGs and pseudo-labels (stage 2 → stage 3),
+    # 8 of them again as the val split, and panoptic PNGs of seeded rectangles
+    coco, ann = td / "COCO", td / "COCO" / "annotations"
+    preds = td / "logs" / "ha_cli" / "predictions"
+    (coco / "val2017").mkdir()
+    (preds / "val2017").mkdir()
+    for p in sorted((coco / "train2017").glob("*.jpg"))[:8]:
+        shutil.copy(p, coco / "val2017" / p.name)
+        shutil.copy(preds / "train2017" / f"{p.stem}.npz", preds / "val2017" / f"{p.stem}.npz")
+    rng = np.random.default_rng(SEED + 17)
+    for split in ("train2017", "val2017"):
+        (ann / f"semantic_{split}").mkdir(parents=True)
+        for p in sorted((coco / split).glob("*.jpg")):
+            h, w = imageio.decode_gray(p).shape
+            raw = np.zeros((h, w), np.uint8)  # raw id 0 is no panoptic category: class 133
+            for _ in range(12):
+                y, x = rng.integers(0, h), rng.integers(0, w)
+                raw[y:y + rng.integers(h // 8, h // 2), x:x + rng.integers(w // 8, w // 2)] = \
+                    PANOPTIC_IDS[rng.integers(0, 133)]
+            write_png(ann / f"semantic_{split}" / f"{p.stem}.png", raw)
+    cfg = yaml.safe_load(TRAIN_CONFIG.read_text())
+    cfg["data"].update(root=str(coco), labels=str(preds), sem_labels=str(ann))
+    cfg.update(pretrained=str(NPZ), reset_iter=True, steps_per_dispatch=1, **TRAIN_RUN)
+    cfg_path = td / "train_cfg.yaml"
+    cfg_path.write_text(yaml.safe_dump(cfg))
+    B, (hh, hw) = cfg["model"]["batch_size"], cfg["data"]["preprocessing"]["resize"]
+
+    # ---- the main path of this phase: the CLI, counted
+    reset_launches()
+    t0 = time.perf_counter()
+    agent = train_cli.main(["train_joint", str(cfg_path), "train", "--device", str(dev)])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = read_launches()
+    steps = TRAIN_RUN["train_iter"]
+    val_batches = len(range(0, steps, TRAIN_RUN["validation_interval"])) * \
+        (cfg["validation_size"] + 1)
+    # per prepared batch: two coef passes for the images' warp, two for the
+    # semantic maps'; the training forward is the module, no folded kernel
+    want = {"stem": 0, "down1": 0, "nms": 0, "vresample": 0,
+            "vresample_coef": 4 * (steps + val_batches)}
+    log(f"[train] train_joint {TRAIN_CONFIG.name} (ssmall-133, {B}x{hh}x{hw}, warped pair, "
+        f"photometric, sparse 1000x100, fused CE, Kendall, Adam): {steps} steps and "
+        f"{val_batches} validation batches in {cli_s:.2f} s with the model load ({smi}); "
+        f"launches {launches} ({launches['vresample_coef'] / (steps + val_batches):.1f} "
+        f"vresample_coef per prepared batch)")
+    if launches != want:
+        raise AssertionError(f"train launches {launches}, expected {want}")
+    exper = td / "logs" / "train"
+    rows = [json.loads(r) for r in (exper / "metrics_train.jsonl").read_text().splitlines()]
+    vrows = [json.loads(r) for r in (exper / "metrics_val.jsonl").read_text().splitlines()]
+    every = TRAIN_RUN["tensorboard_interval"]
+    if [r["step"] for r in rows] != list(range(0, steps, every)) or \
+            [r["step"] for r in vrows] != list(range(0, steps, TRAIN_RUN["validation_interval"])):
+        raise AssertionError(f"rows at {[r['step'] for r in rows]}, {[r['step'] for r in vrows]}")
+    if not all(np.isfinite(v) for r in rows + vrows for v in r.values()):
+        raise AssertionError("a non-finite loss in the metrics")
+    ckpts = sorted(p.name for p in (exper / "checkpoints").iterdir())
+    saves = list(range(TRAIN_RUN["save_interval"], steps, TRAIN_RUN["save_interval"])) + [steps]
+    if ckpts != sorted(f"superPointNet_{s}.{e}" for s in saves for e in ("npz", "pth.tar")):
+        raise AssertionError(f"checkpoints {ckpts}")
+    log("[train] loss by step: " + ", ".join(
+        f"{r['step']}: {r['loss']:.4f} (det {r['loss_det']:.4f}, desc {r['loss_desc']:.4f}, "
+        f"sem {r['loss_sem']:.4f})" for r in rows) + "; val loss " + ", ".join(
+        f"{r['step']}: {r['val_loss']:.4f}" for r in vrows))
+
+    # ---- one step on the kernel, one on the plain versions: same state,
+    # batch and draws
+    st = agent.state
+    host = agent.next_batch()
+    g_host = torch.Generator().manual_seed(SEED + 18)
+    g_dev = torch.Generator(dev).manual_seed(SEED + 18)
+    photo = agent.prep_train["photometric"]
+    pair = {k: v for k, v in agent.prep_train["warped_pair"]["params"].items()}
+    draws = {"pair": sample_homographies(B, generator=g_host, **pair),
+             "photo": draw_photometric((B, hh, hw), photo["primitives"], photo["params"], g_dev,
+                                       dev),
+             "photo_warped": draw_photometric((B, hh, hw), photo["primitives"], photo["params"],
+                                              g_dev, dev)}
+    bk = agent.prepare(host, draws=draws)
+    bp = agent.prepare(host, draws=draws, reference=True)
+    scale = float(bp["warped_image"].abs().max())
+    img_err = check_resample("train warped images", bk["warped_image"], bp["warped_image"], scale)
+    inside = bp["warped_valid_mask"] > 0
+    flips = float(((bk["warped_sem"] != bp["warped_sem"]) & inside).sum() / inside.sum())
+    for k in bk:
+        if k not in ("warped_image", "warped_sem") and not torch.equal(bk[k], bp[k]):
+            raise AssertionError(f"train batch {k}: the kernel's differs from the plain one's")
+    if flips > TRAIN_LABEL_FLIPS:
+        raise AssertionError(f"{flips:.2e} of the warped class ids flipped > {TRAIN_LABEL_FLIPS}")
+    _, _, valid = cell_matches(bk["H_pair"], (hh // 8, hw // 8))
+    p = agent.step_kwargs["desc_params"]
+    sd = sample_draws(valid, p["num_matching_attempts"], p["num_masked_non_matches_per_match"],
+                      g_dev)
+    # the state is saved and put back around each step (a deep copy would
+    # share the schedule's wrapper of the original optimizer's step)
+    saved = (copy.deepcopy(st.model.state_dict()), copy.deepcopy(st.optimizer.state_dict()),
+             st.scheduler.state_dict(), st.etas.detach().clone(), st.step)
+
+    def step_from_saved(batch):
+        st.model.load_state_dict(saved[0])
+        st.optimizer.load_state_dict(copy.deepcopy(saved[1]))
+        st.scheduler.load_state_dict(saved[2])
+        with torch.no_grad():
+            st.etas.copy_(saved[3])
+        st.step = saved[4]
+        return train_step(st, batch, desc_draws=sd, **agent.step_kwargs)
+
+    mk, mp = step_from_saved(bk), step_from_saved(bp)
+    rel = {k: abs(float(mk[k]) - float(mp[k])) / max(abs(float(mp[k])), 1e-6) for k in mk}
+    log(f"[train] one step, kernel against plain versions (same state, batch and draws): warped "
+        f"images max abs err {img_err:.3g}, {flips:.2e} of the warped class ids inside the mask "
+        f"changed; metrics max rel diff {max(rel.values()):.3g} ({max(rel, key=rel.get)}); "
+        f"loss {float(mk['loss']):.6f} / {float(mp['loss']):.6f}")
+    if max(rel.values()) > TRAIN_REL or not all(np.isfinite(float(v)) for v in mk.values()):
+        raise AssertionError(f"kernel vs plain step metrics: {rel}")
+
+    # ---- steady state: the trainer's step (a batch sampled from the device
+    # corpus, prepared, one update), CUDA events and the host clock around
+    # whole steps, then by part
+    def step():
+        train_step(st, agent.prepare(agent.next_batch()), generator=agent.generator,
+                   **agent.step_kwargs)
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    for _ in range(TRAIN_TIMED):
+        step()
+    e1.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    dev_ms = e0.elapsed_time(e1) / TRAIN_TIMED
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    parts = np.zeros(3)
+    for _ in range(TRAIN_TIMED):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        batch = agent.prepare(agent.next_batch())
+        ev[1].record()
+        st.optimizer.zero_grad(set_to_none=True)
+        loss, _ = compute_losses(st.model, st.etas, batch, generator=agent.generator,
+                                 **agent.step_kwargs)
+        loss.backward()
+        ev[2].record()
+        st.optimizer.step()
+        st.scheduler.step()
+        st.step += 1
+        ev[3].record()
+        torch.cuda.synchronize()
+        parts += [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    parts /= TRAIN_TIMED
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step()
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    # the optimizer's range annotation spans kernels that are counted already
+    on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith("Optimizer.")]
+    busy_ms = sum(e.device_time_total for e in on_card) / 5 / 1e3
+    top = sorted(((a.key, a.self_device_time_total / 5 / 1e3) for a in prof.key_averages()
+                  if a.self_device_time_total > 0 and not a.key.startswith("Optimizer.")),
+                 key=lambda kv: -kv[1])[:12]
+    # host syncs per step: every operation that makes the host wait for the card
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for _ in range(3):
+            step()
+    torch.cuda.set_sync_debug_mode(0)
+    sites = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            site = f"{Path(w.filename).name}:{w.lineno}"
+            sites[site] = sites.get(site, 0) + 1
+    syncs = sum(sites.values()) / 3
+    log(f"[train] steady state, {TRAIN_TIMED} steps of {B} images (each with its warped view) "
+        f"at {hh}x{hw}, each sampled from the device corpus ({smi}): "
+        f"{1e3 / dev_ms:.3f} steps/s, "
+        f"{B * 1e3 / dev_ms:.2f} img/s by CUDA events ({dev_ms:.3f} ms/step); "
+        f"{TRAIN_TIMED / host_s:.3f} steps/s, {B * TRAIN_TIMED / host_s:.2f} img/s by the host "
+        f"clock; by part (CUDA events, synchronised per step): prepare_batch {parts[0]:.3f} ms "
+        f"({parts[0] / parts.sum():.3f}), forward+backward {parts[1]:.3f} ms "
+        f"({parts[1] / parts.sum():.3f}), Adam {parts[2]:.3f} ms ({parts[2] / parts.sum():.3f}); "
+        f"{len(on_card) / 5:.0f} device operations and {busy_ms:.3f} ms of device time per step "
+        f"under torch.profiler, idle share {max(0.0, 1 - busy_ms / (prof_s * 1e3 / 5)):.3f}; "
+        f"{syncs:.1f} host syncs per step; peak memory {peak_gb:.2f} GiB")
+    log("[train] device time per step by operation (torch.profiler, self time, ms): " +
+        "; ".join(f"{name[:60]} {ms:.3f}" for name, ms in top))
+    log("[train] host syncs per step by call site: " + ", ".join(
+        f"{k} {v / 3:g}" for k, v in sorted(sites.items(), key=lambda kv: -kv[1])))
+
+    # ---- the kernel at the training shapes: the images' and the semantic
+    # maps' warps of one batch, both passes, against the plain version
+    imgs = bk["image"][..., 0].contiguous()
+    sem = bk["sem"].float().contiguous()
+    canvas_i, Hres, bounds, _ = warp_twopass._canvas_and_residual(imgs, draws["pair"])
+    canvas_s = warp_twopass._canvas_and_residual(sem, draws["pair"])[0]
+    c1, c2 = (c.to(dev) for c in warp_twopass._pass_coefs(Hres, *bounds, canvas_i.shape[-1]))
+    err, times = 0.0, []
+    for canvas in (canvas_i, canvas_s):
+        tmp = vres_mod.vresample_coef_plain(canvas, c1, 0)
+        err = max(err, check_resample("train coef axis 0", vres_mod.vresample_coef(canvas, c1, 0),
+                                      tmp, float(canvas.abs().max())),
+                  check_resample("train coef axis 1", vres_mod.vresample_coef(tmp, c2, 1),
+                                 vres_mod.vresample_coef_plain(tmp, c2, 1),
+                                 float(canvas.abs().max())))
+        for src, c, axis in ((canvas, c1, 0), (tmp, c2, 1)):
+            n_out = c.shape[0] * src.shape[-1] * src.shape[-2]
+            times.append((time_ms(lambda: vres_mod.vresample_coef(src, c, axis)),
+                          time_ms(lambda: vres_mod.vresample_coef_plain(src, c, axis), iters=5),
+                          bound(n_out * 62.0, PEAK_FP32, 4.0 * (c.numel() + n_out + src.numel()))))
+    ms, plain_ms = (float(np.mean([t[i] for t in times])) for i in (0, 1))
+    b_ms = float(np.mean([t[2][0] for t in times]))
+    log(f"[train] vresample_coef at the training shapes ({B} warps on a "
+        f"{canvas_i.shape[-1]}x{canvas_i.shape[-1]} canvas, images and class ids, both axes; "
+        f"{smi}): "
+        f"{ms:.4f} ms (bound {b_ms:.4f} ms by bytes), plain {plain_ms:.4f} ms, max abs err "
+        f"{err:.3g}")
+
+    # ---- the written checkpoint reloads and detects
+    npz = exper / "checkpoints" / f"superPointNet_{steps}.npz"
+    model = load_weights(npz, cfg["model"]["name"], cfg["model"]["params"], device=dev)
+    dd = make_detect_describe_fn(best_apply_fn(model, input_hw=(hh, hw), device=dev), device=dev,
+                                 conf_thresh=cfg["model"]["detection_threshold"],
+                                 nms_radius=cfg["model"]["nms"])
+    out = dd(imgs[0])
+    if not all(bool(torch.isfinite(t.float()).all()) for t in out if torch.is_tensor(t)):
+        raise AssertionError("detect+describe on the trained checkpoint: non-finite output")
+    log(f"[train] {npz.name} reloaded through load_weights; detect+describe on it: "
+        f"{int(out[1].sum())} points")
+    return {"launches": launches, "coef": {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                                           "max_abs_err": err}}
 
 
 if __name__ == "__main__":

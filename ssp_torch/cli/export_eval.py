@@ -95,6 +95,10 @@ def checkpoints(folder: Path) -> List[Tuple[int, Path]]:
     file the port reads."""
     found = sorted((int(m.group(1)), p) for p in Path(folder).glob("superPointNet_*")
                    if (m := _ITER.match(p.name)))
+    # the port's trainer writes each iteration twice, superPointNet_<it>.pth.tar
+    # beside its npz: the npz alone stands for the iteration
+    npz = {it for it, p in found if p.name.endswith(".npz")}
+    found = [(it, p) for it, p in found if it not in npz or p.name.endswith(".npz")]
     if not found:
         raise FileNotFoundError(f"no checkpoints under {folder}")
     if not any(_readable(p) for _, p in found):

@@ -9,21 +9,32 @@ buffer names are the reference's own (``inc.conv.conv.0.weight``,
 strictly with ``load_state_dict``; ``ssp_torch.models.weights`` maps the
 JAX package's flax checkpoints onto the same names.
 
-Numerics of the flax module at ``dtype=float32``: BatchNorm eps 1e-5
-(flax momentum 0.9 = torch momentum 0.1), BN-then-ReLU, descriptors
-L2-normalised with +1e-12, the semantic head upsampled ×8 bilinearly
-with half-pixel centres (``jax.image.resize(..., "linear")`` =
-``F.interpolate(mode="bilinear", align_corners=False)`` for upsampling).
+Numerics of the flax module: BatchNorm eps 1e-5 (flax momentum 0.9 =
+torch momentum 0.1), BN-then-ReLU, descriptors L2-normalised with +1e-12,
+the semantic head upsampled ×8 bilinearly with half-pixel centres
+(``jax.image.resize(..., "linear")`` = ``F.interpolate(mode="bilinear",
+align_corners=False)`` for upsampling).
+
+Training mode is ``module.train()``; ``eval()`` is the flax ``train=False``.
+In training mode BatchNorm normalises by the batch statistics and moves its
+running variance towards the *biased* batch variance, as flax does
+(:class:`BatchNorm`); ``nn.BatchNorm2d`` would take the unbiased one.
+
+``dtype`` is the flax module's compute type.  ``torch.float32`` (the
+default) is the flax module at ``dtype=float32``.  ``torch.bfloat16`` is
+its default, which the JAX trainer builds: conv operands and outputs in
+bf16 (parameters stay fp32 and are cast at each use), BatchNorm math in
+fp32 with a bf16 output, ReLU and max pools in bf16, ``semi`` and
+``sem`` cast to fp32 and the descriptor normalised in fp32.
 
 Inputs and outputs are NHWC, as in the JAX package; the module permutes
-to NCHW inside.  Training mode is ``module.train()``; ``eval()`` is the
-flax ``train=False``.
+to NCHW inside.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import torch
 import torch.nn as nn
@@ -36,13 +47,58 @@ BN_EPS = 1e-5
 BN_MOMENTUM = 0.1  # flax momentum 0.9
 
 
-def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=BN_EPS, momentum=BN_MOMENTUM)
+class BatchNorm(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with flax's running-variance update.
+
+    Evaluation normalises by the running statistics.  Training normalises
+    by the batch's mean and biased variance and then moves ``running_mean``
+    and ``running_var`` a ``momentum`` of the way towards them, the
+    variance *biased* (flax ``nn.BatchNorm``), where PyTorch's own update
+    takes the unbiased one (n/(n−1)).  The batch statistics come out of the
+    same ``F.batch_norm`` call (with momentum 1 into scratch buffers), so no
+    extra pass reads the input.  The input may be bf16: the statistics and
+    the affine are fp32 and the output takes the input's type.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                                False, 0.0, self.eps)
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.ones_like(self.running_var)
+        out = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
+        n = x.numel() // x.shape[1]
+        m = self.momentum
+        with torch.no_grad():
+            # ``var`` holds the unbiased variance: scale it back to the biased
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m * (n - 1) / n)
+            self.num_batches_tracked.add_(1)
+        return out
+
+
+def _bn(c: int) -> BatchNorm:
+    return BatchNorm(c, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+
+def _conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``conv(x)`` at ``x``'s type: fp32 parameters cast at the use, as a
+    flax ``nn.Conv(dtype=...)`` casts them."""
+    return F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype), padding=conv.padding)
+
+
+def _cbr(conv: nn.Conv2d, bn: BatchNorm, x: torch.Tensor, relu: bool = True) -> torch.Tensor:
+    """flax ``ConvBNRelu``: conv at ``x``'s type, BatchNorm in fp32 with an
+    output of ``x``'s type, ReLU (which commutes with that rounding)."""
+    y = bn(_conv(conv, x))
+    return F.relu(y) if relu else y
 
 
 class DoubleConv(nn.Module):
     """(conv3×3 → BN → ReLU) × 2 — reference ``models/unet_parts.py``
-    ``double_conv``; Sequential indices 0/1 and 3/4 hold conv/BN."""
+    ``double_conv``; Sequential indices 0/1 and 3/4 hold conv/BN.  The
+    Sequential keeps the reference's layout and names; the forward runs its
+    convs and BNs through :func:`_cbr`, at the input's type."""
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
@@ -52,7 +108,8 @@ class DoubleConv(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(x)
+        seq = self.conv
+        return _cbr(seq[3], seq[4], _cbr(seq[0], seq[1], x))
 
 
 class InConv(nn.Module):
@@ -82,13 +139,18 @@ class SuperPointGauss2(nn.Module):
       ``semi`` [B, H/8, W/8, 65] — detector logits (65th = dustbin)
       ``desc`` [B, H/8, W/8, 256] — L2-normalised coarse descriptors
       ``sem``  [B, H, W, n_classes] — only when ``semantic=True``
+      ``sem_coarse`` [B, H/8, W/8, n_classes] fp32 in place of ``sem`` with
+      ``upsample_sem=False`` (the training forward: the fused semantic CE
+      reads the 1/8-resolution logits)
     """
 
-    def __init__(self, semantic: bool = False, n_classes: int = 133):
+    def __init__(self, semantic: bool = False, n_classes: int = 133,
+                 dtype: Union[torch.dtype, str] = torch.float32):
         super().__init__()
         c1, c2, c3, c4, c5, d1 = 64, 64, 128, 128, 256, 256
         self.semantic = semantic
         self.n_classes = n_classes
+        self.dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
         self.inc = InConv(1, c1)
         self.down1 = Down(c1, c2)
         self.down2 = Down(c2, c3)
@@ -106,18 +168,22 @@ class SuperPointGauss2(nn.Module):
             self.bnS1 = _bn(c5)
             self.convSout = nn.Conv2d(c5, n_classes, 1)
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        x = x.permute(0, 3, 1, 2)  # NHWC → NCHW
+    def forward(self, x: torch.Tensor, upsample_sem: bool = True) -> Dict[str, torch.Tensor]:
+        x = x.permute(0, 3, 1, 2).to(self.dtype)  # NHWC → NCHW
         feat = self.down3(self.down2(self.down1(self.inc(x))))
-        semi = self.bnPb(self.convPb(F.relu(self.bnPa(self.convPa(feat)))))
-        desc = self.bnDb(self.convDb(F.relu(self.bnDa(self.convDa(feat)))))
+        semi = _cbr(self.convPb, self.bnPb, _cbr(self.convPa, self.bnPa, feat), relu=False)
+        desc = _cbr(self.convDb, self.bnDb, _cbr(self.convDa, self.bnDa, feat), relu=False).float()
         desc = desc / (torch.linalg.vector_norm(desc, dim=1, keepdim=True) + 1e-12)
-        out = {"semi": semi.permute(0, 2, 3, 1), "desc": desc.permute(0, 2, 3, 1)}
+        out = {"semi": semi.float().permute(0, 2, 3, 1), "desc": desc.permute(0, 2, 3, 1)}
         if self.semantic:
-            sem = self.convSout(F.relu(self.bnS1(self.convDS(feat))))
-            Hc, Wc = sem.shape[-2:]
-            sem = F.interpolate(sem, size=(Hc * 8, Wc * 8), mode="bilinear", align_corners=False)
-            out["sem"] = sem.permute(0, 2, 3, 1)
+            sem = _conv(self.convSout, _cbr(self.convDS, self.bnS1, feat)).float()
+            if upsample_sem:
+                Hc, Wc = sem.shape[-2:]
+                sem = F.interpolate(sem, size=(Hc * 8, Wc * 8), mode="bilinear",
+                                    align_corners=False)
+                out["sem"] = sem.permute(0, 2, 3, 1)
+            else:
+                out["sem_coarse"] = sem.permute(0, 2, 3, 1)
         return out
 
 

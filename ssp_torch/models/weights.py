@@ -14,6 +14,11 @@ reference's PyTorch state dicts.
   ``ssp/models/weights.py``), so :func:`load_reference_state_dict` is a
   strict ``load_state_dict`` of a reference ``.pth.tar`` payload, which
   :func:`load_torch_checkpoint` reads.
+* :func:`state_dict_to_flax` and :func:`save_weights_npz` go the other
+  way: the port's state dict as the flat flax keys of
+  ``ssp/train/checkpoint.py::save_weights_npz`` (float leaves stored as
+  fp16), so a checkpoint the port trains loads into the JAX package's
+  ``load_weights_npz`` as into the port's :func:`load_weights`.
 * :func:`load_weights` loads what a config's ``pretrained`` names: a flax
   npz or a reference checkpoint (an orbax directory needs the JAX package);
   :func:`read_state_dict` reads either as a reference-named state dict.
@@ -102,6 +107,65 @@ def flax_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             arr = arr.transpose(3, 2, 0, 1)  # HWIO → OIHW
         sd[_flax_to_torch_name(key)] = torch.from_numpy(np.ascontiguousarray(arr))
     return sd
+
+
+_LEAVES = {"weight": ("params", "kernel"), "bias": ("params", "bias"),
+           "running_mean": ("batch_stats", "mean"), "running_var": ("batch_stats", "var")}
+
+
+def _torch_to_flax_name(name: str) -> Optional[str]:
+    """``down1.mpconv.1.conv.3.weight`` → ``params/down1/ConvBNRelu_1/Conv_0/kernel``
+    (None for BN's ``num_batches_tracked``, which flax does not keep)."""
+    prefix, leaf = name.rsplit(".", 1)
+    if leaf == "num_batches_tracked":
+        return None
+    kind, flax_leaf = _LEAVES[leaf]
+    is_bn = False
+    for scope, block in _BLOCKS.items():
+        if prefix.startswith(block + "."):
+            i, r = divmod(int(prefix[len(block) + 1:]), 3)
+            is_bn = r == 1
+            path = f"{scope}/ConvBNRelu_{i}/{'BatchNorm_0' if is_bn else 'Conv_0'}"
+            break
+    else:
+        heads = {name: (scope, j) for scope, pair in _HEADS.items() for j, name in enumerate(pair)}
+        if prefix in heads:
+            scope, j = heads[prefix]
+            is_bn = j == 1
+            path = f"{scope}/{'BatchNorm_0' if is_bn else 'Conv_0'}"
+        else:  # a bare conv: convSout, or any conv of the MagicLeap model
+            path = prefix
+    if is_bn and leaf == "weight":
+        flax_leaf = "scale"
+    return f"{kind}/{path}/{flax_leaf}"
+
+
+def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The port's (reference-named) state dict → flat flax keys, fp32 numpy,
+    conv kernels HWIO: the inverse of :func:`flax_to_state_dict`."""
+    flat: Dict[str, np.ndarray] = {}
+    for name, value in state_dict.items():
+        key = _torch_to_flax_name(name)
+        if key is None:
+            continue
+        arr = value.detach().float().cpu().numpy()
+        if key.endswith("/kernel"):
+            arr = arr.transpose(2, 3, 1, 0)  # OIHW → HWIO
+        flat[key] = np.ascontiguousarray(arr)
+    return flat
+
+
+def save_weights_npz(path: Union[str, Path], model_or_state_dict) -> Path:
+    """Write ``params`` + ``batch_stats`` as the compressed flax npz of
+    ``ssp/train/checkpoint.py::save_weights_npz``, float leaves as fp16 (its
+    default: more mantissa than the bf16 the fast forward runs at)."""
+    sd = (model_or_state_dict.state_dict() if isinstance(model_or_state_dict, nn.Module)
+          else model_or_state_dict)
+    flat = {k: v.astype(np.float16) for k, v in state_dict_to_flax(sd).items()}
+    path = Path(path)
+    with open(path, "wb") as f:
+        np.savez_compressed(f, **flat)
+    return path
 
 
 def load_reference_state_dict(model: nn.Module, state_dict: Mapping[str, Any]) -> nn.Module:

@@ -4,15 +4,15 @@ The port's copy of ``ssp/registry.py``: the same public names
 (``SuperPointNet_gauss2``, ``SuperPointNet_gauss2_ssmall``,
 ``SuperPointNet_pretrained``), resolved through an explicit table rather
 than reflection, so names stay greppable and several names can alias one
-implementation.  Models and
-datasets are registered so far; the ``agent`` kind comes with training.
+implementation.  Models,
+datasets and training agents are registered.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Dict
 
-_REGISTRIES: Dict[str, Dict[str, Callable[..., Any]]] = {"model": {}, "dataset": {}}
+_REGISTRIES: Dict[str, Dict[str, Callable[..., Any]]] = {"model": {}, "dataset": {}, "agent": {}}
 
 
 def register(kind: str, *names: str) -> Callable[[Callable], Callable]:

@@ -1,0 +1,134 @@
+"""The training and validation step (port of ``ssp/train/step.py``;
+reference ``train_val_sample``, ``Train_model_heatmap_all.py:195-572``).
+
+Two forwards, the image's then the warped image's, with the BatchNorm
+statistics chained (the second forward's running averages start from the
+first's, as the JAX step threads ``batch_stats``); the detector BCE on
+both, the sparse descriptor loss across the pair, the semantic CE on both
+(fused: the 1/8-resolution logits, ``semantic_loss_coarse``), and the Kendall
+combination or the plain sum.  :func:`train_step` makes one backward and one
+Adam update.  Metrics stay on the device as 0-d tensors: reading them is the
+caller's choice of when to wait for the card.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from ssp_torch.core.grid import labels_to_cells, space_to_depth
+from ssp_torch.losses import (detector_loss, multi_task_loss, semantic_loss,
+                              semantic_loss_coarse)
+from ssp_torch.losses.descriptor_sparse import SparseDraws, descriptor_loss_sparse
+from ssp_torch.train.state import TrainState
+
+
+def cell_valid_mask(mask_2d: torch.Tensor) -> torch.Tensor:
+    """Pixel mask [B, H, W] → cell mask [B, Hc, Wc]: a cell is valid iff all
+    its 64 pixels are (reference ``getMasks``)."""
+    return space_to_depth(mask_2d[..., None]).prod(dim=-1)
+
+
+def compute_losses(
+    model: torch.nn.Module,
+    etas: torch.Tensor,
+    batch: Dict[str, torch.Tensor],
+    *,
+    semantic: bool,
+    warped_pair: bool,
+    det_loss_type: str = "softmax",
+    desc_loss: str = "sparse",
+    desc_params: Optional[Dict[str, Any]] = None,
+    lambda_loss: float = 1.0,
+    multi_task: bool = True,
+    ignore_class: int = 133,
+    sem_fused: bool = True,
+    generator: Optional[torch.Generator] = None,
+    desc_draws: Optional[SparseDraws] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss, metrics) of ``batch`` in the module's current mode (``train()``:
+    batch statistics, running averages updated; ``eval()``: running ones).
+    The descriptor loss's draws are ``desc_draws`` or come from
+    ``generator``."""
+    if desc_loss != "sparse":
+        raise NotImplementedError(
+            f"desc_loss {desc_loss!r}: the dense descriptor loss is not ported yet "
+            "(ROADMAP.md Queue 1 item 9, 'dense loss')")
+    kw = {"upsample_sem": False} if (semantic and sem_fused) else {}
+
+    def sem_ce(out, labels):
+        if sem_fused:
+            return semantic_loss_coarse(out["sem_coarse"], labels, ignore_class)
+        return semantic_loss(out["sem"], labels, ignore_class)
+
+    out1 = model(batch["image"], **kw)
+    cmask1 = cell_valid_mask(batch["valid_mask"])
+    loss_det = detector_loss(out1["semi"], labels_to_cells(batch["labels_2d"]), cmask1,
+                             det_loss_type)
+    zero = torch.zeros((), device=loss_det.device)
+    loss_sem = sem_ce(out1, batch["sem"]) if semantic else zero
+    loss_det_warp = loss_sem_warp = loss_desc = pos_term = neg_term = zero
+
+    if warped_pair:
+        out2 = model(batch["warped_image"], **kw)
+        cmask2 = cell_valid_mask(batch["warped_valid_mask"])
+        loss_det_warp = detector_loss(out2["semi"], labels_to_cells(batch["warped_labels_2d"]),
+                                      cmask2, det_loss_type)
+        if semantic:
+            loss_sem_warp = sem_ce(out2, batch["warped_sem"])
+        if lambda_loss > 0:
+            loss_desc, _, pos_term, neg_term = descriptor_loss_sparse(
+                out1["desc"], out2["desc"], batch["H_pair"], desc_draws, generator=generator,
+                **(desc_params or {}))
+
+    if multi_task:
+        loss = multi_task_loss(etas, loss_det + loss_det_warp, pos_term, neg_term,
+                               (loss_sem + loss_sem_warp) if semantic else None)
+    else:
+        loss = loss_det + loss_det_warp + loss_sem + loss_sem_warp
+        if lambda_loss > 0:
+            loss = loss + lambda_loss * loss_desc
+
+    e = etas.detach().clone()  # the ηs before the update, which changes them in place
+    metrics = {
+        "loss": loss.detach(),
+        "loss_det": loss_det.detach(),
+        "loss_det_warp": loss_det_warp.detach(),
+        "loss_desc": loss_desc.detach(),
+        "loss_sem": loss_sem.detach(),
+        "loss_sem_warp": loss_sem_warp.detach(),
+        "positive_dist": pos_term.detach(),
+        "negative_dist": neg_term.detach(),
+        "eta_det": e[0],
+        "eta_desc": e[1],
+        "eta_sem": e[2],
+    }
+    return loss, metrics
+
+
+def train_step(state: TrainState, batch: Dict[str, torch.Tensor], **kwargs) -> Dict[str, torch.Tensor]:
+    """One update: the losses in training mode, one backward, one Adam step
+    at the schedule's lr, the step count advanced.  ``kwargs`` are
+    :func:`compute_losses`'s.  The metrics' ηs are those before the update."""
+    state.model.train()
+    state.optimizer.zero_grad(set_to_none=True)
+    loss, metrics = compute_losses(state.model, state.etas, batch, **kwargs)
+    loss.backward()
+    state.optimizer.step()
+    state.scheduler.step()
+    state.step += 1
+    return metrics
+
+
+def eval_step(state: TrainState, batch: Dict[str, torch.Tensor], **kwargs) -> Dict[str, torch.Tensor]:
+    """The losses in evaluation mode (running BatchNorm statistics), no
+    gradient; the module's mode is restored after."""
+    was_training = state.model.training
+    state.model.eval()
+    try:
+        with torch.no_grad():
+            _, metrics = compute_losses(state.model, state.etas, batch, **kwargs)
+    finally:
+        state.model.train(was_training)
+    return metrics

@@ -1,0 +1,347 @@
+"""Training agent: the loop around the step (port of ``ssp/train/trainer.py``;
+reference ``Train_model_frontend_all.py`` / ``Train_model_heatmap_all.py``).
+
+Config merge over :data:`DEFAULT_CONFIG`, interval scaling by ``r =
+real_batch_size // batch_size``, the iteration loop with interleaved
+validation, periodic checkpoints, metric logging, checkpoint rescue on
+Ctrl-C and a host-memory watchdog.  Registered as ``Train_model_heatmap``,
+``Train_model_heatmap_all``, ``Train_model_frontend`` and
+``Train_model_frontend_all``, the JAX package's four names for one agent.
+
+Batch semantics are the JAX trainer's: the *real* batch is the global batch
+of every step, and ``n_iter`` counts micro-batches (it advances by ``r`` a
+step), so checkpoint names line up with the reference's.  Events are
+labelled with the interval boundary that a step's window crossed
+(``hits``/``boundary``), so names and metric steps are the same multiples
+for any stride.
+
+Randomness: a CPU ``torch.Generator`` draws the homographies and a
+generator on the training device draws the photometric values and the
+descriptor loss's samples, both seeded from the config's ``seed``; the
+numbers are not ``jax.random``'s.
+
+With ``training.device_corpus`` the CLI attaches the training set to the
+card (:meth:`TrainAgent.attach_device_corpus`) and each step samples its
+batch there; validation keeps the host loader.  Not ported yet, each
+refused with an error naming its ROADMAP.md item: ``exact_accumulation``
+with ``r > 1`` and the dense descriptor loss.  ``steps_per_dispatch`` (a
+``lax.scan`` of several steps per device program in the JAX trainer) is
+accepted: the port runs one step per loop turn, says so in the log, and
+aligns the intervals as the JAX trainer does, so boundaries and checkpoint
+names are the JAX trainer's.
+"""
+
+from __future__ import annotations
+
+import copy
+import logging
+import resource
+import signal
+import time
+from typing import Any, Dict, Iterator, Optional
+
+import numpy as np
+import torch
+
+from ssp_torch._device import resolve_device, to_device
+from ssp_torch.data.device_corpus import DeviceCorpus
+from ssp_torch.data.pipeline import prepare_batch
+from ssp_torch.models.superpoint import build_model
+from ssp_torch.registry import register
+from ssp_torch.train.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
+from ssp_torch.train.state import TrainState
+from ssp_torch.train.step import eval_step, train_step
+from ssp_torch.utils.config import dict_update
+from ssp_torch.utils.experiment import ExperimentPaths, MetricsLogger
+
+log = logging.getLogger(__name__)
+
+DEFAULT_CONFIG: Dict[str, Any] = {
+    "train_iter": 170000,
+    "save_interval": 2000,
+    "tensorboard_interval": 200,
+    "validation_interval": 1000,
+    "validation_size": 4,
+    "model": {
+        "batch_size": 16,
+        "eval_batch_size": 16,
+        "learning_rate": 0.001,
+        "detector_loss": {"loss_type": "softmax"},
+        "lambda_loss": 1,
+        "multi_task_loss": False,
+        "dense_loss": {"enable": False, "params": {}},
+        "sparse_loss": {"enable": True, "params": {}},
+    },
+    "data": {
+        "semantic": False,
+        "ignore_class": 133,
+        "gaussian_label": {"enable": False, "params": {}},
+        "augmentation": {"photometric": {"enable": False}, "homographic": {"enable": False}},
+        "warped_pair": {"enable": False},
+    },
+}
+
+
+def precision_recall(heatmap: np.ndarray, labels: np.ndarray, thresh: float = 0.015):
+    """Thresholded-heatmap precision and recall against the binary label map
+    (reference ``batch_precision_recall``)."""
+    pred = (heatmap >= thresh).astype(np.float32)
+    lab = (labels > 0).astype(np.float32)
+    tp = (pred * lab).sum()
+    return float(tp / max(pred.sum(), 1e-6)), float(tp / max(lab.sum(), 1e-6))
+
+
+def hits(n0: int, n1: int, interval: int, lo: int = 0) -> bool:
+    """True iff a multiple of ``interval`` lies in ``[max(n0, lo), n1)``: the
+    window a step advanced ``n_iter`` through crossed a boundary."""
+    a = max(n0, lo)
+    if n1 <= a or interval <= 0:
+        return False
+    return (n1 - 1) // interval >= -(-a // interval)
+
+
+def boundary(n_iter: int, interval: int) -> int:
+    """The largest multiple of ``interval`` below ``n_iter``: the label of
+    an event whose window ended at ``n_iter``."""
+    return ((n_iter - 1) // interval) * interval
+
+
+def rss_mb() -> float:
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0
+
+
+@register("agent", "Train_model_heatmap", "Train_model_heatmap_all", "Train_model_frontend",
+          "Train_model_frontend_all")
+class TrainAgent:
+    def __init__(self, config: Dict[str, Any], save_path: Optional[ExperimentPaths] = None,
+                 exper_name: str = "exp", *, device="cuda"):
+        self.config = dict_update(copy.deepcopy(DEFAULT_CONFIG), config)
+        self.device = resolve_device(device)
+        m = self.config["model"]
+        self.batch_size = int(m["batch_size"])
+        self.real_batch_size = int(m.get("real_batch_size", self.batch_size))
+        self.r = max(self.real_batch_size // self.batch_size, 1)
+        for k in ("train_iter", "validation_interval", "tensorboard_interval", "save_interval"):
+            self.config[k] = int(self.config[k]) * self.r
+        if bool(m.get("exact_accumulation", False)) and self.r > 1:
+            raise NotImplementedError(
+                "model.exact_accumulation is not ported yet (ROADMAP.md Queue 1 item 9, "
+                "'accumulation')")
+        spd = max(int(self.config.get("steps_per_dispatch", 1)), 1)
+        if spd > 1:
+            # the JAX trainer's alignment of the intervals to its stride, so
+            # that events fall on the same boundaries
+            stride = self.r * spd
+            for k in ("validation_interval", "tensorboard_interval", "save_interval"):
+                v = int(self.config[k])
+                self.config[k] = max(((v + stride - 1) // stride) * stride, stride)
+            log.info("steps_per_dispatch %d: the port runs one step per loop turn "
+                     "(intervals aligned to %d as the JAX trainer aligns them)", spd, stride)
+
+        self.exper = save_path or ExperimentPaths(exper_name)
+        self.exper.dump_config(self.config)
+        self.n_iter = 0
+        self.max_iter = self.config["train_iter"]
+        self._val_logger: Optional[MetricsLogger] = None
+        self._build()
+        self.train_loader: Optional[Iterator] = None
+        self.val_loader: Optional[Iterator] = None
+        self.device_corpus: Optional[DeviceCorpus] = None
+
+    # -- construction -------------------------------------------------
+    def _build(self) -> None:
+        m = self.config["model"]
+        data = self.config["data"]
+        seed = int(self.config.get("seed", 0))
+        params = dict(m.get("params") or {})
+        params.setdefault("dtype", "bfloat16")  # the flax module's default compute type
+        self.model = build_model(m["name"], device=self.device,
+                                 generator=torch.Generator().manual_seed(seed), **params).train()
+        self.semantic = bool(data.get("semantic", False))
+        self.warped_pair = bool(data.get("warped_pair", {}).get("enable", False))
+        self.state = TrainState.create(self.model, learning_rate=float(m["learning_rate"]),
+                                       max_steps=max(self.max_iter // self.r, 1))
+
+        if m.get("dense_loss", {}).get("enable"):
+            raise NotImplementedError("model.dense_loss is not ported yet (ROADMAP.md Queue 1 "
+                                      "item 9, 'dense loss')")
+        p = dict(m.get("sparse_loss", {}).get("params") or {})
+        self.step_kwargs = dict(
+            semantic=self.semantic,
+            warped_pair=self.warped_pair,
+            det_loss_type=m.get("detector_loss", {}).get("loss_type", "softmax"),
+            desc_loss="sparse",
+            desc_params={
+                "num_matching_attempts": int(p.get("num_matching_attempts", 1000)),
+                "num_masked_non_matches_per_match": int(
+                    p.get("num_masked_non_matches_per_match", 100)),
+                "lamda_d": float(p.get("lamda_d", 1.0)),
+                "method": p.get("method", "2d"),
+            },
+            lambda_loss=float(m.get("lambda_loss", 1)),
+            multi_task=bool(m.get("multi_task_loss", False)),
+            ignore_class=int(data.get("ignore_class", 133)),
+            sem_fused=bool(m.get("fused_semantic_ce", True)),
+        )
+
+        aug = data.get("augmentation", {})
+        gl = data.get("gaussian_label", {})
+        sigma = None
+        if gl.get("enable"):
+            sigma = float(gl.get("params", {}).get("GaussianBlur", {}).get("sigma", 0.2))
+        common = dict(warped_pair=data.get("warped_pair", {}), gaussian_label_sigma=sigma,
+                      ignore_class=int(data.get("ignore_class", 133)),
+                      sem_warp_mode=data.get("sem_warp_mode", "bilinear"))
+        self.prep_train = dict(common, photometric=self._photo_cfg(aug.get("photometric", {}),
+                                                                   "train"),
+                               homographic=aug.get("homographic", {}))
+        self.prep_val = dict(common, photometric=self._photo_cfg(aug.get("photometric", {}), "val"),
+                             homographic=self._val_homographic(aug.get("homographic", {})))
+        # homographies on the host (the two-pass warp reads them there); the
+        # photometric values and the descriptor samples on the device
+        self.host_generator = torch.Generator().manual_seed(seed + 1)
+        self.generator = torch.Generator(self.device).manual_seed(seed + 1)
+
+        pretrained = self.config.get("pretrained")
+        if not pretrained and self.config.get("auto_resume", True) \
+                and not self.config.get("retrain", False):
+            # relaunching into an experiment that has checkpoints continues it
+            prev = latest_checkpoint(self.exper.checkpoints)
+            if prev is not None:
+                log.warning("auto-resuming from %s (auto_resume)", prev)
+                load_checkpoint(prev, self.state, mode="full")
+                self.n_iter = self.state.step * self.r
+        elif pretrained and not self.config.get("retrain", False):
+            reset = bool(self.config.get("reset_iter", True))
+            mode = "weights" if reset else "full"
+            log.info("loading pretrained %s (mode=%s)", pretrained, mode)
+            load_checkpoint(pretrained, self.state, mode=mode, reset_iter=reset)
+            self.n_iter = self.state.step * self.r
+
+    def attach_device_corpus(self, dataset) -> None:
+        """Upload ``dataset`` to the device (``training.device_corpus_quantize``
+        stores its images as uint8); the training stream then samples the
+        real batch there instead of reading ``train_loader``."""
+        quantize = bool((self.config.get("training") or {}).get("device_corpus_quantize", False))
+        self.device_corpus = DeviceCorpus.from_dataset(dataset, device=self.device,
+                                                       quantize=quantize)
+        log.info("device corpus attached: %d samples, %s", self.device_corpus.n,
+                 {k: (tuple(v.shape), str(v.dtype)) for k, v in self.device_corpus.arrays.items()})
+
+    def next_batch(self) -> Dict[str, Any]:
+        """The next training batch before preparation: sampled from the
+        device corpus when one is attached, else read from ``train_loader``."""
+        if self.device_corpus is not None:
+            return self.device_corpus.sample(self.real_batch_size, self.generator)
+        return next(self.train_loader)
+
+    @staticmethod
+    def _photo_cfg(cfg: Dict[str, Any], split: str) -> Dict[str, Any]:
+        cfg = dict(cfg)
+        enable_key = f"enable_{split}"
+        if enable_key in cfg:
+            cfg["enable"] = bool(cfg.get("enable", False)) and bool(cfg[enable_key])
+        return cfg
+
+    @staticmethod
+    def _val_homographic(cfg: Dict[str, Any]) -> Dict[str, Any]:
+        cfg = dict(cfg)
+        if "enable_val" in cfg:
+            cfg["enable"] = bool(cfg.get("enable", False)) and bool(cfg["enable_val"])
+        return cfg
+
+    def prepare(self, host_batch: Dict[str, np.ndarray], *, train: bool = True,
+                **kwargs) -> Dict[str, torch.Tensor]:
+        """A raw batch (``ImageDataset.batches`` on the host, or the device
+        corpus's) → the training batch on the device; ``kwargs`` go to
+        ``prepare_batch`` (``draws``, ``warp``, ``reference``)."""
+        dev = self.device
+
+        def put(key, dtype):
+            return to_device(torch.as_tensor(host_batch[key], dtype=dtype), dev)
+
+        sem = put("sem", torch.int32) if self.semantic else None
+        return prepare_batch(put("image", torch.float32), put("points", torch.float32),
+                             put("points_valid", torch.bool), sem=sem,
+                             generator=self.generator, host_generator=self.host_generator,
+                             **(self.prep_train if train else self.prep_val), **kwargs)
+
+    # -- loop ---------------------------------------------------------
+    def train(self) -> None:
+        if self.train_loader is None and self.device_corpus is None:
+            raise ValueError("set train_loader or attach a device corpus first")
+        logger = MetricsLogger(self.exper, "train")
+        tb_int = self.config["tensorboard_interval"]
+        val_int = self.config["validation_interval"]
+        save_int = self.config["save_interval"]
+        interrupted = {"flag": False}
+        prev_handler = signal.signal(signal.SIGINT, lambda *_: interrupted.update(flag=True))
+        # host-memory watchdog: past the budget (85% of MemTotal unless
+        # rss_budget_mb says otherwise; 0 disables) the trainer checkpoints
+        # and raises instead of being killed without a checkpoint
+        budget_mb = self.config.get("rss_budget_mb")
+        if budget_mb is None:
+            try:
+                with open("/proc/meminfo") as f:
+                    budget_mb = 0.85 * int(f.readline().split()[1]) / 1024.0
+            except OSError:
+                budget_mb = 0
+        budget_mb = float(budget_mb)
+
+        t0 = time.time()
+        n_last_log = self.n_iter
+        try:
+            while self.n_iter < self.max_iter and not interrupted["flag"]:
+                n0 = self.n_iter
+                batch = self.prepare(self.next_batch(), train=True)
+                metrics = train_step(self.state, batch, generator=self.generator,
+                                     **self.step_kwargs)
+                self.n_iter = n0 + self.r
+
+                if hits(n0, self.n_iter, tb_int):
+                    scal = {k: float(v) for k, v in metrics.items()}
+                    scal["iters_per_s"] = ((self.n_iter - n_last_log) / max(time.time() - t0, 1e-9)
+                                           if n0 else 0.0)
+                    scal["host_rss_mb"] = rss_mb()
+                    if budget_mb and scal["host_rss_mb"] > budget_mb:
+                        save_checkpoint(self.exper.checkpoints, self.state, self.n_iter)
+                        raise RuntimeError(
+                            f"host RSS {scal['host_rss_mb']:.0f} MB exceeds the "
+                            f"{budget_mb:.0f} MB budget at iter {self.n_iter}; checkpoint saved: "
+                            f"resume with pretrained: {self.exper.checkpoints}/"
+                            f"superPointNet_{self.n_iter}.pth.tar")
+                    t0 = time.time()
+                    n_last_log = self.n_iter
+                    b = boundary(self.n_iter, tb_int)
+                    logger.log(b, scal)
+                    log.info("iter %d loss %.4f det %.4f desc %.4f", b, scal["loss"],
+                             scal["loss_det"], scal["loss_desc"])
+                if val_int and self.val_loader is not None and hits(n0, self.n_iter, val_int):
+                    self._validate(label=boundary(self.n_iter, val_int))
+                if hits(n0, self.n_iter, save_int, lo=1):
+                    save_checkpoint(self.exper.checkpoints, self.state,
+                                    boundary(self.n_iter, save_int))
+        finally:
+            signal.signal(signal.SIGINT, prev_handler)
+            save_checkpoint(self.exper.checkpoints, self.state, self.n_iter)
+            logger.close()
+            if self._val_logger is not None:
+                self._val_logger.close()
+                self._val_logger = None
+
+    def _validate(self, label: Optional[int] = None) -> Dict[str, float]:
+        """The mean of each metric over ``validation_size + 1`` validation
+        batches (running BatchNorm statistics), logged with the ``val_``
+        prefix at ``label`` (``n_iter`` without one)."""
+        if self._val_logger is None:
+            self._val_logger = MetricsLogger(self.exper, "val")
+        n_batches = int(self.config.get("validation_size", 4)) + 1
+        agg: Dict[str, list] = {}
+        for _ in range(n_batches):
+            batch = self.prepare(next(self.val_loader), train=False)
+            metrics = eval_step(self.state, batch, generator=self.generator, **self.step_kwargs)
+            for k, v in metrics.items():
+                agg.setdefault(k, []).append(float(v))
+        scalars = {k: float(np.mean(v)) for k, v in agg.items()}
+        self._val_logger.log(self.n_iter if label is None else label, scalars, prefix="val_")
+        return scalars

@@ -2,12 +2,15 @@
 
 Reference layout (``train4.py:63-66``, ``utils/utils.py:952-961``):
 ``EXPER_PATH/<exper_name>/`` holds ``config.yml``, ``checkpoints/`` and
-``predictions/``.  The JAX package's ``MetricsLogger`` (JSONL and
-TensorBoard) comes with training.
+``predictions/``.  :class:`MetricsLogger` writes the trainer's scalars.
 """
 
 from __future__ import annotations
 
+import datetime as _dt
+import importlib.util
+import json
+import logging
 import os
 from pathlib import Path
 from typing import Any, Dict, Optional
@@ -47,3 +50,42 @@ class ExperimentPaths:
 
         with open(self.root / "config.yml", "w") as f:
             yaml.safe_dump(sanitize(config), f)
+
+
+class MetricsLogger:
+    """Scalars as JSON lines in ``<exper>/metrics_<task>.jsonl``, one record
+    ``{"step": n, "<prefix><name>": value, ...}`` per call, the JAX
+    package's layout; TensorBoard scalars too when
+    ``torch.utils.tensorboard`` imports (the JAX logger tries TensorFlow).
+    Where TensorFlow is installed, TensorBoard's writer would import it (tens
+    of seconds, and the port does not load TensorFlow), so the scalars go to
+    JSONL alone there.  The event files go under ``<exper>/runs/<task>/``
+    (the JAX logger writes ``runs/<task>/<exper>_<stamp>`` below the working
+    directory)."""
+
+    def __init__(self, exper: ExperimentPaths, task: str = "train"):
+        self._jsonl = open(exper.root / f"metrics_{task}.jsonl", "a")
+        self._tb = None
+        if importlib.util.find_spec("tensorflow") is None:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError:
+                logging.getLogger(__name__).info("no TensorBoard: metrics go to JSONL only")
+            else:
+                stamp = _dt.datetime.now().strftime("%m-%d-%H:%M")
+                self._tb = SummaryWriter(str(exper.root / "runs" / task / stamp))
+
+    def log(self, step: int, scalars: Dict[str, float], prefix: str = "") -> None:
+        rec = {"step": int(step)}
+        rec.update({f"{prefix}{k}": float(v) for k, v in scalars.items()})
+        self._jsonl.write(json.dumps(rec) + "\n")
+        self._jsonl.flush()
+        if self._tb is not None:
+            for k, v in scalars.items():
+                self._tb.add_scalar(f"{prefix}{k}", float(v), int(step))
+
+    def close(self) -> None:
+        self._jsonl.close()
+        if self._tb is not None:
+            self._tb.close()
+            self._tb = None

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: no module of ``ssp_torch`` and not
 ``chip_smoke.py`` imports ``jax``, ``flax``, the JAX package ``ssp``
 (importing any ``ssp`` module runs ``ssp/__init__.py``, which loads flax),
-``cv2``, ``sklearn`` or ``PIL`` (the machine with the card has neither
+``cv2``, ``sklearn``, ``PIL`` or ``tensorflow`` (the machine with the card has neither
 OpenCV nor scikit-learn nor Pillow: the port decodes images itself)."""
 
 import ast
@@ -14,7 +14,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "ssp", "cv2", "sklearn", "PIL"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "ssp", "cv2", "sklearn", "PIL",
+             "tensorflow"}
 FILES = sorted((ROOT / "ssp_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -44,7 +45,15 @@ def test_port_files_found():
             "ssp_torch/cli/evaluate.py", "ssp_torch/cli/export_eval.py"} <= names
     assert {"ssp_torch/data/imageio.py", "ssp_torch/data/kitti.py",
             "ssp_torch/data/coco.py"} <= names
-    assert len(names) > 36
+    assert {"ssp_torch/data/photometric.py", "ssp_torch/data/pipeline.py",
+            "ssp_torch/data/coco_labels.py", "ssp_torch/data/prefetch.py",
+            "ssp_torch/data/device_corpus.py",
+            "ssp_torch/losses/detector.py", "ssp_torch/losses/descriptor_sparse.py",
+            "ssp_torch/losses/semantic.py", "ssp_torch/losses/multitask.py",
+            "ssp_torch/train/lr.py", "ssp_torch/train/state.py", "ssp_torch/train/step.py",
+            "ssp_torch/train/checkpoint.py", "ssp_torch/train/trainer.py",
+            "ssp_torch/cli/train.py"} <= names
+    assert len(names) > 52
 
 
 def test_fresh_interpreter_imports_every_module_without_jax_ssp_cv2():

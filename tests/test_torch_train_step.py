@@ -1,0 +1,339 @@
+"""Port parity: training-mode forwards and train steps of the port against the
+JAX package, fp32 unless a test says otherwise.
+
+* **Train mode.**  One training-mode forward of ``SuperPointNet_gauss2_ssmall``
+  (133 classes, the real widths) from the same flax-initialised weights:
+  ``semi``, ``desc`` and ``sem_coarse`` within 2e-4 (the fp32 forward bar of
+  ``tests/test_torch_weights.py``: convolutions summed in another order), and
+  every running mean and variance within 1e-5 of its leaf's largest
+  magnitude.  The running variance moves towards the *biased* batch
+  variance, as flax's does; ``nn.BatchNorm2d``'s unbiased update is off by
+  0.1·var/(n−1), 5e-4 of the value at n = 192 cells.
+* **bf16.**  The module at ``dtype=bfloat16`` against the flax module at its
+  default bf16, never against fp32: each output within 5% of its largest
+  magnitude, and on average within 0.8% in training mode (flax at bf16 is
+  1.0% from flax at fp32 on the same input: single bf16 roundings flipped by
+  fp32 statistics summed in another order, carried through ten layers) and
+  0.5% in evaluation mode.
+* **Three train steps** on one batch the JAX package prepared (warped pair,
+  semantics, Gaussian labels), with the JAX step's own descriptor draws fed
+  in, from two starting points: the flax initialisation and the trained
+  weights of ``evidence/wsem_weights.npz``.  The port runs them twice:
+  *synced* (set to the JAX state, Adam's moments included, before each step)
+  and *chained* (on its own).
+
+  - Metrics: every synced step at rel 1e-4, and the chained first step.
+    From the trained weights the detector terms (and the η_det gradient)
+    get rel 2e-3: the network is sure of its dustbin there, the softmax lies
+    within an fp32 ulp or two of 1, where the BCE's clip sits (1 − 1e-7 is
+    two ulps below 1), and ``log(1 − p)`` then follows the last ulp of two
+    libraries' exponentials (measured: 1.2e-3).  Chained steps after the
+    first within 2e-2: Adam's first update is about ±lr per entry whatever
+    the gradient's size, so an entry whose gradient sign differs moves by
+    2·lr and the two runs drift.
+  - First-step gradients (JAX's recovered from Adam's first moment, μ =
+    0.1·g): the 13 conv biases that feed a BatchNorm have a zero gradient
+    but for noise (both sides under 1e-5 of the model's largest gradient).
+    From the initialisation, every leaf after down3's max pool within 1e-4
+    of its largest magnitude, and every leaf before it at cosine ≥ 0.9998
+    and within 15%: at a near-tie of a 2×2 max the last bit decides where
+    the gradient goes (JAX's own fp32 gradient is up to 4.8% off an fp64 one
+    there).  From the trained weights, cosine ≥ 0.99 (the saturated cells
+    above pass the gradient on one side and clip it on the other).
+  - The ηs and every BatchNorm statistic after each synced step within
+    1e-5; the lr of each update is optax's at the count before it.
+  - Parameters after three chained steps: every entry within 3× the steps'
+    total lr, the median within 5% of it.
+"""
+
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from ssp.data.pipeline import prepare_batch as j_prepare_batch
+from ssp.models import build_model as j_build_model
+from ssp.train.state import create_train_state
+from ssp.train.step import make_train_step
+from ssp_torch.models.superpoint import build_model
+from ssp_torch.models.weights import flax_to_state_dict, load_flax_npz, load_reference_state_dict
+from ssp_torch.train import TrainState, polynomial_decay, train_step
+from test_torch_losses import jax_sparse_draws
+
+NPZ = Path(__file__).resolve().parents[1] / "evidence" / "wsem_weights.npz"
+B, H, W = 2, 64, 96
+LR, MAX_STEPS, STEPS = 0.0025, 10, 3
+M, N = 1000, 100
+PAIR = {"enable": True, "valid_border_margin": 3, "params": {
+    "translation": True, "rotation": True, "scaling": True, "perspective": True,
+    "scaling_amplitude": 0.2, "perspective_amplitude_x": 0.2, "perspective_amplitude_y": 0.2,
+    "patch_ratio": 0.85, "max_angle": 0.785, "allow_artifacts": True}}
+STEP_KW = dict(semantic=True, warped_pair=True, det_loss_type="softmax", desc_loss="sparse",
+               desc_params={"num_matching_attempts": M, "num_masked_non_matches_per_match": N,
+                            "lamda_d": 1.0, "method": "2d"},
+               lambda_loss=1.0, multi_task=True, ignore_class=133, sem_fused=True)
+
+
+def _tree(flat):
+    tree = {}
+    for key, value in flat.items():
+        node = tree
+        *path, leaf = key.split("/")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = jnp.asarray(value)
+    return tree
+
+
+def _leaf_close(got: dict, want: dict, bar: float, what: str):
+    assert set(got) == set(want), what
+    for k in want:
+        w = want[k].numpy()
+        err = float(np.abs(got[k].detach().numpy() - w).max())
+        assert err <= bar * max(float(np.abs(w).max()), 1e-12), (what, k, err)
+
+
+def _stats(sd):
+    return {k: v for k, v in sd.items() if k.endswith(("running_mean", "running_var"))}
+
+
+@pytest.fixture(scope="module")
+def x():
+    return np.random.default_rng(0).uniform(size=(B, H, W, 1)).astype(np.float32)
+
+
+def _pair(x, jdtype, tdtype=None, upsample_sem=True):
+    """Flax-initialised weights in both modules; one training-mode forward
+    of each.  ``tdtype=None`` builds the port's module with its defaults."""
+    jm = j_build_model("SuperPointNet_gauss2_ssmall", n_classes=133, dtype=jdtype)
+    v = jm.init(jax.random.key(0), jnp.asarray(x), train=True)
+    out, mut = jm.apply(v, jnp.asarray(x), train=True, mutable=["batch_stats"],
+                        upsample_sem=upsample_sem)
+    kw = {} if tdtype is None else {"dtype": tdtype}
+    model = build_model("SuperPointNet_gauss2_ssmall", device="cpu", n_classes=133, **kw)
+    load_reference_state_dict(model, flax_to_state_dict(v))
+    model.train()
+    with torch.no_grad():
+        got = model(torch.from_numpy(x)) if upsample_sem else model(torch.from_numpy(x),
+                                                                     upsample_sem=False)
+    return got, out, model, mut
+
+
+def test_train_mode_forward_and_batch_stats_match_flax(x):
+    """The module as built by default (fp32): outputs at the fp32 bars (sem,
+    ×8 upsampled logits of larger magnitude, at 2e-3) and the running
+    statistics after one training-mode forward."""
+    got, want, model, mut = _pair(x, jnp.float32)
+    assert set(got) == {"semi", "desc", "sem"} == set(want)
+    for k, atol in (("semi", 2e-4), ("desc", 2e-4), ("sem", 2e-3)):
+        assert got[k].dtype == torch.float32 and got[k].shape == want[k].shape
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), atol=atol, rtol=0)
+    want_stats = flax_to_state_dict({"batch_stats": mut["batch_stats"]})
+    _leaf_close(_stats(model.state_dict()), want_stats, 1e-5, "batch_stats")
+
+
+def test_training_forward_sem_coarse_matches_flax(x):
+    """``upsample_sem=False``: the 1/8-resolution logits, fp32."""
+    got, want, _, _ = _pair(x, jnp.float32, torch.float32, upsample_sem=False)
+    assert set(got) == {"semi", "desc", "sem_coarse"} == set(want)
+    assert got["sem_coarse"].dtype == torch.float32
+    assert got["sem_coarse"].shape == (B, H // 8, W // 8, 133)
+    np.testing.assert_allclose(got["sem_coarse"].numpy(), np.asarray(want["sem_coarse"]),
+                               atol=2e-4, rtol=0)
+
+
+def test_bf16_forward_matches_flax_bf16(x):
+    got, want, model, _ = _pair(x, jnp.bfloat16, torch.bfloat16, upsample_sem=False)
+    for k in got:
+        g, w = got[k].numpy(), np.asarray(want[k]).astype(np.float32)
+        assert got[k].dtype == torch.float32, k
+        scale = np.abs(w).max()
+        assert np.abs(g - w).max() <= 0.05 * scale, k
+        assert np.abs(g - w).mean() <= 0.008 * scale, k
+    # eval mode on the trained weights, the full-resolution semantic head
+    jm = j_build_model("SuperPointNet_gauss2_ssmall", n_classes=133)
+    with np.load(NPZ) as d:
+        flat = {k: d[k] for k in d.files}
+    want = jm.apply(_tree(flat), jnp.asarray(x), train=False)
+    m = load_flax_npz(NPZ, "SuperPointNet_gauss2_ssmall", device="cpu")
+    m.dtype = torch.bfloat16
+    with torch.no_grad():
+        got = m(torch.from_numpy(x))
+    for k in ("semi", "desc", "sem"):
+        g, w = got[k].numpy(), np.asarray(want[k]).astype(np.float32)
+        scale = np.abs(w).max()
+        assert np.abs(g - w).max() <= 0.05 * scale, k
+        assert np.abs(g - w).mean() <= 0.005 * scale, k
+
+
+def _adam_resync(tstate, jstate, names):
+    """The port's state set to the JAX state: parameters, BatchNorm
+    statistics, ηs and Adam's moments (the step count is already equal)."""
+    load_reference_state_dict(tstate.model, flax_to_state_dict(
+        {"params": jstate.params, "batch_stats": jstate.batch_stats}))
+    adam = jstate.opt_state[0]
+    mu = flax_to_state_dict({"params": adam.mu["params"]})
+    nu = flax_to_state_dict({"params": adam.nu["params"]})
+    count = float(adam.count)
+    with torch.no_grad():
+        tstate.etas.copy_(torch.from_numpy(np.array(jstate.etas)))
+    moments = {**{n: (mu[n], nu[n]) for n in names},
+               "etas": (torch.from_numpy(np.array(adam.mu["etas"])),
+                        torch.from_numpy(np.array(adam.nu["etas"])))}
+    params = dict(tstate.model.named_parameters(), etas=tstate.etas)
+    for n, (m, v) in moments.items():
+        tstate.optimizer.state[params[n]] = {"step": torch.tensor(count),
+                                             "exp_avg": m.clone(), "exp_avg_sq": v.clone()}
+
+
+def _steps(weights):
+    """Three JAX train steps (flax at fp32) from the flax initialisation or
+    from the trained weights, on one JAX-prepared batch; the same three on
+    the port twice, with the JAX step's descriptor draws: chained (each side
+    on its own) and resynchronised (the port set to the JAX state before
+    each step)."""
+    rng = np.random.default_rng(1)
+    imgs = rng.uniform(size=(B, H, W)).astype(np.float32)
+    imgs[:, 8:40, 16:60] *= 0.3
+    pts = rng.uniform([0, 0], [W - 1, H - 1], size=(B, 60, 2)).astype(np.float32)
+    valid = np.ones((B, 60), bool)
+    sem = rng.integers(0, 134, size=(B, H // 8, W // 8)).repeat(8, 1).repeat(8, 2).astype(np.int32)
+    jbatch = j_prepare_batch(jax.random.key(3), imgs, pts, valid, sem=sem, warped_pair=PAIR,
+                             gaussian_label_sigma=0.2)
+    batch = {k: torch.from_numpy(np.array(v)) for k, v in jbatch.items()}
+
+    jm = j_build_model("SuperPointNet_gauss2_ssmall", n_classes=133, dtype=jnp.float32)
+    state = create_train_state(jm, jax.random.key(0), (1, H, W, 1), learning_rate=LR,
+                               max_steps=MAX_STEPS)
+    if weights == "trained":
+        with np.load(NPZ) as d:
+            tree = _tree({k: d[k] for k in d.files})
+        state = state.replace(params=tree["params"], batch_stats=tree["batch_stats"])
+    jstep, _ = make_train_step(donate=False, **STEP_KW)
+
+    def port_state():
+        model = load_flax_npz({"params": state.params, "batch_stats": state.batch_stats},
+                              "SuperPointNet_gauss2_ssmall", device="cpu").train()
+        return TrainState.create(model, learning_rate=LR, max_steps=MAX_STEPS)
+
+    chained, synced = port_state(), port_state()
+    names = [n for n, _ in chained.model.named_parameters()]
+    recs = []
+    for i in range(STEPS):
+        key = jax.random.key(100 + i)
+        draws = jax_sparse_draws(key, np.asarray(jbatch["H_pair"]), (H // 8, W // 8), M, N)
+        rec = {"lr": chained.optimizer.param_groups[0]["lr"]}
+        if i:
+            _adam_resync(synced, state, names)
+        before = {n: p.detach().clone() for n, p in synced.model.named_parameters()}
+        jbefore = flax_to_state_dict({"params": state.params})
+        state, jmetrics = jstep(state, jbatch, key)
+        rec["jmetrics"] = {k: float(v) for k, v in jmetrics.items()}
+        for tag, ts in (("chained", chained), ("synced", synced)):
+            m = train_step(ts, batch, desc_draws=draws, **STEP_KW)
+            rec[tag] = {k: float(v) for k, v in m.items()}
+        rec["jstats"] = flax_to_state_dict({"batch_stats": state.batch_stats})
+        rec["stats"] = {k: v.clone() for k, v in _stats(synced.model.state_dict()).items()}
+        rec["jetas"], rec["etas"] = np.array(state.etas), synced.etas.detach().numpy().copy()
+        jafter = flax_to_state_dict({"params": state.params})
+        rec["jupdate"] = {n: jafter[n] - jbefore[n] for n in names}
+        rec["update"] = {n: p.detach() - before[n] for n, p in synced.model.named_parameters()}
+        if i == 0:
+            mu = state.opt_state[0].mu  # (1 − β₁)·g after the first update
+            rec["jgrads"] = {k: v * 10.0 for k, v in
+                             flax_to_state_dict({"params": mu["params"]}).items()}
+            rec["jgrad_etas"] = np.array(mu["etas"]) * 10.0
+            rec["grads"] = {k: p.grad.clone() for k, p in synced.model.named_parameters()}
+            rec["grad_etas"] = synced.etas.grad.numpy().copy()
+        recs.append(rec)
+    final = {"jparams": flax_to_state_dict({"params": state.params}),
+             "params": dict(chained.model.named_parameters()), "step": chained.step}
+    return weights, recs, final
+
+
+DETECTOR_TERMS = ("loss", "loss_det", "loss_det_warp")
+
+
+def _zero_grad_biases(names):
+    """Biases of the convs that feed a BatchNorm (all but ``convSout``):
+    training-mode BN subtracts them, so their gradient is 0 but for noise."""
+    heads = ("convPa", "convPb", "convDa", "convDb", "convDS")
+    return {n for n in names if n.endswith(".bias")
+            and (n.split(".")[-2] in ("0", "3") or n.split(".")[0] in heads)}
+
+
+def _check_step_metrics_and_lr(steps):
+    weights, recs, final = steps
+    sched = optax.polynomial_schedule(init_value=LR, end_value=0.001, power=2,
+                                      transition_steps=MAX_STEPS)
+    for i, r in enumerate(recs):
+        assert r["synced"].keys() == r["jmetrics"].keys() == r["chained"].keys()
+        for k, w in r["jmetrics"].items():
+            rtol = 2e-3 if (weights == "trained" and k in DETECTOR_TERMS) else 1e-4
+            np.testing.assert_allclose(r["synced"][k], w, rtol=rtol, atol=1e-7, err_msg=(i, k))
+            # the runs on their own drift apart from the second step on
+            # (Adam's first step is about ±lr per entry, whatever the
+            # gradient's size: a sign that differs moves an entry by 2·lr)
+            np.testing.assert_allclose(r["chained"][k], w, rtol=rtol if i == 0 else 2e-2,
+                                       atol=1e-7, err_msg=(i, k))
+        np.testing.assert_allclose(r["lr"], float(sched(i)), rtol=1e-6)
+    assert final["step"] == STEPS
+    for count in (0, 1, 5, 10, 25):
+        np.testing.assert_allclose(polynomial_decay(LR, MAX_STEPS)(count), float(sched(count)),
+                                   rtol=1e-6)
+
+
+def _check_first_step_gradients(steps):
+    weights, recs, _ = steps
+    r = recs[0]
+    gmax = max(float(v.abs().max()) for v in r["jgrads"].values())
+    zero = _zero_grad_biases(r["jgrads"])
+    assert len(zero) == 13
+    for k, want in r["jgrads"].items():
+        got = r["grads"][k]
+        if k in zero:
+            assert float(got.abs().max()) <= 1e-5 * gmax and float(want.abs().max()) <= 1e-5 * gmax
+            continue
+        cos = float((got * want).sum() / (got.norm() * want.norm()))
+        err = float((got - want).abs().max()) / float(want.abs().max())
+        if weights == "trained":
+            assert cos >= 0.99, (k, cos)
+        elif k.startswith(("inc.", "down1.", "down2.")):
+            assert cos >= 0.9998 and err <= 0.15, (k, cos, err)
+        else:
+            assert err <= 1e-4, (k, err)
+    np.testing.assert_allclose(r["grad_etas"], r["jgrad_etas"],
+                               rtol=2e-3 if weights == "trained" else 1e-4)
+
+
+def _check_stats_and_etas_after_each_step(steps):
+    for r in steps[1]:
+        _leaf_close(r["stats"], r["jstats"], 1e-5, "batch_stats")
+        np.testing.assert_allclose(r["etas"], r["jetas"], rtol=1e-5)
+
+
+def _check_parameters_after_three_steps(steps):
+    _, _, final = steps
+    lr_total = sum(polynomial_decay(LR, MAX_STEPS)(i) for i in range(STEPS))
+    diffs = []
+    for k, w in final["jparams"].items():
+        d = (final["params"][k].detach() - w).abs()
+        assert float(d.max()) <= 3.0 * lr_total, k
+        diffs.append(d.flatten())
+    assert float(torch.cat(diffs).median()) <= 0.05 * lr_total
+
+
+@pytest.mark.parametrize("weights", ["init", "trained"])
+def test_three_train_steps(weights):
+    """Each step's metrics and lr, the first step's gradients, the BatchNorm
+    statistics and ηs after each step, the parameters after three (module
+    docstring)."""
+    steps = _steps(weights)
+    _check_step_metrics_and_lr(steps)
+    _check_first_step_gradients(steps)
+    _check_stats_and_etas_after_each_step(steps)
+    _check_parameters_after_three_steps(steps)
