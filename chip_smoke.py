@@ -138,11 +138,34 @@ failure (nothing is caught):
     memory; ``vresample_coef`` against its plain version and timed at the
     training shapes; the last npz reloaded through ``load_weights`` and
     detect+describe run on it.
+18. ``[synth]``, stage 1, MagicPoint pretraining on Synthetic Shapes: the
+    generator (``ssp_torch.data.synthetic_shapes``, drawn by the C++
+    rasteriser) against the SHA-256 of ``SYNTH_MANIFEST``, which OpenCV's
+    drawing gave the JAX package, with ms per sample by primitive; the
+    ``SYNTH_CONFIG`` corpus (``configs/pipeline240_magicpoint.yaml``) cut to
+    ``SYNTH_SPLITS`` samples per primitive and generated into
+    ``SSP_DATA_PATH``; ``python -m ssp_torch.cli.train train_base`` on the
+    config (gauss2 from scratch, 32×240×320, homographic and photometric,
+    the detector loss alone, Adam, the corpus on the card as uint8) with
+    ``SYNTH_RUN``'s schedule and one step per dispatch.  Launch counts from
+    0: ``vresample_coef`` twice per prepared training batch (as counted on
+    the CPU route), no other kernel.  Every logged loss finite, the
+    detector loss at the last step below the first, the rows and
+    checkpoint names.  A step on the kernel against one on the plain
+    versions (images within VRES_TOL, metrics within TRAIN_REL); the
+    steady-state rates by part, idle share and peak memory over
+    SYNTH_TIMED steps (``steady_state``, as phase 17); the last npz
+    reloaded through ``load_weights``, where detect+describe launches the
+    stem, down1 and NMS once each; then ``SYNTH_JOINT_CONFIG``'s gauss2
+    joint training (``superpoint_synth_joint_v4_240.yaml``: warped pair,
+    sparse, Kendall) for a few steps on the same cache files, every loss
+    finite and only ``vresample_coef`` launched.
 
 Prints a ``{"kernels": [...]}`` line (each row also with the launches of
 phase 12's export, ``launches_export``, of phase 13's sweep,
-``launches_sweep``, of phases 15, 16 and 17, ``launches_sequence``,
-``launches_ha_cli`` and ``launches_train``; for the stem, down1 and NMS
+``launches_sweep``, of phases 15, 16, 17 and 18, ``launches_sequence``,
+``launches_ha_cli``, ``launches_train`` and ``launches_synth``, and of
+phase 18's reload, ``launches_synth_reload``; for the stem, down1 and NMS
 their times at 1×240×320, ``export_1x240x320``, and at 1×384×1248,
 ``sequence_1x384x1248``; for ``vresample_coef`` its time at the training
 shapes, ``train_16x320x320``), then the ``nvidia-smi`` line, and last
@@ -188,6 +211,8 @@ from ssp_torch.data.coco_labels import PANOPTIC_IDS
 from ssp_torch.data.hpatches import PatchesDataset
 from ssp_torch.data.kitti import KittiDataset
 from ssp_torch.data.photometric import draw_photometric
+from ssp_torch.data.pipeline import prepare_batch
+from ssp_torch.data.synthetic_shapes import generate_sample
 from ssp_torch.export.descriptors_export import (make_detect_describe_fn, run_descriptor_export,
                                                  run_sequence_export)
 from ssp_torch.export.homography_adaptation import DEFAULT_HA, make_ha_fn, run_ha_export
@@ -263,6 +288,20 @@ TRAIN_CONFIG = ROOT / "configs" / "pipeline240_wsem_200k.yaml"
 TRAIN_RUN = {"train_iter": 40, "validation_interval": 20, "save_interval": 20,
              "tensorboard_interval": 10}
 TRAIN_TIMED = 20
+# phase 18: stage 1 (configs/pipeline240_magicpoint.yaml) on a corpus cut to
+# SYNTH_SPLITS samples per primitive, SYNTH_RUN's schedule, then SYNTH_TIMED
+# steady-state steps; the generator against the manifest made with OpenCV
+SYNTH_CONFIG = ROOT / "configs" / "pipeline240_magicpoint.yaml"
+SYNTH_MANIFEST = ROOT / "tests" / "data" / "torch_synth" / "manifest.json"
+SYNTH_SPLITS = {"training": 64, "validation": 8, "test": 8}
+SYNTH_RUN = {"train_iter": 40, "validation_interval": 20, "save_interval": 20,
+             "tensorboard_interval": 1}
+SYNTH_TIMED = 20
+# ... and SYNTH_JOINT_CONFIG's gauss2 joint training (warped pair, sparse,
+# Kendall) on the same cut corpus (the same cache files) for a few steps
+SYNTH_JOINT_CONFIG = ROOT / "configs" / "superpoint_synth_joint_v4_240.yaml"
+SYNTH_JOINT_RUN = {"train_iter": 5, "validation_interval": 5, "save_interval": 5,
+                   "tensorboard_interval": 1}
 # a train step on the kernel against one on the kernels' plain versions, same
 # state, batch and draws: the warped images within VRES_TOL of max|img|; at
 # most this share of the warped class ids inside the mask changed (a bilinear
@@ -1021,12 +1060,15 @@ def main() -> None:
         sequence_launches, sequence_times = sequence_phase(dev, td)
         ha_cli_launches = ha_cli_phase(dev, td)
         train = train_phase(dev, td, smi)
+        synth = synth_phase(dev, td, smi)
     for row in kernels:
         row["launches_export"] = export_launches.get(row["name"], 0)
         row["launches_sweep"] = sweep_launches.get(row["name"], 0)
         row["launches_sequence"] = sequence_launches.get(row["name"], 0)
         row["launches_ha_cli"] = ha_cli_launches.get(row["name"], 0)
         row["launches_train"] = train["launches"].get(row["name"], 0)
+        row["launches_synth"] = synth["launches"].get(row["name"], 0)
+        row["launches_synth_reload"] = synth["reload_launches"].get(row["name"], 0)
         if row["name"] in export_times:
             row["export_1x240x320"] = export_times[row["name"]]
         if row["name"] in sequence_times:
@@ -1607,6 +1649,98 @@ def ha_cli_phase(dev: torch.device, td: Path) -> dict:
     return launches
 
 
+def steady_state(agent, tag: str, n: int, what: str, smi: str) -> dict:
+    """The trainer's step (a batch sampled from the device corpus, prepared,
+    one update) ``n`` times: CUDA events and the host clock around whole
+    steps, then by part (``prepare_batch``, forward+backward, Adam); device
+    time by operation and the idle share under ``torch.profiler``; host
+    syncs per step by call site; peak memory.  Logs under ``tag`` and
+    returns the numbers."""
+    st = agent.state
+    B = agent.real_batch_size
+
+    def step():
+        train_step(st, agent.prepare(agent.next_batch()), generator=agent.generator,
+                   **agent.step_kwargs)
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    for _ in range(n):
+        step()
+    e1.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    dev_ms = e0.elapsed_time(e1) / n
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    parts = np.zeros(3)
+    for _ in range(n):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        batch = agent.prepare(agent.next_batch())
+        ev[1].record()
+        st.optimizer.zero_grad(set_to_none=True)
+        loss, _ = compute_losses(st.model, st.etas, batch, generator=agent.generator,
+                                 **agent.step_kwargs)
+        loss.backward()
+        ev[2].record()
+        st.optimizer.step()
+        st.scheduler.step()
+        st.step += 1
+        ev[3].record()
+        torch.cuda.synchronize()
+        parts += [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    parts /= n
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step()
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    # the optimizer's range annotation spans kernels that are counted already
+    on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith("Optimizer.")]
+    busy_ms = sum(e.device_time_total for e in on_card) / 5 / 1e3
+    top = sorted(((a.key, a.self_device_time_total / 5 / 1e3) for a in prof.key_averages()
+                  if a.self_device_time_total > 0 and not a.key.startswith("Optimizer.")),
+                 key=lambda kv: -kv[1])[:12]
+    # host syncs per step: every operation that makes the host wait for the card
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for _ in range(3):
+            step()
+    torch.cuda.set_sync_debug_mode(0)
+    sites = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            site = f"{Path(w.filename).name}:{w.lineno}"
+            sites[site] = sites.get(site, 0) + 1
+    syncs = sum(sites.values()) / 3
+    log(f"{tag} steady state, {n} steps of {what} ({smi}): "
+        f"{1e3 / dev_ms:.3f} steps/s, "
+        f"{B * 1e3 / dev_ms:.2f} img/s by CUDA events ({dev_ms:.3f} ms/step); "
+        f"{n / host_s:.3f} steps/s, {B * n / host_s:.2f} img/s by the host "
+        f"clock; by part (CUDA events, synchronised per step): prepare_batch {parts[0]:.3f} ms "
+        f"({parts[0] / parts.sum():.3f}), forward+backward {parts[1]:.3f} ms "
+        f"({parts[1] / parts.sum():.3f}), Adam {parts[2]:.3f} ms ({parts[2] / parts.sum():.3f}); "
+        f"{len(on_card) / 5:.0f} device operations and {busy_ms:.3f} ms of device time per step "
+        f"under torch.profiler, idle share {max(0.0, 1 - busy_ms / (prof_s * 1e3 / 5)):.3f}; "
+        f"{syncs:.1f} host syncs per step; peak memory {peak_gb:.2f} GiB")
+    log(f"{tag} device time per step by operation (torch.profiler, self time, ms): " +
+        "; ".join(f"{name[:60]} {ms:.3f}" for name, ms in top))
+    log(f"{tag} host syncs per step by call site: " + ", ".join(
+        f"{k} {v / 3:g}" for k, v in sorted(sites.items(), key=lambda kv: -kv[1])))
+    return {"ms_per_step": dev_ms, "img_per_s": B * 1e3 / dev_ms,
+            "img_per_s_host": B * n / host_s, "parts_ms": parts.tolist(),
+            "idle": max(0.0, 1 - busy_ms / (prof_s * 1e3 / 5)), "peak_gib": peak_gb,
+            "syncs": syncs}
+
+
 def train_phase(dev: torch.device, td: Path, smi: str) -> dict:
     """Phase 17 [train]: stage-3 joint training through ``python -m
     ssp_torch.cli.train train_joint`` (called in this process, so that the
@@ -1732,86 +1866,9 @@ def train_phase(dev: torch.device, td: Path, smi: str) -> dict:
     if max(rel.values()) > TRAIN_REL or not all(np.isfinite(float(v)) for v in mk.values()):
         raise AssertionError(f"kernel vs plain step metrics: {rel}")
 
-    # ---- steady state: the trainer's step (a batch sampled from the device
-    # corpus, prepared, one update), CUDA events and the host clock around
-    # whole steps, then by part
-    def step():
-        train_step(st, agent.prepare(agent.next_batch()), generator=agent.generator,
-                   **agent.step_kwargs)
-
-    for _ in range(2):
-        step()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    e0.record()
-    for _ in range(TRAIN_TIMED):
-        step()
-    e1.record()
-    torch.cuda.synchronize()
-    host_s = time.perf_counter() - t0
-    dev_ms = e0.elapsed_time(e1) / TRAIN_TIMED
-    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    parts = np.zeros(3)
-    for _ in range(TRAIN_TIMED):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        ev[0].record()
-        batch = agent.prepare(agent.next_batch())
-        ev[1].record()
-        st.optimizer.zero_grad(set_to_none=True)
-        loss, _ = compute_losses(st.model, st.etas, batch, generator=agent.generator,
-                                 **agent.step_kwargs)
-        loss.backward()
-        ev[2].record()
-        st.optimizer.step()
-        st.scheduler.step()
-        st.step += 1
-        ev[3].record()
-        torch.cuda.synchronize()
-        parts += [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
-    parts /= TRAIN_TIMED
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(5):
-            step()
-        torch.cuda.synchronize()
-        prof_s = time.perf_counter() - t0
-    # the optimizer's range annotation spans kernels that are counted already
-    on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.name.startswith("Optimizer.")]
-    busy_ms = sum(e.device_time_total for e in on_card) / 5 / 1e3
-    top = sorted(((a.key, a.self_device_time_total / 5 / 1e3) for a in prof.key_averages()
-                  if a.self_device_time_total > 0 and not a.key.startswith("Optimizer.")),
-                 key=lambda kv: -kv[1])[:12]
-    # host syncs per step: every operation that makes the host wait for the card
-    torch.cuda.set_sync_debug_mode("warn")
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        for _ in range(3):
-            step()
-    torch.cuda.set_sync_debug_mode(0)
-    sites = {}
-    for w in caught:
-        if "synchroniz" in str(w.message):
-            site = f"{Path(w.filename).name}:{w.lineno}"
-            sites[site] = sites.get(site, 0) + 1
-    syncs = sum(sites.values()) / 3
-    log(f"[train] steady state, {TRAIN_TIMED} steps of {B} images (each with its warped view) "
-        f"at {hh}x{hw}, each sampled from the device corpus ({smi}): "
-        f"{1e3 / dev_ms:.3f} steps/s, "
-        f"{B * 1e3 / dev_ms:.2f} img/s by CUDA events ({dev_ms:.3f} ms/step); "
-        f"{TRAIN_TIMED / host_s:.3f} steps/s, {B * TRAIN_TIMED / host_s:.2f} img/s by the host "
-        f"clock; by part (CUDA events, synchronised per step): prepare_batch {parts[0]:.3f} ms "
-        f"({parts[0] / parts.sum():.3f}), forward+backward {parts[1]:.3f} ms "
-        f"({parts[1] / parts.sum():.3f}), Adam {parts[2]:.3f} ms ({parts[2] / parts.sum():.3f}); "
-        f"{len(on_card) / 5:.0f} device operations and {busy_ms:.3f} ms of device time per step "
-        f"under torch.profiler, idle share {max(0.0, 1 - busy_ms / (prof_s * 1e3 / 5)):.3f}; "
-        f"{syncs:.1f} host syncs per step; peak memory {peak_gb:.2f} GiB")
-    log("[train] device time per step by operation (torch.profiler, self time, ms): " +
-        "; ".join(f"{name[:60]} {ms:.3f}" for name, ms in top))
-    log("[train] host syncs per step by call site: " + ", ".join(
-        f"{k} {v / 3:g}" for k, v in sorted(sites.items(), key=lambda kv: -kv[1])))
+    # ---- steady state
+    steady_state(agent, "[train]", TRAIN_TIMED, f"{B} images (each with its warped view) at "
+                 f"{hh}x{hw}, each sampled from the device corpus", smi)
 
     # ---- the kernel at the training shapes: the images' and the semantic
     # maps' warps of one batch, both passes, against the plain version
@@ -1854,6 +1911,209 @@ def train_phase(dev: torch.device, td: Path, smi: str) -> dict:
         f"{int(out[1].sum())} points")
     return {"launches": launches, "coef": {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                                            "max_abs_err": err}}
+
+
+def coef_calls_per_batch(agent, host: dict) -> int:
+    """``vresample_coef`` calls that one prepared training batch makes on the
+    two-pass route, counted on the CPU (where the wrapper runs its plain
+    version and launches nothing) with the agent's preparation settings."""
+    calls = [0]
+    wrapped = warp_twopass.vresample_coef
+
+    def counting(*args, **kwargs):
+        calls[0] += 1
+        return wrapped(*args, **kwargs)
+
+    warp_twopass.vresample_coef = counting
+    try:
+        cpu = {k: v.cpu() for k, v in host.items()}
+        g = torch.Generator().manual_seed(SEED)
+        prepare_batch(cpu["image"].float(), cpu["points"].float(), cpu["points_valid"].bool(),
+                      generator=g, host_generator=g, warp="twopass", **agent.prep_train)
+    finally:
+        warp_twopass.vresample_coef = wrapped
+    return calls[0]
+
+
+def synth_phase(dev: torch.device, td: Path, smi: str) -> dict:
+    """Phase 18 [synth]: stage 1, MagicPoint pretraining on Synthetic Shapes.
+    The generator against the manifest made with OpenCV; the stage-1 corpus
+    generated into ``SSP_DATA_PATH``; ``python -m ssp_torch.cli.train
+    train_base`` on ``SYNTH_CONFIG`` (called in this process, so that the
+    launch counts can be read); a step on the kernel against one on the
+    plain versions; the steady-state rates by part; the last checkpoint
+    reloaded for detect+describe.  Returns the launches per kernel of the
+    CLI run and of the reload."""
+    # ---- the generator against the manifest (OpenCV drew the JAX package's)
+    manifest = json.loads(SYNTH_MANIFEST.read_text())
+    size, blur = tuple(manifest["size"]), manifest["blur_size"]
+    per_prim = {}
+    for s in manifest["samples"]:
+        t0 = time.perf_counter()
+        img, pts = generate_sample(s["primitive"], size, s["seed"], blur)
+        per_prim.setdefault(s["primitive"], []).append(time.perf_counter() - t0)
+        got = (hashlib.sha256(img.tobytes()).hexdigest(), hashlib.sha256(pts.tobytes()).hexdigest(),
+               len(pts))
+        if got != (s["image_sha256"], s["points_sha256"], s["n_points"]):
+            raise AssertionError(f"generate_sample({s['primitive']}, seed {s['seed']}) differs "
+                                 f"from the manifest: {got}")
+    log(f"[synth] generate_sample: the {len(manifest['samples'])} samples of the manifest "
+        f"({len(per_prim)} primitives, {size[0]}x{size[1]}, blur {blur}) equal their SHA-256; "
+        f"ms per sample by the host clock, one thread: " + ", ".join(
+            f"{k} {np.mean(v) * 1e3:.2f}" for k, v in per_prim.items()))
+
+    # ---- the corpus, generated into SSP_DATA_PATH
+    cfg = yaml.safe_load(SYNTH_CONFIG.read_text())
+    cfg["data"]["generation"]["split_sizes"] = dict(SYNTH_SPLITS)
+    cfg.update(steps_per_dispatch=1, **SYNTH_RUN)
+    cfg_path = td / "synth_cfg.yaml"
+    cfg_path.write_text(yaml.safe_dump(cfg))
+    B, (hh, hw) = cfg["model"]["batch_size"], cfg["data"]["preprocessing"]["resize"]
+    t0 = time.perf_counter()
+    train_set, val_set = train_cli.make_dataset(cfg, "train"), train_cli.make_dataset(cfg, "val")
+    gen_s = time.perf_counter() - t0
+    n_prims = len(per_prim)
+    n_gen = n_prims * (SYNTH_SPLITS["training"] + SYNTH_SPLITS["validation"])
+    full = n_prims * sum(yaml.safe_load(SYNTH_CONFIG.read_text())["data"]["generation"]
+                         ["split_sizes"].values())
+    log(f"[synth] corpus: {n_gen} samples at {hh}x{hw} generated in {gen_s:.2f} s, one "
+        f"thread, with the npz writes ({gen_s * 1e3 / n_gen:.2f} ms/sample of "
+        f"wall time; at that rate the config's full corpus of {full} samples takes "
+        f"{gen_s / n_gen * full:.1f} s, once); {len(train_set)} training samples after "
+        f"truncate, {len(val_set)} validation")
+
+    # ---- the main path of this phase: the CLI, counted
+    reset_launches()
+    t0 = time.perf_counter()
+    agent = train_cli.main(["train_base", str(cfg_path), "synth", "--device", str(dev)])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = read_launches()
+    steps = SYNTH_RUN["train_iter"]
+    host = agent.next_batch()
+    per_batch = coef_calls_per_batch(agent, host)
+    # training batches are warped (homographic, two coef passes per warp);
+    # validation batches are not (enable_val: false); the training forward is
+    # the module, no folded kernel
+    want = {"stem": 0, "down1": 0, "nms": 0, "vresample": 0, "vresample_coef": per_batch * steps}
+    log(f"[synth] train_base {SYNTH_CONFIG.name} (gauss2 from scratch, {B}x{hh}x{hw}, "
+        f"homographic and photometric, detector loss alone, Adam, the corpus on the card as "
+        f"uint8): {steps} steps in {cli_s:.2f} s with the model build ({smi}); launches "
+        f"{launches} ({launches['vresample_coef'] / steps:.1f} vresample_coef per prepared "
+        f"training batch; {per_batch} counted on the CPU route)")
+    if per_batch != 2 or launches != want:
+        raise AssertionError(f"synth launches {launches}, expected {want}")
+    exper = td / "logs" / "synth"
+    rows = [json.loads(r) for r in (exper / "metrics_train.jsonl").read_text().splitlines()]
+    vrows = [json.loads(r) for r in (exper / "metrics_val.jsonl").read_text().splitlines()]
+    if [r["step"] for r in rows] != list(range(steps)) or \
+            [r["step"] for r in vrows] != list(range(0, steps, SYNTH_RUN["validation_interval"])):
+        raise AssertionError(f"rows at {[r['step'] for r in rows]}, {[r['step'] for r in vrows]}")
+    if not all(np.isfinite(v) for r in rows + vrows for v in r.values()):
+        raise AssertionError("a non-finite loss in the metrics")
+    if not rows[-1]["loss_det"] < rows[0]["loss_det"]:
+        raise AssertionError(f"detector loss {rows[0]['loss_det']} at step 1, "
+                             f"{rows[-1]['loss_det']} at step {steps}")
+    ckpts = sorted(p.name for p in (exper / "checkpoints").iterdir())
+    saves = range(SYNTH_RUN["save_interval"], steps + 1, SYNTH_RUN["save_interval"])
+    if ckpts != sorted(f"superPointNet_{s}.{e}" for s in saves for e in ("npz", "pth.tar")):
+        raise AssertionError(f"checkpoints {ckpts}")
+    log("[synth] detector loss by step: " + ", ".join(
+        f"{i + 1}: {rows[i]['loss_det']:.4f}" for i in sorted({0, *range(9, steps, 10)})) +
+        "; val loss " + ", ".join(f"{r['step']}: {r['val_loss']:.4f}" for r in vrows))
+
+    # ---- one step on the kernel, one on the plain versions: same state,
+    # batch and draws
+    st = agent.state
+    g_host = torch.Generator().manual_seed(SEED + 19)
+    g_dev = torch.Generator(dev).manual_seed(SEED + 19)
+    photo = agent.prep_train["photometric"]
+    homo = {k: v for k, v in agent.prep_train["homographic"]["params"].items()
+            if k != "valid_border_margin"}
+    draws = {"homographic": sample_homographies(B, generator=g_host, **homo),
+             "photo": draw_photometric((B, hh, hw), photo["primitives"], photo["params"], g_dev,
+                                       dev)}
+    bk = agent.prepare(host, draws=draws)
+    bp = agent.prepare(host, draws=draws, reference=True)
+    img_err = check_resample("synth images", bk["image"], bp["image"],
+                             float(bp["image"].abs().max()))
+    for k in bk:
+        if k != "image" and not torch.equal(bk[k], bp[k]):
+            raise AssertionError(f"synth batch {k}: the kernel's differs from the plain one's")
+    saved = (copy.deepcopy(st.model.state_dict()), copy.deepcopy(st.optimizer.state_dict()),
+             st.scheduler.state_dict(), st.etas.detach().clone(), st.step)
+
+    def step_from_saved(batch):
+        st.model.load_state_dict(saved[0])
+        st.optimizer.load_state_dict(copy.deepcopy(saved[1]))
+        st.scheduler.load_state_dict(saved[2])
+        with torch.no_grad():
+            st.etas.copy_(saved[3])
+        st.step = saved[4]
+        return train_step(st, batch, generator=agent.generator, **agent.step_kwargs)
+
+    mk, mp = step_from_saved(bk), step_from_saved(bp)
+    rel = {k: abs(float(mk[k]) - float(mp[k])) / max(abs(float(mp[k])), 1e-6) for k in mk}
+    log(f"[synth] one step, kernel against plain versions (same state, batch and draws): images "
+        f"max abs err {img_err:.3g}; metrics max rel diff {max(rel.values()):.3g} "
+        f"({max(rel, key=rel.get)}); loss {float(mk['loss']):.6f} / {float(mp['loss']):.6f}")
+    if max(rel.values()) > TRAIN_REL or not all(np.isfinite(float(v)) for v in mk.values()):
+        raise AssertionError(f"kernel vs plain step metrics: {rel}")
+
+    # ---- steady state
+    rates = steady_state(agent, "[synth]", SYNTH_TIMED, f"{B} images at {hh}x{hw}, each "
+                         "sampled from the device corpus", smi)
+
+    # ---- the last checkpoint reloads and detects: the folded kernels launch
+    npz = exper / "checkpoints" / f"superPointNet_{steps}.npz"
+    model = load_weights(npz, cfg["model"]["name"], cfg["model"]["params"], device=dev)
+    dd = make_detect_describe_fn(best_apply_fn(model, input_hw=(hh, hw), device=dev), device=dev,
+                                 conf_thresh=cfg["model"]["detection_threshold"],
+                                 nms_radius=cfg["model"]["nms"])
+    image = bk["image"][0, ..., 0].contiguous()
+    dd(image)  # the first call builds what it needs
+    torch.cuda.synchronize()
+    reset_launches()
+    out = dd(image)
+    torch.cuda.synchronize()
+    reload_launches = read_launches()
+    if reload_launches != {"stem": 1, "down1": 1, "nms": 1, "vresample": 0, "vresample_coef": 0}:
+        raise AssertionError(f"detect+describe on the stage-1 checkpoint: {reload_launches}")
+    if not all(bool(torch.isfinite(t.float()).all()) for t in out if torch.is_tensor(t)):
+        raise AssertionError("detect+describe on the stage-1 checkpoint: non-finite output")
+    log(f"[synth] {npz.name} reloaded through load_weights; detect+describe on one image: "
+        f"{int(out[1].sum())} points, launches {reload_launches}")
+
+    # ---- gauss2 joint training on the same corpus (the cache written above)
+    jcfg = yaml.safe_load(SYNTH_JOINT_CONFIG.read_text())
+    jcfg["data"]["generation"]["split_sizes"] = dict(SYNTH_SPLITS)
+    jcfg.update(steps_per_dispatch=1, **SYNTH_JOINT_RUN)
+    jcfg_path = td / "synth_joint_cfg.yaml"
+    jcfg_path.write_text(yaml.safe_dump(jcfg))
+    before = sorted(p.name for p in (td / f"synthetic_shapes_{jcfg['data']['suffix']}").iterdir())
+    reset_launches()
+    t0 = time.perf_counter()
+    train_cli.main(["train_joint", str(jcfg_path), "synth_joint", "--device", str(dev)])
+    torch.cuda.synchronize()
+    joint_s = time.perf_counter() - t0
+    joint_launches = read_launches()
+    jrows = [json.loads(r) for r in
+             (td / "logs" / "synth_joint" / "metrics_train.jsonl").read_text().splitlines()]
+    after = sorted(p.name for p in (td / f"synthetic_shapes_{jcfg['data']['suffix']}").iterdir())
+    if len(jrows) != SYNTH_JOINT_RUN["train_iter"] or \
+            not all(np.isfinite(v) for r in jrows for v in r.values()):
+        raise AssertionError(f"{SYNTH_JOINT_CONFIG.name}: rows {jrows}")
+    # two coef passes per warped pair, training and validation; nothing else
+    if after != before or joint_launches["vresample_coef"] % 2 or \
+            joint_launches["vresample_coef"] < 2 * SYNTH_JOINT_RUN["train_iter"] or \
+            any(v for k, v in joint_launches.items() if k != "vresample_coef"):
+        raise AssertionError(f"{SYNTH_JOINT_CONFIG.name}: launches {joint_launches}, cache "
+                             f"{before} -> {after}")
+    log(f"[synth] train_joint {SYNTH_JOINT_CONFIG.name} (gauss2, warped pair, sparse, Kendall) "
+        f"on the same cache files: {len(jrows)} steps in {joint_s:.2f} s, losses " + ", ".join(
+            f"{r['loss']:.4f} (det {r['loss_det']:.4f}, desc {r['loss_desc']:.4f})"
+            for r in jrows) + f"; launches {joint_launches}")
+    return {"launches": launches, "reload_launches": reload_launches, "rates": rates}
 
 
 if __name__ == "__main__":

@@ -1,0 +1,128 @@
+"""The OpenCV drawing and filtering calls of the synthetic-shapes generator,
+without OpenCV (C++ ``ssp_torch/csrc/raster_host.cpp``).
+
+Each function reproduces, byte for byte, the ``cv2`` call it is named after
+at the arguments ``ssp_torch.data.synthetic_shapes`` passes: 8-bit
+single-channel canvases, 8-connected lines, integer coordinates.  The
+drawing functions paint into the uint8 array they are given, in place, as
+``cv2`` does; the filters return a new array.  The library is built with
+the system ``g++`` at first use (``ssp_torch.kernels._build``); its calls go
+through ``ctypes``, which releases the GIL.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+
+
+def _lib() -> ctypes.CDLL:
+    from ssp_torch.kernels import _build
+
+    lib = _build.load("raster_host")
+    if not getattr(lib, "_ssp_typed", False):
+        ptr, i, i64, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_double
+        lib.ssp_line.argtypes = [ptr, i, i, i64, i64, i64, i64, i, i]
+        lib.ssp_fill_convex_poly.argtypes = [ptr, i, i, ptr, i, i]
+        lib.ssp_fill_poly.argtypes = [ptr, i, i, ptr, i, i]
+        lib.ssp_circle_filled.argtypes = [ptr, i, i, i, i, i, i]
+        lib.ssp_ellipse_filled.argtypes = [ptr, i, i, i, i, i, i, f64, i]
+        lib.ssp_box_blur.argtypes = [ptr, ptr, i, i, i]
+        lib.ssp_gaussian_blur.argtypes = [ptr, ptr, i, i, i]
+        lib.ssp_affine_transform.argtypes = [ptr, ptr, ptr]
+        lib.ssp_perspective_transform.argtypes = [ptr, ptr, ptr]
+        lib._ssp_typed = True
+    return lib
+
+
+def _canvas(img: np.ndarray) -> np.ndarray:
+    if img.dtype != np.uint8 or img.ndim != 2 or not img.flags.c_contiguous:
+        raise ValueError(f"a canvas is a C-contiguous uint8 [H, W] array, not "
+                         f"{img.dtype} {img.shape}")
+    return img
+
+
+def _points(pts) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(pts).reshape(-1, 2), dtype=np.int32)
+
+
+def line(img: np.ndarray, pt1, pt2, color: int, thickness: int = 1) -> None:
+    """``cv2.line(img, pt1, pt2, color, thickness)``: integer (x, y) end
+    points, anywhere (the segment is clipped to the canvas)."""
+    _canvas(img)
+    h, w = img.shape
+    _lib().ssp_line(img.ctypes.data, h, w, int(pt1[0]), int(pt1[1]), int(pt2[0]), int(pt2[1]),
+                    int(color), int(thickness))
+
+
+def fill_convex_poly(img: np.ndarray, pts, color: int) -> None:
+    """``cv2.fillConvexPoly(img, pts, color)`` for int32 (x, y) vertices
+    [N, 2] (degenerate or non-convex ones drawn as OpenCV draws them)."""
+    _canvas(img)
+    p = _points(pts)
+    h, w = img.shape
+    _lib().ssp_fill_convex_poly(img.ctypes.data, h, w, p.ctypes.data, len(p), int(color))
+
+
+def fill_poly(img: np.ndarray, pts, color: int) -> None:
+    """``cv2.fillPoly(img, [pts], color)`` for one int32 (x, y) contour."""
+    _canvas(img)
+    p = _points(pts)
+    h, w = img.shape
+    _lib().ssp_fill_poly(img.ctypes.data, h, w, p.ctypes.data, len(p), int(color))
+
+
+def circle_filled(img: np.ndarray, center, radius: int, color: int) -> None:
+    """``cv2.circle(img, center, radius, color, -1)``."""
+    _canvas(img)
+    h, w = img.shape
+    _lib().ssp_circle_filled(img.ctypes.data, h, w, int(center[0]), int(center[1]),
+                             int(radius), int(color))
+
+
+def ellipse_filled(img: np.ndarray, center, axes, angle: float, color: int) -> None:
+    """``cv2.ellipse(img, center, axes, angle, 0, 360, color, -1)``; OpenCV
+    rounds ``angle`` to whole degrees."""
+    _canvas(img)
+    h, w = img.shape
+    _lib().ssp_ellipse_filled(img.ctypes.data, h, w, int(center[0]), int(center[1]),
+                              int(axes[0]), int(axes[1]), float(angle), int(color))
+
+
+def blur(img: np.ndarray, k: int) -> np.ndarray:
+    """``cv2.blur(img, (k, k))`` (odd ``k``, reflected borders)."""
+    src = np.ascontiguousarray(_canvas(img))
+    out = np.empty_like(src)
+    _lib().ssp_box_blur(src.ctypes.data, out.ctypes.data, *src.shape, int(k))
+    return out
+
+
+def gaussian_blur(img: np.ndarray, k: int) -> np.ndarray:
+    """``cv2.GaussianBlur(img, (k, k), 0)`` (odd ``k`` ≥ 3)."""
+    if k < 3 or k % 2 == 0:
+        raise ValueError(f"GaussianBlur takes an odd kernel size >= 3, not {k}")
+    src = np.ascontiguousarray(_canvas(img))
+    out = np.empty_like(src)
+    _lib().ssp_gaussian_blur(src.ctypes.data, out.ctypes.data, *src.shape, int(k))
+    return out
+
+
+def affine_transform(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
+    """``cv2.getAffineTransform(src, dst)``: float32 [3, 2] pairs → [2, 3]
+    float64."""
+    s = np.ascontiguousarray(src, np.float32).reshape(3, 2)
+    d = np.ascontiguousarray(dst, np.float32).reshape(3, 2)
+    out = np.empty((2, 3), np.float64)
+    _lib().ssp_affine_transform(s.ctypes.data, d.ctypes.data, out.ctypes.data)
+    return out
+
+
+def perspective_transform(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
+    """``cv2.getPerspectiveTransform(src, dst)``: float32 [4, 2] pairs →
+    [3, 3] float64."""
+    s = np.ascontiguousarray(src, np.float32).reshape(4, 2)
+    d = np.ascontiguousarray(dst, np.float32).reshape(4, 2)
+    out = np.empty((3, 3), np.float64)
+    _lib().ssp_perspective_transform(s.ctypes.data, d.ctypes.data, out.ctypes.data)
+    return out

@@ -1,5 +1,6 @@
 """Build the port's native code and load it with ctypes: the CUDA kernels
-with ``nvcc``, the host image decoder with the system ``g++``.
+with ``nvcc``, the host libraries (the image decoder, the rasteriser) with
+the system ``g++``.
 
 Each ``ssp_torch/csrc/<name>.cu`` (and the host source ``<name>.cpp``)
 compiles on its own into ``ssp_torch/_build/lib<name>-<hash>.so``: a plain
@@ -28,13 +29,14 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = ("down1", "nms", "stem", "vresample")
-HOST_SOURCES = ("imageio_host",)  # csrc/<name>.cpp, built with g++
+HOST_SOURCES = ("imageio_host", "raster_host")  # csrc/<name>.cpp, built with g++
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
-# integer code only, and no -ffast-math: every machine gives the same bytes
-GXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
+# no -ffast-math and no contraction into FMA: every machine gives the same
+# bytes (the rasteriser's double arithmetic must round as OpenCV's does)
+GXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC", "-ffp-contract=off")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -51,7 +53,7 @@ def _nvcc() -> str:
 def _gxx() -> str:
     gxx = shutil.which("g++")
     if gxx is None:
-        raise RuntimeError("no g++ on the PATH: cannot build the host image decoder")
+        raise RuntimeError("no g++ on the PATH: cannot build the host libraries")
     return gxx
 
 
@@ -103,7 +105,7 @@ def resource_usage(name: str) -> str:
 
 
 def build_all() -> Dict[str, float]:
-    """Compile every source (the kernels and the host decoder) that has no
+    """Compile every source (the kernels and the host libraries) that has no
     current library, all at once; returns the seconds from the start to
     each build's end (0 for a library that was current)."""
     names = SOURCES + HOST_SOURCES

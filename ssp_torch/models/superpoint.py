@@ -87,6 +87,12 @@ def _conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     return F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype), padding=conv.padding)
 
 
+def _out(t: torch.Tensor) -> torch.Tensor:
+    """A head's output at fp32 or wider: a bf16 forward gives fp32, an fp64
+    one keeps fp64."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def _cbr(conv: nn.Conv2d, bn: BatchNorm, x: torch.Tensor, relu: bool = True) -> torch.Tensor:
     """flax ``ConvBNRelu``: conv at ``x``'s type, BatchNorm in fp32 with an
     output of ``x``'s type, ReLU (which commutes with that rounding)."""
@@ -172,11 +178,11 @@ class SuperPointGauss2(nn.Module):
         x = x.permute(0, 3, 1, 2).to(self.dtype)  # NHWC → NCHW
         feat = self.down3(self.down2(self.down1(self.inc(x))))
         semi = _cbr(self.convPb, self.bnPb, _cbr(self.convPa, self.bnPa, feat), relu=False)
-        desc = _cbr(self.convDb, self.bnDb, _cbr(self.convDa, self.bnDa, feat), relu=False).float()
+        desc = _out(_cbr(self.convDb, self.bnDb, _cbr(self.convDa, self.bnDa, feat), relu=False))
         desc = desc / (torch.linalg.vector_norm(desc, dim=1, keepdim=True) + 1e-12)
-        out = {"semi": semi.float().permute(0, 2, 3, 1), "desc": desc.permute(0, 2, 3, 1)}
+        out = {"semi": _out(semi).permute(0, 2, 3, 1), "desc": desc.permute(0, 2, 3, 1)}
         if self.semantic:
-            sem = _conv(self.convSout, _cbr(self.convDS, self.bnS1, feat)).float()
+            sem = _out(_conv(self.convSout, _cbr(self.convDS, self.bnS1, feat)))
             if upsample_sem:
                 Hc, Wc = sem.shape[-2:]
                 sem = F.interpolate(sem, size=(Hc * 8, Wc * 8), mode="bilinear",

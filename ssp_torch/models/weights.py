@@ -99,10 +99,12 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
 
 def flax_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Flax variables — flat ``params/...`` keys or the nested
-    ``{"params", "batch_stats"}`` tree — → reference-named fp32 tensors."""
+    ``{"params", "batch_stats"}`` tree — → reference-named fp32 tensors
+    (fp64 leaves stay fp64)."""
     sd: Dict[str, torch.Tensor] = {}
     for key, value in _flatten(variables).items():
-        arr = np.asarray(value, dtype=np.float32)
+        arr = np.asarray(value)
+        arr = arr.astype(np.float64 if arr.dtype == np.float64 else np.float32, copy=False)
         if key.endswith("/kernel"):
             arr = arr.transpose(3, 2, 0, 1)  # HWIO → OIHW
         sd[_flax_to_torch_name(key)] = torch.from_numpy(np.ascontiguousarray(arr))

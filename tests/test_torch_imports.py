@@ -53,7 +53,9 @@ def test_port_files_found():
             "ssp_torch/train/lr.py", "ssp_torch/train/state.py", "ssp_torch/train/step.py",
             "ssp_torch/train/checkpoint.py", "ssp_torch/train/trainer.py",
             "ssp_torch/cli/train.py"} <= names
-    assert len(names) > 52
+    assert {"ssp_torch/data/raster.py", "ssp_torch/data/synthetic_shapes.py",
+            "ssp_torch/data/synthetic_dataset.py"} <= names
+    assert len(names) > 55
 
 
 def test_fresh_interpreter_imports_every_module_without_jax_ssp_cv2():

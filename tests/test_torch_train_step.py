@@ -15,12 +15,34 @@ JAX package, fp32 unless a test says otherwise.
   1.0% from flax at fp32 on the same input: single bf16 roundings flipped by
   fp32 statistics summed in another order, carried through ten layers) and
   0.5% in evaluation mode.
-* **Three train steps** on one batch the JAX package prepared (warped pair,
-  semantics, Gaussian labels), with the JAX step's own descriptor draws fed
-  in, from two starting points: the flax initialisation and the trained
-  weights of ``evidence/wsem_weights.npz``.  The port runs them twice:
-  *synced* (set to the JAX state, Adam's moments included, before each step)
-  and *chained* (on its own).
+* **Three train steps** on one batch the JAX package prepared, with the JAX
+  step's own descriptor draws fed in, from two starting points: the flax
+  initialisation and the trained weights of ``evidence/wsem_weights.npz``
+  (for ``SuperPointNet_gauss2``, its leaves without the semantic head).  The
+  port runs them twice: *synced* (set to the JAX state, Adam's moments
+  included, before each step) and *chained* (on its own).  Three variants of
+  the step, as the configs set it up:
+
+  - the flagship's (``ssmall``-133: warped pair, semantics, Gaussian labels,
+    sparse descriptor loss, Kendall over three tasks);
+  - stage 1's (``pipeline240_magicpoint.yaml``: gauss2, the detector alone,
+    ``lambda_loss`` 0, no warped pair, no Kendall; the batch through the
+    config's homographic augmentation);
+  - gauss2 joint training's (``pipeline240_joint.yaml`` and
+    ``superpoint_synth_joint*.yaml``: warped pair, sparse descriptor loss,
+    Kendall over the two tasks, no semantics; the flagship's warped pair,
+    which is ``pipeline240_joint.yaml``'s).
+
+  The two gauss2 variants run from the trained weights at fp64 on both
+  sides (x64 JAX, the flax module's fixed fp32 read as fp64; the port's
+  module and state in fp64), at the same bars.  At fp32, without the
+  semantic loss, the first block's gradient is dominated by cells whose
+  softmax sits within an ulp or two of the BCE's clip (the random labels
+  against a confident detector), and its cosine to JAX's falls under the
+  bar below; at fp64 the clip is resolved and the two sides agree.  Run
+  this file (``PYTHONPATH=.:tests python tests/test_torch_train_step.py``)
+  to print the first step's least gradient cosines of both variants at
+  fp32 and at fp64.
 
   - Metrics: every synced step at rel 1e-4, and the chained first step.
     From the trained weights the detector terms (and the η_det gradient)
@@ -46,6 +68,8 @@ JAX package, fp32 unless a test says otherwise.
     total lr, the median within 5% of it.
 """
 
+import contextlib
+import functools
 from pathlib import Path
 
 import jax
@@ -54,9 +78,11 @@ import numpy as np
 import optax
 import pytest
 import torch
+import yaml
 
 from ssp.data.pipeline import prepare_batch as j_prepare_batch
 from ssp.models import build_model as j_build_model
+from ssp.models import superpoint as j_superpoint
 from ssp.train.state import create_train_state
 from ssp.train.step import make_train_step
 from ssp_torch.models.superpoint import build_model
@@ -64,7 +90,8 @@ from ssp_torch.models.weights import flax_to_state_dict, load_flax_npz, load_ref
 from ssp_torch.train import TrainState, polynomial_decay, train_step
 from test_torch_losses import jax_sparse_draws
 
-NPZ = Path(__file__).resolve().parents[1] / "evidence" / "wsem_weights.npz"
+ROOT = Path(__file__).resolve().parents[1]
+NPZ = ROOT / "evidence" / "wsem_weights.npz"
 B, H, W = 2, 64, 96
 LR, MAX_STEPS, STEPS = 0.0025, 10, 3
 M, N = 1000, 100
@@ -76,6 +103,17 @@ STEP_KW = dict(semantic=True, warped_pair=True, det_loss_type="softmax", desc_lo
                desc_params={"num_matching_attempts": M, "num_masked_non_matches_per_match": N,
                             "lamda_d": 1.0, "method": "2d"},
                lambda_loss=1.0, multi_task=True, ignore_class=133, sem_fused=True)
+_STAGE1 = yaml.safe_load((ROOT / "configs" / "pipeline240_magicpoint.yaml").read_text())["data"]
+# model, its keyword arguments, the step's keywords, prepare_batch's keywords
+VARIANTS = {
+    "flagship": ("SuperPointNet_gauss2_ssmall", {"n_classes": 133}, STEP_KW,
+                 {"warped_pair": PAIR, "gaussian_label_sigma": 0.2}),
+    "stage1": ("SuperPointNet_gauss2", {}, dict(
+        STEP_KW, semantic=False, warped_pair=False, lambda_loss=0.0, multi_task=False),
+        {"homographic": _STAGE1["augmentation"]["homographic"]}),
+    "gauss2_joint": ("SuperPointNet_gauss2", {}, dict(STEP_KW, semantic=False),
+                     {"warped_pair": PAIR}),
+}
 
 
 def _tree(flat):
@@ -190,42 +228,90 @@ def _adam_resync(tstate, jstate, names):
                                              "exp_avg": m.clone(), "exp_avg_sq": v.clone()}
 
 
-def _steps(weights):
-    """Three JAX train steps (flax at fp32) from the flax initialisation or
-    from the trained weights, on one JAX-prepared batch; the same three on
-    the port twice, with the JAX step's descriptor draws: chained (each side
-    on its own) and resynchronised (the port set to the JAX state before
-    each step)."""
+@contextlib.contextmanager
+def _fp64(on: bool):
+    """With ``on``, JAX at fp64 throughout: x64 enabled, and the flax
+    module's fixed fp32 (its parameters, BatchNorm, the heads' outputs) read
+    as fp64 through a stand-in for the module's ``jnp``."""
+    if not on:
+        yield
+        return
+
+    class Jnp64:
+        def __getattr__(self, name):
+            return jnp.float64 if name == "float32" else getattr(jnp, name)
+
+    saved = j_superpoint.jnp
+    j_superpoint.jnp = Jnp64()
+    try:
+        with jax.enable_x64(True):
+            yield
+    finally:
+        j_superpoint.jnp = saved
+
+
+def _steps(variant, weights, fp64=False):
+    """Three JAX train steps (flax at fp32, or both sides at fp64) of
+    ``variant`` from the flax initialisation or from the trained weights, on
+    one JAX-prepared batch; the same three on the port twice, with the JAX
+    step's descriptor draws: chained (each side on its own) and
+    resynchronised (the port set to the JAX state before each step).  At
+    fp64 the homographies stay fp32 on both sides, as the port's descriptor
+    loss reads them."""
+    with _fp64(fp64):
+        return _run_steps(variant, weights, fp64)
+
+
+def _run_steps(variant, weights, fp64):
+    name, model_kw, step_kw, prep_kw = VARIANTS[variant]
     rng = np.random.default_rng(1)
     imgs = rng.uniform(size=(B, H, W)).astype(np.float32)
     imgs[:, 8:40, 16:60] *= 0.3
     pts = rng.uniform([0, 0], [W - 1, H - 1], size=(B, 60, 2)).astype(np.float32)
     valid = np.ones((B, 60), bool)
     sem = rng.integers(0, 134, size=(B, H // 8, W // 8)).repeat(8, 1).repeat(8, 2).astype(np.int32)
-    jbatch = j_prepare_batch(jax.random.key(3), imgs, pts, valid, sem=sem, warped_pair=PAIR,
-                             gaussian_label_sigma=0.2)
+    jbatch = j_prepare_batch(jax.random.key(3), imgs, pts, valid,
+                             sem=sem if step_kw["semantic"] else None, **prep_kw)
+    if fp64:
+        jbatch = {k: v.astype(jnp.float64) if v.dtype == jnp.float32 and k != "H_pair" else v
+                  for k, v in jbatch.items()}
     batch = {k: torch.from_numpy(np.array(v)) for k, v in jbatch.items()}
 
-    jm = j_build_model("SuperPointNet_gauss2_ssmall", n_classes=133, dtype=jnp.float32)
+    jm = j_build_model(name, dtype=jnp.float64 if fp64 else jnp.float32, **model_kw)
     state = create_train_state(jm, jax.random.key(0), (1, H, W, 1), learning_rate=LR,
                                max_steps=MAX_STEPS)
     if weights == "trained":
         with np.load(NPZ) as d:
             tree = _tree({k: d[k] for k in d.files})
-        state = state.replace(params=tree["params"], batch_stats=tree["batch_stats"])
-    jstep, _ = make_train_step(donate=False, **STEP_KW)
+        # gauss2: the trained modules it has (all but the semantic head)
+        params = {k: tree["params"][k] for k in state.params}
+        stats = {k: tree["batch_stats"][k] for k in state.batch_stats}
+        state = state.replace(params=params, batch_stats=stats)
+    if fp64:
+        wide = functools.partial(jax.tree.map, lambda v: v.astype(jnp.float64))
+        params, etas = wide(state.params), wide(state.etas)
+        state = state.replace(params=params, batch_stats=wide(state.batch_stats), etas=etas,
+                              opt_state=state.tx.init({"params": params, "etas": etas}))
+    jstep, _ = make_train_step(donate=False, **step_kw)
 
     def port_state():
-        model = load_flax_npz({"params": state.params, "batch_stats": state.batch_stats},
-                              "SuperPointNet_gauss2_ssmall", device="cpu").train()
-        return TrainState.create(model, learning_rate=LR, max_steps=MAX_STEPS)
+        variables = {"params": state.params, "batch_stats": state.batch_stats}
+        if not fp64:
+            model = load_flax_npz(variables, name, device="cpu").train()
+            return TrainState.create(model, learning_rate=LR, max_steps=MAX_STEPS)
+        model = build_model(name, device="cpu", dtype=torch.float64, **model_kw).double()
+        load_reference_state_dict(model, flax_to_state_dict(variables))
+        ts = TrainState.create(model.train(), learning_rate=LR, max_steps=MAX_STEPS)
+        ts.etas.data = ts.etas.data.double()
+        return ts
 
     chained, synced = port_state(), port_state()
     names = [n for n, _ in chained.model.named_parameters()]
     recs = []
     for i in range(STEPS):
         key = jax.random.key(100 + i)
-        draws = jax_sparse_draws(key, np.asarray(jbatch["H_pair"]), (H // 8, W // 8), M, N)
+        draws = (jax_sparse_draws(key, np.asarray(jbatch["H_pair"]), (H // 8, W // 8), M, N)
+                 if step_kw["warped_pair"] else None)
         rec = {"lr": chained.optimizer.param_groups[0]["lr"]}
         if i:
             _adam_resync(synced, state, names)
@@ -234,7 +320,7 @@ def _steps(weights):
         state, jmetrics = jstep(state, jbatch, key)
         rec["jmetrics"] = {k: float(v) for k, v in jmetrics.items()}
         for tag, ts in (("chained", chained), ("synced", synced)):
-            m = train_step(ts, batch, desc_draws=draws, **STEP_KW)
+            m = train_step(ts, batch, desc_draws=draws, **step_kw)
             rec[tag] = {k: float(v) for k, v in m.items()}
         rec["jstats"] = flax_to_state_dict({"batch_stats": state.batch_stats})
         rec["stats"] = {k: v.clone() for k, v in _stats(synced.model.state_dict()).items()}
@@ -247,12 +333,17 @@ def _steps(weights):
             rec["jgrads"] = {k: v * 10.0 for k, v in
                              flax_to_state_dict({"params": mu["params"]}).items()}
             rec["jgrad_etas"] = np.array(mu["etas"]) * 10.0
-            rec["grads"] = {k: p.grad.clone() for k, p in synced.model.named_parameters()}
-            rec["grad_etas"] = synced.etas.grad.numpy().copy()
+            # None: a head the step's loss leaves out (stage 1's descriptor)
+            rec["grads"] = {k: None if p.grad is None else p.grad.clone()
+                            for k, p in synced.model.named_parameters()}
+            # stage 1 leaves the ηs out of the loss: no gradient (JAX's is 0)
+            g = synced.etas.grad
+            rec["grad_etas"] = (np.zeros_like(rec["jgrad_etas"]) if g is None
+                                else g.numpy().copy())
         recs.append(rec)
     final = {"jparams": flax_to_state_dict({"params": state.params}),
              "params": dict(chained.model.named_parameters()), "step": chained.step}
-    return weights, recs, final
+    return weights, recs, final, step_kw["semantic"]
 
 
 DETECTOR_TERMS = ("loss", "loss_det", "loss_det_warp")
@@ -267,7 +358,7 @@ def _zero_grad_biases(names):
 
 
 def _check_step_metrics_and_lr(steps):
-    weights, recs, final = steps
+    weights, recs, final, _ = steps
     sched = optax.polynomial_schedule(init_value=LR, end_value=0.001, power=2,
                                       transition_steps=MAX_STEPS)
     for i, r in enumerate(recs):
@@ -288,13 +379,16 @@ def _check_step_metrics_and_lr(steps):
 
 
 def _check_first_step_gradients(steps):
-    weights, recs, _ = steps
+    weights, recs, _, semantic = steps
     r = recs[0]
     gmax = max(float(v.abs().max()) for v in r["jgrads"].values())
     zero = _zero_grad_biases(r["jgrads"])
-    assert len(zero) == 13
+    assert len(zero) == (13 if semantic else 12)  # convDS feeds a BatchNorm too
     for k, want in r["jgrads"].items():
         got = r["grads"][k]
+        if got is None:  # left out of the loss: JAX's gradient is exactly 0
+            assert float(want.abs().max()) == 0.0, k
+            continue
         if k in zero:
             assert float(got.abs().max()) <= 1e-5 * gmax and float(want.abs().max()) <= 1e-5 * gmax
             continue
@@ -317,7 +411,7 @@ def _check_stats_and_etas_after_each_step(steps):
 
 
 def _check_parameters_after_three_steps(steps):
-    _, _, final = steps
+    _, _, final, _ = steps
     lr_total = sum(polynomial_decay(LR, MAX_STEPS)(i) for i in range(STEPS))
     diffs = []
     for k, w in final["jparams"].items():
@@ -327,13 +421,45 @@ def _check_parameters_after_three_steps(steps):
     assert float(torch.cat(diffs).median()) <= 0.05 * lr_total
 
 
-@pytest.mark.parametrize("weights", ["init", "trained"])
-def test_three_train_steps(weights):
+@pytest.mark.parametrize("variant,weights,fp64", [
+    pytest.param("flagship", "init", False, id="init"),
+    pytest.param("flagship", "trained", False, id="trained"),
+    pytest.param("stage1", "init", False, id="stage1-init"),
+    pytest.param("stage1", "trained", True, id="stage1-trained-fp64"),
+    pytest.param("gauss2_joint", "init", False, id="gauss2_joint-init"),
+    pytest.param("gauss2_joint", "trained", True, id="gauss2_joint-trained-fp64")])
+def test_three_train_steps(variant, weights, fp64):
     """Each step's metrics and lr, the first step's gradients, the BatchNorm
     statistics and ηs after each step, the parameters after three (module
-    docstring)."""
-    steps = _steps(weights)
+    docstring); the flagship's cases keep their ids."""
+    steps = _steps(variant, weights, fp64)
     _check_step_metrics_and_lr(steps)
     _check_first_step_gradients(steps)
     _check_stats_and_etas_after_each_step(steps)
     _check_parameters_after_three_steps(steps)
+
+
+def _first_step_cosines(steps):
+    """{leaf: cosine of the port's first-step gradient to JAX's} over the
+    leaves the bars compare by cosine."""
+    _, recs, _, _ = steps
+    r = recs[0]
+    zero = _zero_grad_biases(r["jgrads"])
+    out = {}
+    for k, want in r["jgrads"].items():
+        got = r["grads"][k]
+        if got is not None and k not in zero:
+            out[k] = float((got * want).sum() / (got.norm() * want.norm()))
+    return out
+
+
+if __name__ == "__main__":
+    # the first step's gradient cosines from the trained weights, fp32 and
+    # fp64, for the two gauss2 variants: the least over the first block
+    # (``inc.``) and over every leaf
+    for variant in ("stage1", "gauss2_joint"):
+        for fp64 in (False, True):
+            cos = _first_step_cosines(_steps(variant, "trained", fp64))
+            first = min(v for k, v in cos.items() if k.startswith("inc."))
+            print(f"{variant} trained {'fp64' if fp64 else 'fp32'}: "
+                  f"min cosine inc. {first:.9f}, all leaves {min(cos.values()):.9f}")
