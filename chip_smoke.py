@@ -127,7 +127,8 @@ failure (nothing is caught):
     Kendall, Adam, the corpus on the card) in the smoke's own copy with
     ``TRAIN_RUN``'s schedule, the trained weights and one step per dispatch.
     Launch counts from 0: ``vresample_coef`` 4 per prepared batch (training
-    and validation), no other kernel.  Every logged loss finite, the rows
+    and validation), NMS twice per validation (its heatmap images of the
+    base and the warped view), no other kernel.  Every logged loss finite, the rows
     and checkpoint names at their boundaries.  A step on the kernel against
     one on the plain versions from the same state, batch and draws (warped
     images within VRES_TOL, class ids within TRAIN_LABEL_FLIPS, metrics
@@ -149,9 +150,9 @@ failure (nothing is caught):
     the detector loss alone, Adam, the corpus on the card as uint8) with
     ``SYNTH_RUN``'s schedule and one step per dispatch.  Launch counts from
     0: ``vresample_coef`` twice per prepared training batch (as counted on
-    the CPU route), no other kernel.  Every logged loss finite, the
-    detector loss at the last step below the first, the rows and
-    checkpoint names.  A step on the kernel against one on the plain
+    the CPU route), NMS once per validation (its image), no other kernel.
+    Every logged loss finite, the detector loss at the last step below the
+    first, the rows and checkpoint names.  A step on the kernel against one on the plain
     versions (images within VRES_TOL, metrics within TRAIN_REL); the
     steady-state rates by part, idle share and peak memory over
     SYNTH_TIMED steps (``steady_state``, as phase 17); the last npz
@@ -159,13 +160,38 @@ failure (nothing is caught):
     stem, down1 and NMS once each; then ``SYNTH_JOINT_CONFIG``'s gauss2
     joint training (``superpoint_synth_joint_v4_240.yaml``: warped pair,
     sparse, Kendall) for a few steps on the same cache files, every loss
-    finite and only ``vresample_coef`` launched.
+    finite and only ``vresample_coef`` and the validation images' NMS
+    launched.
+
+19. ``[train2]``, the rest of training, each path at full width and
+    launch counts from 0 around its run: (a) ``train_joint`` on
+    ``TRAIN_CONFIG`` with ``model.dense_loss`` on (``lambda_d`` 800,
+    ``descriptor_dist`` 4), ``val_residual_diagnostic`` and ``profile`` on,
+    ``TRAIN2_RUN``'s schedule on phase 17's tree (``vresample_coef`` 4 per
+    prepared batch, NMS twice per validation for its images), every loss and
+    ``val_subpix_residual_err`` finite, the trace file written, a step on the
+    kernel against the plain versions (as phase 17), TRAIN2_TIMED
+    steady-state steps; (b) the same with ``real_batch_size`` 32 and
+    ``exact_accumulation`` (r = 2; the real batch prepared once per optimizer
+    step: 4 ``vresample_coef``), ms per optimizer step over ACCUM_TIMED
+    steps; (c) ``train_base`` on ``SYNTH_CONFIG`` as ``Train_model_subpixel``
+    on ``SubpixelNet`` (32×240×320, bf16) on phase 18's cache, the mean of
+    the last three ``loss_subpix`` below that of the first three, SUBPIX_TIMED
+    steady-state steps, ``Val_model_subpixel.refine_points`` on the last
+    checkpoint; (d) ``Val_model_heatmap`` on the trained weights over phase
+    12's 64 images at 240×320 (the stem, down1 and NMS once each per image),
+    held against itself on the plain versions with ``agreement``'s bars on
+    all K points (subpixel off, as phase 12 holds its detections);
+    (e) ``evaluate -o`` over a copy of phase 12's export, every PNG decoded by
+    the port's decoder to the luma of the canvas drawn again.
 
 Prints a ``{"kernels": [...]}`` line (each row also with the launches of
 phase 12's export, ``launches_export``, of phase 13's sweep,
 ``launches_sweep``, of phases 15, 16, 17 and 18, ``launches_sequence``,
-``launches_ha_cli``, ``launches_train`` and ``launches_synth``, and of
-phase 18's reload, ``launches_synth_reload``; for the stem, down1 and NMS
+``launches_ha_cli``, ``launches_train`` and ``launches_synth``, of
+phase 18's reload, ``launches_synth_reload``, and of phase 19's four runs,
+``launches_dense``, ``launches_accum``, ``launches_subpixel`` and
+``launches_val_agent``; for the stem, down1 and NMS
 their times at 1×240×320, ``export_1x240x320``, and at 1×384×1248,
 ``sequence_1x384x1248``; for ``vresample_coef`` its time at the training
 shapes, ``train_16x320x320``), then the ``nvidia-smi`` line, and last
@@ -181,13 +207,11 @@ import hashlib
 import json
 import os
 import shutil
-import struct
 import subprocess
 import sys
 import tempfile
 import time
 import warnings
-import zlib
 from pathlib import Path
 
 import numpy as np
@@ -227,7 +251,11 @@ from ssp_torch.models.fast_infer import (accumulator_errors, best_apply_fn, fold
                                          make_fast_apply)
 from ssp_torch.models.superpoint import build_model
 from ssp_torch.models.weights import load_flax_npz, load_weights, read_state_dict
-from ssp_torch.train import compute_losses, train_step
+from ssp_torch.train import train_step
+from ssp_torch.train.subpixel_agent import SubpixelValAgent, subpixel_losses
+from ssp_torch.train.val_agent import ValAgent
+from ssp_torch.utils.draw import draw_keypoints, draw_matches
+from ssp_torch.cli.evaluate import evaluate
 
 ROOT = Path(__file__).resolve().parent
 NPZ = ROOT / "evidence" / "wsem_weights.npz"
@@ -302,6 +330,23 @@ SYNTH_TIMED = 20
 SYNTH_JOINT_CONFIG = ROOT / "configs" / "superpoint_synth_joint_v4_240.yaml"
 SYNTH_JOINT_RUN = {"train_iter": 5, "validation_interval": 5, "save_interval": 5,
                    "tensorboard_interval": 1}
+# phase 19: the rest of training.  (a) the flagship with the dense loss for
+# TRAIN2_RUN's schedule (its validation with the residual diagnostic and the
+# images, a profile of TRAIN2_PROFILE steps), then TRAIN2_TIMED steady-state
+# steps; (b) the same with exact accumulation over r = 2 micro-batches,
+# ACCUM_RUN then ACCUM_TIMED steps; (c) SubpixelNet on the stage-1 config,
+# SUBPIX_RUN then SUBPIX_TIMED steps; (d) Val_model_heatmap over phase 12's
+# images; (e) evaluate -o over phase 12's export
+TRAIN2_RUN = {"train_iter": 10, "validation_interval": 10, "save_interval": 10,
+              "tensorboard_interval": 5}
+TRAIN2_PROFILE = 3
+TRAIN2_TIMED = 20
+ACCUM_RUN = {"train_iter": 5, "validation_interval": 5, "save_interval": 5,
+             "tensorboard_interval": 1, "validation_size": 0}
+ACCUM_TIMED = 10
+SUBPIX_RUN = {"train_iter": 10, "validation_interval": 10, "save_interval": 10,
+              "tensorboard_interval": 1}
+SUBPIX_TIMED = 20
 # a train step on the kernel against one on the kernels' plain versions, same
 # state, batch and draws: the warped images within VRES_TOL of max|img|; at
 # most this share of the warped class ids inside the mask changed (a bilinear
@@ -506,34 +551,10 @@ def write_hpatches_tree(root: Path, dev: torch.device, seed: int) -> None:
 
 
 def write_png(path: Path, img: np.ndarray) -> None:
-    """uint8 [H, W] gray or [H, W, 3] RGB → an 8-bit PNG written with
-    ``zlib`` and ``struct`` alone, row y filtered with type y % 5 (None, Sub,
-    Up, Average, Paeth), so that reading it back takes every filter."""
-    img = np.ascontiguousarray(img, np.uint8)
-    h, w = img.shape[:2]
-    ch = 1 if img.ndim == 2 else 3
-    px = img.reshape(h, w * ch).astype(np.int16)
-    pad = np.zeros(ch, np.int16)
-    prev = np.zeros(w * ch, np.int16)
-    rows = []
-    for y in range(h):
-        cur = px[y]
-        a = np.concatenate([pad, cur[:-ch]])  # left
-        c = np.concatenate([pad, prev[:-ch]])  # up-left
-        p = a + prev - c
-        pa, pb, pc = np.abs(p - a), np.abs(p - prev), np.abs(p - c)
-        pred = (0, a, prev, (a + prev) >> 1,
-                np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, prev, c)))[y % 5]
-        rows.append(bytes([y % 5]) + ((cur - pred) & 0xFF).astype(np.uint8).tobytes())
-        prev = cur
-
-    def chunk(kind: bytes, body: bytes) -> bytes:
-        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
-
-    Path(path).write_bytes(
-        b"\x89PNG\r\n\x1a\n"
-        + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0 if ch == 1 else 2, 0, 0, 0))
-        + chunk(b"IDAT", zlib.compress(b"".join(rows), 6)) + chunk(b"IEND", b""))
+    """uint8 [H, W] gray or [H, W, 3] RGB → an 8-bit PNG of those pixels,
+    through the port's writer (which takes BGR, as ``cv2.imwrite``), row y
+    filtered with type y % 5, so that reading it back takes every filter."""
+    imageio.write_png(path, img if img.ndim == 2 else img[..., ::-1])
 
 
 def conv_nms_times(model, img: torch.Tensor, dev: torch.device) -> dict:
@@ -1061,6 +1082,7 @@ def main() -> None:
         ha_cli_launches = ha_cli_phase(dev, td)
         train = train_phase(dev, td, smi)
         synth = synth_phase(dev, td, smi)
+        train2 = train2_phase(dev, td, smi)
     for row in kernels:
         row["launches_export"] = export_launches.get(row["name"], 0)
         row["launches_sweep"] = sweep_launches.get(row["name"], 0)
@@ -1069,6 +1091,8 @@ def main() -> None:
         row["launches_train"] = train["launches"].get(row["name"], 0)
         row["launches_synth"] = synth["launches"].get(row["name"], 0)
         row["launches_synth_reload"] = synth["reload_launches"].get(row["name"], 0)
+        for path in ("dense", "accum", "subpixel", "val_agent"):
+            row[f"launches_{path}"] = train2[path].get(row["name"], 0)
         if row["name"] in export_times:
             row["export_1x240x320"] = export_times[row["name"]]
         if row["name"] in sequence_times:
@@ -1651,17 +1675,18 @@ def ha_cli_phase(dev: torch.device, td: Path) -> dict:
 
 def steady_state(agent, tag: str, n: int, what: str, smi: str) -> dict:
     """The trainer's step (a batch sampled from the device corpus, prepared,
-    one update) ``n`` times: CUDA events and the host clock around whole
-    steps, then by part (``prepare_batch``, forward+backward, Adam); device
-    time by operation and the idle share under ``torch.profiler``; host
-    syncs per step by call site; peak memory.  Logs under ``tag`` and
-    returns the numbers."""
+    one update through ``agent.step``: the plain, accumulated or subpixel
+    step, whichever the agent runs) ``n`` times: CUDA events and the host
+    clock around whole steps, then by part (``prepare_batch``,
+    forward+backward up to the optimizer's step, Adam: events recorded by
+    the optimizer's step hooks); device time by operation and the idle share
+    under ``torch.profiler``; host syncs per step by call site; peak memory.
+    Logs under ``tag`` and returns the numbers."""
     st = agent.state
     B = agent.real_batch_size
 
     def step():
-        train_step(st, agent.prepare(agent.next_batch()), generator=agent.generator,
-                   **agent.step_kwargs)
+        agent.step(agent.prepare(agent.next_batch()))
 
     for _ in range(2):
         step()
@@ -1678,22 +1703,20 @@ def steady_state(agent, tag: str, n: int, what: str, smi: str) -> dict:
     dev_ms = e0.elapsed_time(e1) / n
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     parts = np.zeros(3)
-    for _ in range(n):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        ev[0].record()
-        batch = agent.prepare(agent.next_batch())
-        ev[1].record()
-        st.optimizer.zero_grad(set_to_none=True)
-        loss, _ = compute_losses(st.model, st.etas, batch, generator=agent.generator,
-                                 **agent.step_kwargs)
-        loss.backward()
-        ev[2].record()
-        st.optimizer.step()
-        st.scheduler.step()
-        st.step += 1
-        ev[3].record()
-        torch.cuda.synchronize()
-        parts += [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    hooks = (st.optimizer.register_step_pre_hook(lambda *_: ev[2].record()),
+             st.optimizer.register_step_post_hook(lambda *_: ev[3].record()))
+    try:
+        for _ in range(n):
+            ev[0].record()
+            batch = agent.prepare(agent.next_batch())
+            ev[1].record()
+            agent.step(batch)
+            torch.cuda.synchronize()
+            parts += [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    finally:
+        for h in hooks:
+            h.remove()
     parts /= n
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1738,7 +1761,7 @@ def steady_state(agent, tag: str, n: int, what: str, smi: str) -> dict:
     return {"ms_per_step": dev_ms, "img_per_s": B * 1e3 / dev_ms,
             "img_per_s_host": B * n / host_s, "parts_ms": parts.tolist(),
             "idle": max(0.0, 1 - busy_ms / (prof_s * 1e3 / 5)), "peak_gib": peak_gb,
-            "syncs": syncs}
+            "syncs": syncs, "ops_per_step": len(on_card) / 5}
 
 
 def train_phase(dev: torch.device, td: Path, smi: str) -> dict:
@@ -1784,11 +1807,12 @@ def train_phase(dev: torch.device, td: Path, smi: str) -> dict:
     cli_s = time.perf_counter() - t0
     launches = read_launches()
     steps = TRAIN_RUN["train_iter"]
-    val_batches = len(range(0, steps, TRAIN_RUN["validation_interval"])) * \
-        (cfg["validation_size"] + 1)
+    n_val = len(range(0, steps, TRAIN_RUN["validation_interval"]))
+    val_batches = n_val * (cfg["validation_size"] + 1)
     # per prepared batch: two coef passes for the images' warp, two for the
-    # semantic maps'; the training forward is the module, no folded kernel
-    want = {"stem": 0, "down1": 0, "nms": 0, "vresample": 0,
+    # semantic maps'; the training forward is the module, no folded kernel;
+    # each validation's images run NMS on the base and the warped view
+    want = {"stem": 0, "down1": 0, "nms": 2 * n_val, "vresample": 0,
             "vresample_coef": 4 * (steps + val_batches)}
     log(f"[train] train_joint {TRAIN_CONFIG.name} (ssmall-133, {B}x{hh}x{hw}, warped pair, "
         f"photometric, sparse 1000x100, fused CE, Kendall, Adam): {steps} steps and "
@@ -1816,55 +1840,19 @@ def train_phase(dev: torch.device, td: Path, smi: str) -> dict:
         f"{r['step']}: {r['val_loss']:.4f}" for r in vrows))
 
     # ---- one step on the kernel, one on the plain versions: same state,
-    # batch and draws
+    # batch and draws (the sparse loss's too)
     st = agent.state
-    host = agent.next_batch()
-    g_host = torch.Generator().manual_seed(SEED + 18)
-    g_dev = torch.Generator(dev).manual_seed(SEED + 18)
-    photo = agent.prep_train["photometric"]
-    pair = {k: v for k, v in agent.prep_train["warped_pair"]["params"].items()}
-    draws = {"pair": sample_homographies(B, generator=g_host, **pair),
-             "photo": draw_photometric((B, hh, hw), photo["primitives"], photo["params"], g_dev,
-                                       dev),
-             "photo_warped": draw_photometric((B, hh, hw), photo["primitives"], photo["params"],
-                                              g_dev, dev)}
-    bk = agent.prepare(host, draws=draws)
-    bp = agent.prepare(host, draws=draws, reference=True)
-    scale = float(bp["warped_image"].abs().max())
-    img_err = check_resample("train warped images", bk["warped_image"], bp["warped_image"], scale)
-    inside = bp["warped_valid_mask"] > 0
-    flips = float(((bk["warped_sem"] != bp["warped_sem"]) & inside).sum() / inside.sum())
-    for k in bk:
-        if k not in ("warped_image", "warped_sem") and not torch.equal(bk[k], bp[k]):
-            raise AssertionError(f"train batch {k}: the kernel's differs from the plain one's")
-    if flips > TRAIN_LABEL_FLIPS:
-        raise AssertionError(f"{flips:.2e} of the warped class ids flipped > {TRAIN_LABEL_FLIPS}")
-    _, _, valid = cell_matches(bk["H_pair"], (hh // 8, hw // 8))
+    draws = pair_draws(agent, B, hh, hw, dev, SEED + 18)
     p = agent.step_kwargs["desc_params"]
-    sd = sample_draws(valid, p["num_matching_attempts"], p["num_masked_non_matches_per_match"],
-                      g_dev)
-    # the state is saved and put back around each step (a deep copy would
-    # share the schedule's wrapper of the original optimizer's step)
-    saved = (copy.deepcopy(st.model.state_dict()), copy.deepcopy(st.optimizer.state_dict()),
-             st.scheduler.state_dict(), st.etas.detach().clone(), st.step)
 
-    def step_from_saved(batch):
-        st.model.load_state_dict(saved[0])
-        st.optimizer.load_state_dict(copy.deepcopy(saved[1]))
-        st.scheduler.load_state_dict(saved[2])
-        with torch.no_grad():
-            st.etas.copy_(saved[3])
-        st.step = saved[4]
+    def sparse_step(batch):
+        _, _, valid = cell_matches(batch["H_pair"], (hh // 8, hw // 8))
+        sd = sample_draws(valid, p["num_matching_attempts"],
+                          p["num_masked_non_matches_per_match"],
+                          torch.Generator(dev).manual_seed(SEED + 18))
         return train_step(st, batch, desc_draws=sd, **agent.step_kwargs)
 
-    mk, mp = step_from_saved(bk), step_from_saved(bp)
-    rel = {k: abs(float(mk[k]) - float(mp[k])) / max(abs(float(mp[k])), 1e-6) for k in mk}
-    log(f"[train] one step, kernel against plain versions (same state, batch and draws): warped "
-        f"images max abs err {img_err:.3g}, {flips:.2e} of the warped class ids inside the mask "
-        f"changed; metrics max rel diff {max(rel.values()):.3g} ({max(rel, key=rel.get)}); "
-        f"loss {float(mk['loss']):.6f} / {float(mp['loss']):.6f}")
-    if max(rel.values()) > TRAIN_REL or not all(np.isfinite(float(v)) for v in mk.values()):
-        raise AssertionError(f"kernel vs plain step metrics: {rel}")
+    bk = kernel_vs_plain_step(agent, agent.next_batch(), draws, "[train]", sparse_step)
 
     # ---- steady state
     steady_state(agent, "[train]", TRAIN_TIMED, f"{B} images (each with its warped view) at "
@@ -1994,8 +1982,10 @@ def synth_phase(dev: torch.device, td: Path, smi: str) -> dict:
     per_batch = coef_calls_per_batch(agent, host)
     # training batches are warped (homographic, two coef passes per warp);
     # validation batches are not (enable_val: false); the training forward is
-    # the module, no folded kernel
-    want = {"stem": 0, "down1": 0, "nms": 0, "vresample": 0, "vresample_coef": per_batch * steps}
+    # the module, no folded kernel; each validation's image runs NMS once
+    n_val = len(range(0, steps, SYNTH_RUN["validation_interval"]))
+    want = {"stem": 0, "down1": 0, "nms": n_val, "vresample": 0,
+            "vresample_coef": per_batch * steps}
     log(f"[synth] train_base {SYNTH_CONFIG.name} (gauss2 from scratch, {B}x{hh}x{hw}, "
         f"homographic and photometric, detector loss alone, Adam, the corpus on the card as "
         f"uint8): {steps} steps in {cli_s:.2f} s with the model build ({smi}); launches "
@@ -2103,10 +2093,13 @@ def synth_phase(dev: torch.device, td: Path, smi: str) -> dict:
     if len(jrows) != SYNTH_JOINT_RUN["train_iter"] or \
             not all(np.isfinite(v) for r in jrows for v in r.values()):
         raise AssertionError(f"{SYNTH_JOINT_CONFIG.name}: rows {jrows}")
-    # two coef passes per warped pair, training and validation; nothing else
+    # two coef passes per warped pair, training and validation; NMS on the
+    # validation's base and warped images; nothing else
+    n_val = len(range(0, SYNTH_JOINT_RUN["train_iter"], SYNTH_JOINT_RUN["validation_interval"]))
     if after != before or joint_launches["vresample_coef"] % 2 or \
             joint_launches["vresample_coef"] < 2 * SYNTH_JOINT_RUN["train_iter"] or \
-            any(v for k, v in joint_launches.items() if k != "vresample_coef"):
+            joint_launches["nms"] != 2 * n_val or \
+            any(v for k, v in joint_launches.items() if k not in ("vresample_coef", "nms")):
         raise AssertionError(f"{SYNTH_JOINT_CONFIG.name}: launches {joint_launches}, cache "
                              f"{before} -> {after}")
     log(f"[synth] train_joint {SYNTH_JOINT_CONFIG.name} (gauss2, warped pair, sparse, Kendall) "
@@ -2114,6 +2107,286 @@ def synth_phase(dev: torch.device, td: Path, smi: str) -> dict:
             f"{r['loss']:.4f} (det {r['loss_det']:.4f}, desc {r['loss_desc']:.4f})"
             for r in jrows) + f"; launches {joint_launches}")
     return {"launches": launches, "reload_launches": reload_launches, "rates": rates}
+
+
+def kernel_vs_plain_step(agent, host: dict, draws: dict, tag: str, step=None) -> dict:
+    """Prepare ``host`` with the same draws on the resample kernel and on the
+    plain versions and take one step (``step(batch)``, by default
+    ``agent.step``) on each from the same saved state: the warped images
+    within VRES_TOL, every other batch entry but the warped class ids equal
+    (those within TRAIN_LABEL_FLIPS), the metrics within TRAIN_REL.  Returns
+    the batch prepared on the kernel."""
+    step = step or agent.step
+    st = agent.state
+    bk = agent.prepare(host, draws=draws)
+    bp = agent.prepare(host, draws=draws, reference=True)
+    img_err = check_resample(f"{tag} warped images", bk["warped_image"], bp["warped_image"],
+                             float(bp["warped_image"].abs().max()))
+    inside = bp["warped_valid_mask"] > 0
+    flips = float(((bk["warped_sem"] != bp["warped_sem"]) & inside).sum() / inside.sum())
+    for k in bk:
+        if k not in ("warped_image", "warped_sem") and not torch.equal(bk[k], bp[k]):
+            raise AssertionError(f"{tag} batch {k}: the kernel's differs from the plain one's")
+    if flips > TRAIN_LABEL_FLIPS:
+        raise AssertionError(f"{tag}: {flips:.2e} of the warped class ids flipped")
+    saved = (copy.deepcopy(st.model.state_dict()), copy.deepcopy(st.optimizer.state_dict()),
+             st.scheduler.state_dict(), st.etas.detach().clone(), st.step)
+
+    def step_from_saved(batch):
+        st.model.load_state_dict(saved[0])
+        st.optimizer.load_state_dict(copy.deepcopy(saved[1]))
+        st.scheduler.load_state_dict(saved[2])
+        with torch.no_grad():
+            st.etas.copy_(saved[3])
+        st.step = saved[4]
+        return step(batch)
+
+    mk, mp = step_from_saved(bk), step_from_saved(bp)
+    rel = {k: abs(float(mk[k]) - float(mp[k])) / max(abs(float(mp[k])), 1e-6) for k in mk}
+    log(f"{tag} one step, kernel against plain versions (same state, batch and draws): warped "
+        f"images max abs err {img_err:.3g}, {flips:.2e} of the warped class ids inside the mask "
+        f"changed; metrics max rel diff {max(rel.values()):.3g} ({max(rel, key=rel.get)}); "
+        f"loss {float(mk['loss']):.6f} / {float(mp['loss']):.6f}")
+    if max(rel.values()) > TRAIN_REL or not all(np.isfinite(float(v)) for v in mk.values()):
+        raise AssertionError(f"{tag} kernel vs plain step metrics: {rel}")
+    return bk
+
+
+def pair_draws(agent, B: int, hh: int, hw: int, dev: torch.device, seed: int) -> dict:
+    """Seeded homography and photometric draws for one warped-pair batch."""
+    g_host, g_dev = torch.Generator().manual_seed(seed), torch.Generator(dev).manual_seed(seed)
+    photo = agent.prep_train["photometric"]
+    pair = agent.prep_train["warped_pair"]["params"]
+    return {"pair": sample_homographies(B, generator=g_host, **pair),
+            "photo": draw_photometric((B, hh, hw), photo["primitives"], photo["params"], g_dev,
+                                      dev),
+            "photo_warped": draw_photometric((B, hh, hw), photo["primitives"], photo["params"],
+                                             g_dev, dev)}
+
+
+def run_cli(name: str, cfg: dict, command: str, td: Path, dev: torch.device):
+    """``python -m ssp_torch.cli.train <command>`` on ``cfg`` in this process,
+    every launch count from 0: (agent, launches, seconds, experiment dir)."""
+    path = td / f"{name}_cfg.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    reset_launches()
+    t0 = time.perf_counter()
+    agent = train_cli.main([command, str(path), name, "--device", str(dev)])
+    torch.cuda.synchronize()
+    return agent, read_launches(), time.perf_counter() - t0, td / "logs" / name
+
+
+def train2_phase(dev: torch.device, td: Path, smi: str) -> dict:
+    """Phase 19 [train2]: the rest of training on the card, each path at full
+    width: (a) the flagship with the dense loss, its validation telemetry and
+    a profile; (b) exact accumulation, r = 2; (c) SubpixelNet with
+    ``Train_model_subpixel`` and ``Val_model_subpixel``; (d)
+    ``Val_model_heatmap``; (e) ``evaluate -o``.  Returns the launches per
+    kernel of each path's run."""
+    out = {}
+    coco = td / "COCO"
+    flagship = yaml.safe_load(TRAIN_CONFIG.read_text())
+    flagship["data"].update(root=str(coco), labels=str(td / "logs" / "ha_cli" / "predictions"),
+                            sem_labels=str(coco / "annotations"))
+    flagship.update(pretrained=str(NPZ), reset_iter=True, steps_per_dispatch=1)
+    B, (hh, hw) = flagship["model"]["batch_size"], flagship["data"]["preprocessing"]["resize"]
+
+    # ---- (a) the dense loss, with the validation telemetry and a profile
+    cfg = copy.deepcopy(flagship)
+    cfg["model"]["dense_loss"]["enable"] = True
+    cfg.update(val_residual_diagnostic=True, profile={"enable": True, "steps": TRAIN2_PROFILE},
+               **TRAIN2_RUN)
+    agent, launches, cli_s, exper = run_cli("dense", cfg, "train_joint", td, dev)
+    steps = TRAIN2_RUN["train_iter"]
+    n_val = len(range(0, steps, TRAIN2_RUN["validation_interval"]))
+    val_batches = n_val * (cfg["validation_size"] + 1)
+    # 4 coef passes per prepared batch (images and class ids); the validation
+    # images run NMS on the base and the warped view; the training forward is
+    # the module, no folded kernel
+    want = {"stem": 0, "down1": 0, "nms": 2 * n_val, "vresample": 0,
+            "vresample_coef": 4 * (steps + val_batches)}
+    p = agent.step_kwargs["desc_params"]
+    log(f"[train2] (a) train_joint {TRAIN_CONFIG.name} with the dense loss (lambda_d "
+        f"{p['lambda_d']}, descriptor_dist {p['descriptor_dist']}; ssmall-133, {B}x{hh}x{hw}): "
+        f"{steps} steps and {val_batches} validation batches in {cli_s:.2f} s with the model load "
+        f"({smi}); launches {launches}")
+    if agent.step_kwargs["desc_loss"] != "dense" or launches != want:
+        raise AssertionError(f"dense launches {launches}, expected {want}")
+    out["dense"] = launches
+    rows = [json.loads(r) for r in (exper / "metrics_train.jsonl").read_text().splitlines()]
+    vrows = [json.loads(r) for r in (exper / "metrics_val.jsonl").read_text().splitlines()]
+    traces = sorted((exper / "profile").glob("trace_*.json"))
+    if not all(np.isfinite(v) for r in rows + vrows for v in r.values()) or \
+            not all("val_subpix_residual_err" in r for r in vrows) or \
+            [t.name for t in traces] != [f"trace_{2 + TRAIN2_PROFILE}.json"]:
+        raise AssertionError(f"dense run: rows {rows}, val {vrows}, traces {traces}")
+    log(f"[train2] (a) losses: " + ", ".join(
+        f"{r['step']}: {r['loss']:.4f} (desc {r['loss_desc']:.4f}, pos {r['positive_dist']:.5f}, "
+        f"neg {r['negative_dist']:.5f})" for r in rows) + "; val_subpix_residual_err " +
+        ", ".join(f"{r['val_subpix_residual_err']:.4f}" for r in vrows) +
+        f"; profile {traces[0].name} ({traces[0].stat().st_size / 2 ** 20:.1f} MiB)")
+    kernel_vs_plain_step(agent, agent.next_batch(), pair_draws(agent, B, hh, hw, dev, SEED + 21),
+                         "[train2] (a)")
+    steady_state(agent, "[train2] (a) dense", TRAIN2_TIMED,
+                 f"{B} images (each with its warped view) at {hh}x{hw}", smi)
+
+    # ---- (b) exact accumulation over two micro-batches of 16
+    cfg = copy.deepcopy(flagship)
+    cfg["model"].update(real_batch_size=2 * B, exact_accumulation=True)
+    cfg.update(**ACCUM_RUN)
+    agent, launches, cli_s, exper = run_cli("accum", cfg, "train_joint", td, dev)
+    steps = ACCUM_RUN["train_iter"]
+    n_val = len(range(0, steps * agent.r, ACCUM_RUN["validation_interval"] * agent.r))
+    # the real batch is prepared once per optimizer step (as the JAX trainer
+    # prepares it) and then split into the micro-batches: 4 coef passes
+    per_step = 4
+    want = {"stem": 0, "down1": 0, "nms": 2 * n_val, "vresample": 0,
+            "vresample_coef": per_step * (steps + n_val * (ACCUM_RUN["validation_size"] + 1))}
+    log(f"[train2] (b) train_joint with exact_accumulation, real batch {agent.real_batch_size} "
+        f"in r = {agent.r} micro-batches of {B}: {steps} optimizer steps in {cli_s:.2f} s with "
+        f"the model load ({smi}); launches {launches}: {per_step} vresample_coef per optimizer "
+        f"step (one prepared real batch)")
+    if not agent.accumulate or launches != want:
+        raise AssertionError(f"accum launches {launches}, expected {want}")
+    out["accum"] = launches
+    rows = [json.loads(r) for r in (exper / "metrics_train.jsonl").read_text().splitlines()]
+    if [r["step"] for r in rows] != list(range(0, steps * agent.r, agent.r)) or \
+            not all(np.isfinite(v) for r in rows for v in r.values()):
+        raise AssertionError(f"accum rows {rows}")
+    rates = steady_state(agent, "[train2] (b) accum", ACCUM_TIMED,
+                         f"{2 * B} images in 2 micro-batches of {B} (each with its warped view) "
+                         f"at {hh}x{hw}", smi)
+    log(f"[train2] (b) {rates['ms_per_step']:.3f} ms per optimizer step of {2 * B} pairs "
+        f"({smi})")
+
+    # ---- (c) SubpixelNet on the stage-1 corpus of phase 18
+    cfg = yaml.safe_load(SYNTH_CONFIG.read_text())
+    cfg["data"]["generation"]["split_sizes"] = dict(SYNTH_SPLITS)
+    cfg["front_end_model"] = "Train_model_subpixel"
+    cfg["model"]["name"] = "SubpixelNet"
+    cfg.update(steps_per_dispatch=1, **SUBPIX_RUN)
+    Bs, (sh, sw) = cfg["model"]["batch_size"], cfg["data"]["preprocessing"]["resize"]
+    agent, launches, cli_s, exper = run_cli("subpixel", cfg, "train_base", td, dev)
+    steps = SUBPIX_RUN["train_iter"]
+    n_val = len(range(0, steps, SUBPIX_RUN["validation_interval"]))
+    # 2 coef passes per training batch (the homographic warp), none per
+    # validation batch; the validation image's NMS (no warped view)
+    want = {"stem": 0, "down1": 0, "nms": n_val, "vresample": 0, "vresample_coef": 2 * steps}
+    rows = [json.loads(r) for r in (exper / "metrics_train.jsonl").read_text().splitlines()]
+    sub = [r["loss_subpix"] for r in rows]
+    log(f"[train2] (c) train_base {SYNTH_CONFIG.name} as Train_model_subpixel on SubpixelNet "
+        f"({Bs}x{sh}x{sw}, {agent.model.dtype}): {steps} steps in {cli_s:.2f} s with the model "
+        f"build ({smi}); launches {launches}; loss_subpix by step " +
+        ", ".join(f"{v:.5f}" for v in sub) + "; loss_det " +
+        ", ".join(f"{r['loss_det']:.4f}" for r in rows))
+    if launches != want or len(sub) != steps or not np.isfinite(sub).all():
+        raise AssertionError(f"subpixel launches {launches} (expected {want}), loss_subpix {sub}")
+    out["subpixel"] = launches
+    # loss_subpix on one fixed training batch (batch statistics, no update)
+    # before and after the steady-state steps: single batches' losses spread
+    # too widely to show a fall over ten steps
+    fixed = agent.prepare(agent.next_batch())
+
+    def fixed_loss() -> float:
+        with torch.no_grad():
+            return float(subpixel_losses(agent.state.model.train(), fixed,
+                                         **agent.subpixel_kwargs)[1]["loss_subpix"])
+
+    before = fixed_loss()
+    steady_state(agent, "[train2] (c) subpixel", SUBPIX_TIMED,
+                 f"{Bs} images at {sh}x{sw}, SubpixelNet (decoder to full resolution)", smi)
+    after = fixed_loss()
+    log(f"[train2] (c) loss_subpix on one fixed training batch: {before:.5f} after the CLI's "
+        f"{steps} steps, {after:.5f} after the steady state's {2 * SUBPIX_TIMED + 10} more")
+    if not after < before:
+        raise AssertionError(f"loss_subpix did not fall: {before} -> {after}")
+    npz = exper / "checkpoints" / f"superPointNet_{steps}.npz"
+    val = SubpixelValAgent(load_weights(npz, "SubpixelNet", device=dev), device=dev)
+    host = agent.prepare(agent.next_batch(), train=False)
+    images, pts = host["image"][:8], host["points"][:8]
+    pts3 = torch.cat([pts, torch.ones_like(pts[..., :1])], dim=-1)
+    refined = val.refine_points(images, pts3)
+    off = val.run(images)["subpixel"]
+    ix = torch.round(pts[..., 0]).long().clamp(0, sw - 1)
+    iy = torch.round(pts[..., 1]).long().clamp(0, sh - 1)
+    b = torch.arange(images.shape[0], device=dev)[:, None]
+    if not torch.allclose(refined[..., :2], pts + off[b, iy, ix], atol=1e-5, rtol=0) or \
+            not bool(torch.isfinite(refined).all()):
+        raise AssertionError("Val_model_subpixel.refine_points")
+    log(f"[train2] (c) {npz.name} through load_weights and Val_model_subpixel.refine_points on "
+        f"{images.shape[0]} images: mean |offset| {float(off[b, iy, ix].abs().mean()):.4f} px")
+
+    # ---- (d) Val_model_heatmap over phase 12's images.  Its points are held
+    # as phase 12 holds the detections: subpixel off, all K points (threshold
+    # 0); at 0.015 a point whose score rounds across the threshold on one
+    # side only would count as lost
+    m = HPATCHES_CONFIG["model"]
+    vcfg = {"model": {**m, "subpixel": {"enable": False}, "detection_threshold": 0.0},
+            "pretrained": str(NPZ)}
+    vh, vw = HPATCHES_CONFIG["data"]["preprocessing"]["resize"]
+    dataset = PatchesDataset(preprocessing={"resize": [vh, vw]})
+    imgs = [dataset[i][k] for i in range(len(dataset)) for k in ("image", "warped_image")]
+    agent, plain = ValAgent(vcfg, device=dev), ValAgent(vcfg, device=dev, reference=True)
+    agent.run(imgs[0])  # builds what it needs
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    results = []
+    for img in imgs:
+        agent.run(img)
+        results.append((agent.heatmap_to_pts(), agent.desc_to_sparse_desc()))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = read_launches()
+    want = {"stem": len(imgs), "down1": len(imgs), "nms": len(imgs), "vresample": 0,
+            "vresample_coef": 0}
+    if launches != want:
+        raise AssertionError(f"Val_model_heatmap launches {launches}, expected {want}")
+    out["val_agent"] = launches
+    worst = {"shared": 1.0, "strong_recall": 1.0, "cos": 1.0}
+    for img, (pts, desc) in zip(imgs, results):
+        plain.run(img)
+        w = agreement(*(torch.from_numpy(a)[None] for a in
+                        (pts, desc, plain.heatmap_to_pts(), plain.desc_to_sparse_desc())))
+        worst = {k: min(worst[k], w[k]) for k in worst}
+    log(f"[train2] (d) Val_model_heatmap ({m['name']}, the trained weights, K={m['top_k']}, "
+        f"NMS {m['nms']}, all K points) over phase 12's {len(imgs)} images at {vh}x{vw}: "
+        f"launches {launches} "
+        f"(once each per image); {len(imgs) / run_s:.2f} img/s by the host clock ({smi}); "
+        f"against the plain versions: worst image shares {worst['shared']:.4f} of its points, "
+        f"finds {worst['strong_recall']:.4f} of the strong ones, cosine {worst['cos']:.6f}")
+
+    # ---- (e) evaluate -o over a copy of phase 12's export
+    preds = td / "eval_o"
+    shutil.copytree(td / "logs" / "smoke" / "predictions", preds,
+                    ignore=shutil.ignore_patterns("result.*"))
+    t0 = time.perf_counter()
+    evaluate(preds, output_img=True)
+    eval_s = time.perf_counter() - t0
+    pngs = sorted(preds.glob("*/*.png"))
+    pair_files = sorted(f for f in preds.glob("*.npz") if f.name != "result.npz")
+    for f in pair_files:
+        with np.load(f) as z:
+            data = {k: z[k] for k in z.files}
+        img1, img2 = (data[k][..., 0] if data[k].ndim == 3 else data[k]
+                      for k in ("image", "warped_image"))
+        canvases = {f"repeatibility3/{f.stem}_1.png": draw_keypoints(img1, data["prob"]),
+                    f"repeatibility3/{f.stem}_2.png": draw_keypoints(img2, data["warped_prob"])}
+        if len(data.get("matches", ())):
+            canvases[f"matching/{f.stem}.png"] = draw_matches(
+                img1, data["prob"], img2, data["warped_prob"], data["matches"])
+        for name, canvas in canvases.items():
+            bl, gr, rd = (canvas[..., c].astype(np.int64) for c in range(3))
+            luma = ((9797 * rd + 19234 * gr + 3737 * bl) >> 15).astype(np.uint8)
+            if not np.array_equal(imageio.decode_gray(preds / name), luma):
+                raise AssertionError(f"evaluate -o: {name} does not decode to its canvas")
+    if len(pngs) < 2 * len(pair_files):
+        raise AssertionError(f"evaluate -o wrote {len(pngs)} PNGs for {len(pair_files)} pairs")
+    log(f"[train2] (e) evaluate -o over phase 12's {len(pair_files)} pairs: "
+        f"{len(pngs)} PNGs ({len(list(preds.glob('repeatibility3/*.png')))} keypoint overlays, "
+        f"{len(list(preds.glob('matching/*.png')))} match drawings) in {eval_s:.2f} s, each "
+        f"decoding through the port's decoder to the luma of the canvas drawn")
+    return out
 
 
 if __name__ == "__main__":

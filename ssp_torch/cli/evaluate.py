@@ -3,7 +3,7 @@
 
 Usage::
 
-  python -m ssp_torch.cli.evaluate <predictions_dir> [-r] [-homo]
+  python -m ssp_torch.cli.evaluate <predictions_dir> [-r] [-homo] [-o]
 
 Reads the exported ``<i>.npz`` pair files, computes repeatability /
 localization error (top-1000, dist 3), homography-estimation correctness
@@ -14,9 +14,10 @@ the JAX package; OpenCV's matcher and RANSAC and scikit-learn's average
 precision are the port's own (``ssp_torch/evaluations``), and the RANSAC
 fit is called through its module, so a test can put OpenCV's in its place.
 
-``-o/--outputImg`` (keypoint and match drawings) needs the drawing helpers
-and a PNG writer, which the port does not have yet (ROADMAP Queue 1, item
-10): with it the CLI exits with an error.
+``-o/--outputImg`` also draws each pair (``ssp_torch.utils.draw``, OpenCV's
+drawing reproduced) into ``repeatibility3/<i>_{1,2}.png`` (the keypoints of
+each image) and ``matching/<i>.png`` (the match lines, where the file has
+``matches``) beside the files, as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from typing import Dict, List
 
 import numpy as np
 
+from ssp_torch.data.imageio import write_png
 from ssp_torch.evaluations import homography_fit
 from ssp_torch.evaluations.descriptor import compute_homography
 from ssp_torch.evaluations.detector import compute_repeatability, warp_keypoints_np
@@ -40,8 +42,6 @@ HOMOGRAPHY_THRESH = [1, 3, 5, 10, 20, 50]
 TOP_K = 1000
 REP_THRESH = 3
 MAP_NN_THRESH = 1.2
-OUTPUT_IMG_MISSING = ("-o/--outputImg needs the drawing helpers (ssp/utils/draw.py) and a PNG "
-                      "writer, which the port does not have yet: ROADMAP Queue 1, item 10")
 
 
 def _unwarp_count(warped_keypoints: np.ndarray, H: np.ndarray, shape_hw) -> int:
@@ -84,15 +84,36 @@ def _nn_map(data: Dict[str, np.ndarray]) -> float:
     return average_precision(inliers, scores)
 
 
+def _save_visuals(path: Path, stem: str, data: Dict[str, np.ndarray]) -> None:
+    """Keypoint overlays and the match drawing of one pair (reference
+    ``evaluation.py`` --outputImg: the repeatibility and matching dirs)."""
+    from ssp_torch.utils.draw import draw_keypoints, draw_matches
+
+    rep_dir = path / "repeatibility3"
+    match_dir = path / "matching"
+    rep_dir.mkdir(exist_ok=True)
+    match_dir.mkdir(exist_ok=True)
+    img1 = data["image"][..., 0] if data["image"].ndim == 3 else data["image"]
+    img2 = (
+        data["warped_image"][..., 0]
+        if data["warped_image"].ndim == 3
+        else data["warped_image"]
+    )
+    write_png(rep_dir / f"{stem}_1.png", draw_keypoints(img1, data["prob"]))
+    write_png(rep_dir / f"{stem}_2.png", draw_keypoints(img2, data["warped_prob"]))
+    if "matches" in data and len(data["matches"]):
+        canvas = draw_matches(img1, data["prob"], img2, data["warped_prob"], data["matches"])
+        write_png(match_dir / f"{stem}.png", canvas)
+
+
 def evaluate(
     path: Path, do_rep: bool = True, do_homo: bool = True, output_img: bool = False
 ) -> Dict[str, float]:
     """Score every pair file under ``path``; write ``result.txt`` and
-    ``result.npz`` there and return the summary.  The JAX package's
-    ``np.random.seed(0)`` is left out: nothing here draws from numpy's global
-    generator (the RANSAC fit seeds its own)."""
-    if output_img:
-        raise NotImplementedError(OUTPUT_IMG_MISSING)
+    ``result.npz`` there (and, with ``output_img``, the drawings) and return
+    the summary.  The JAX package's ``np.random.seed(0)`` is left out:
+    nothing here draws from numpy's global generator (the RANSAC fit seeds
+    its own)."""
     # exported pairs use digit stems (sorted numerically, as the reference
     # does); any other .npz is still evaluated, appended in name order
     all_npz = [p for p in Path(path).glob("*.npz") if p.name != "result.npz"]
@@ -123,6 +144,8 @@ def evaluate(
         shape_hw = data["image"].shape[:2]
         shape2_hw = data["warped_image"].shape[:2] if "warped_image" in data else shape_hw
         H = data["homography"]
+        if output_img:
+            _save_visuals(Path(path), f.stem, data)
         if do_rep:
             r = compute_repeatability(
                 data["prob"], data["warped_prob"], H, shape_hw,
@@ -190,11 +213,9 @@ def main(argv=None) -> None:
     ap.add_argument("-homo", "--homography", action="store_true")
     ap.add_argument("-o", "--outputImg", action="store_true")
     args = ap.parse_args(argv)
-    if args.outputImg:
-        ap.error(OUTPUT_IMG_MISSING)
     do_rep = args.repeatibility or not args.homography
     do_homo = args.homography or not args.repeatibility
-    summary = evaluate(Path(args.path), do_rep, do_homo)
+    summary = evaluate(Path(args.path), do_rep, do_homo, output_img=args.outputImg)
     for k, v in summary.items():
         print(f"{k}: {v}")
 

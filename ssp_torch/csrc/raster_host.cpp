@@ -2,7 +2,8 @@
 // generator, on the host, without OpenCV.
 //
 // What the generator gets from OpenCV, byte for byte, at the arguments it
-// passes (8-bit, one channel, LINE_8, shift 0):
+// passes (8-bit, one channel, LINE_8, shift 0), and the two colour calls of
+// the drawing helpers:
 //
 // * ``line``: thickness 1 is an 8-connected Bresenham walk from the left end,
 //   after the segment is clipped to the canvas.  A thicker line is first
@@ -17,7 +18,10 @@
 //   ceil(x_left) to floor(x_right), the outline drawn first; an edge that
 //   leaves the canvas runs along its segment as ``clipLine`` leaves it
 //   (truncated to pixels, and vertical where the clip leaves one point);
-// * ``circle`` (filled): the midpoint circle as horizontal spans;
+// * ``circle`` (filled): the midpoint circle as horizontal spans, on one
+//   channel or, for the visualisations, on 1-4 interleaved channels;
+// * ``line`` with LINE_AA (the visualisations' match and track lines):
+//   OpenCV's LineAA, 1 pixel wide, on 1-4 interleaved channels;
 // * ``ellipse`` (filled, full arc): the angle rounded to whole degrees, the
 //   outline sampled every 5..90 degrees from a float sine table (values of
 //   sin rounded to 7 decimals), then filled as a convex polygon;
@@ -285,30 +289,30 @@ void fill_convex(const Canvas& c, const P* v, int npts, uint8_t color, int shift
   } while (++y <= static_cast<int>(ymax));
 }
 
-// OpenCV's Circle with fill: the midpoint walk, each step four spans.
-void circle_filled(const Canvas& c, int cx, int cy, int radius, uint8_t color) {
+// OpenCV's Circle with fill: the midpoint walk, each step four spans, each
+// span(y, x1, x2) inside a w x h canvas.
+template <class Span>
+void circle_spans(int w, int h, int cx, int cy, int radius, Span span) {
   int err = 0, dx = radius, dy = 0, plus = 1, minus = (radius << 1) - 1;
-  const bool inside = cx >= radius && cx < c.w - radius && cy >= radius && cy < c.h - radius;
+  const bool inside = cx >= radius && cx < w - radius && cy >= radius && cy < h - radius;
   while (dx >= dy) {
     int y11 = cy - dy, y12 = cy + dy, y21 = cy - dx, y22 = cy + dx;
     int x11 = cx - dx, x12 = cx + dx, x21 = cx - dy, x22 = cx + dy;
     if (inside) {
-      hline(c, y11, x11, x12, color);
-      hline(c, y12, x11, x12, color);
-      hline(c, y21, x21, x22, color);
-      hline(c, y22, x21, x22, color);
-    } else if (x11 < c.w && x12 >= 0 && y21 < c.h && y22 >= 0) {
+      span(y11, x11, x12);
+      span(y12, x11, x12);
+      span(y21, x21, x22);
+      span(y22, x21, x22);
+    } else if (x11 < w && x12 >= 0 && y21 < h && y22 >= 0) {
       x11 = std::max(x11, 0);
-      x12 = std::min(x12, c.w - 1);
-      if (static_cast<unsigned>(y11) < static_cast<unsigned>(c.h)) hline(c, y11, x11, x12, color);
-      if (static_cast<unsigned>(y12) < static_cast<unsigned>(c.h)) hline(c, y12, x11, x12, color);
-      if (x21 < c.w && x22 >= 0) {
+      x12 = std::min(x12, w - 1);
+      if (static_cast<unsigned>(y11) < static_cast<unsigned>(h)) span(y11, x11, x12);
+      if (static_cast<unsigned>(y12) < static_cast<unsigned>(h)) span(y12, x11, x12);
+      if (x21 < w && x22 >= 0) {
         x21 = std::max(x21, 0);
-        x22 = std::min(x22, c.w - 1);
-        if (static_cast<unsigned>(y21) < static_cast<unsigned>(c.h))
-          hline(c, y21, x21, x22, color);
-        if (static_cast<unsigned>(y22) < static_cast<unsigned>(c.h))
-          hline(c, y22, x21, x22, color);
+        x22 = std::min(x22, w - 1);
+        if (static_cast<unsigned>(y21) < static_cast<unsigned>(h)) span(y21, x21, x22);
+        if (static_cast<unsigned>(y22) < static_cast<unsigned>(h)) span(y22, x21, x22);
       }
     }
     dy++;
@@ -318,6 +322,130 @@ void circle_filled(const Canvas& c, int cx, int cy, int radius, uint8_t color) {
     err -= minus & mask;
     dx += mask;
     minus -= mask & 2;
+  }
+}
+
+void circle_filled(const Canvas& c, int cx, int cy, int radius, uint8_t color) {
+  circle_spans(c.w, c.h, cx, cy, radius,
+               [&](int y, int x1, int x2) { hline(c, y, x1, x2, color); });
+}
+
+// An 8-bit canvas of 1 to 4 interleaved channels, for the colour drawing of
+// the visualisations (``ssp_torch.utils.draw``).
+struct ColorCanvas {
+  uint8_t* data;
+  int h, w, nch;
+  uint8_t* at(int64_t x, int64_t y) const { return data + (y * w + x) * nch; }
+};
+
+// OpenCV's LineAA (antialiased, 1 pixel wide) between points in XY_SHIFT
+// fixed point: after clipLine on the canvas grown to fixed point, a walk
+// along the major axis that blends three pixels across the line with weights
+// from FilterTable (indexed by the 5-bit fraction of the minor coordinate),
+// scaled by a slope correction and by end-point corrections of the first two
+// and last two steps.  Each channel blends twice by
+// v += ((c - v) * a + 127) >> 8.
+const int kSlopeCorr[] = {181, 181, 181, 182, 182, 183, 184, 185, 187, 188, 190,
+                          192, 194, 196, 198, 201, 203, 206, 209, 211, 214, 218,
+                          221, 224, 227, 231, 235, 238, 242, 246, 250, 254};
+const int kFilter[] = {168, 177, 185, 194, 202, 210, 218, 224, 231, 236, 241, 246, 249,
+                       252, 254, 254, 254, 254, 252, 249, 246, 241, 236, 231, 224, 218,
+                       210, 202, 194, 185, 177, 168, 158, 149, 140, 131, 122, 114, 105,
+                       97,  89,  82,  75,  68,  62,  56,  50,  45,  40,  36,  32,  28,
+                       25,  22,  19,  16,  14,  12,  11,  9,   8,   7,   5,   5};
+
+void line_aa(const ColorCanvas& c, P pt1, P pt2, const uint8_t* color) {
+  if (!clip_line(int64_t(c.w) << XY_SHIFT, int64_t(c.h) << XY_SHIFT, pt1, pt2)) return;
+  int64_t dx = pt2.x - pt1.x, dy = pt2.y - pt1.y;
+  int64_t j = dx < 0 ? -1 : 0;
+  const int64_t ax = (dx ^ j) - j;
+  int64_t i = dy < 0 ? -1 : 0;
+  const int64_t ay = (dy ^ i) - i;
+  int64_t x_step, y_step;
+  int ecount, slope;
+  const bool horizontal = ax > ay;
+  if (horizontal) {
+    dy = (dy ^ j) - j;
+    if (j) std::swap(pt1, pt2);
+    x_step = XY_ONE;
+    y_step = (dy * XY_ONE) / (ax | 1);
+    pt2.x += XY_ONE;
+    ecount = static_cast<int>((pt2.x >> XY_SHIFT) - (pt1.x >> XY_SHIFT));
+    j = -(pt1.x & (XY_ONE - 1));
+    pt1.y += ((y_step * j) >> XY_SHIFT) + (XY_ONE >> 1);
+    slope = static_cast<int>((y_step >> (XY_SHIFT - 5)) & 0x3f);
+    slope ^= (y_step < 0 ? 0x3f : 0);
+    i = (pt1.x >> (XY_SHIFT - 7)) & 0x78;
+    j = (pt2.x >> (XY_SHIFT - 7)) & 0x78;
+  } else {
+    dx = (dx ^ i) - i;
+    if (i) std::swap(pt1, pt2);
+    x_step = (dx * XY_ONE) / (ay | 1);
+    y_step = XY_ONE;
+    pt2.y += XY_ONE;
+    ecount = static_cast<int>((pt2.y >> XY_SHIFT) - (pt1.y >> XY_SHIFT));
+    j = -(pt1.y & (XY_ONE - 1));
+    pt1.x += ((x_step * j) >> XY_SHIFT) + (XY_ONE >> 1);
+    slope = static_cast<int>((x_step >> (XY_SHIFT - 5)) & 0x3f);
+    slope ^= (x_step < 0 ? 0x3f : 0);
+    i = (pt1.y >> (XY_SHIFT - 7)) & 0x78;
+    j = (pt2.y >> (XY_SHIFT - 7)) & 0x78;
+  }
+  slope = (slope & 0x20) ? 0x100 : kSlopeCorr[slope];
+  int ep_table[9];
+  {
+    const int t0 = slope << 7;
+    const int t1 = ((0x78 - static_cast<int>(i)) | 4) * slope;
+    const int t2 = (static_cast<int>(j) | 4) * slope;
+    ep_table[0] = 0;
+    ep_table[8] = slope;
+    ep_table[1] = ep_table[3] = ((((j - i) & 0x78) | 4) * slope >> 8) & 0x1ff;
+    ep_table[2] = (t1 >> 8) & 0x1ff;
+    ep_table[4] = ((((j - i) + 0x80) | 4) * slope >> 8) & 0x1ff;
+    ep_table[5] = ((t1 + t0) >> 8) & 0x1ff;
+    ep_table[6] = (t2 >> 8) & 0x1ff;
+    ep_table[7] = ((t2 + t0) >> 8) & 0x1ff;
+  }
+  auto put = [&](int64_t x, int64_t y, int a) {
+    uint8_t* t = c.at(x, y);
+    for (int k = 0; k < c.nch; k++) {
+      int v = t[k];
+      v += ((color[k] - v) * a + 127) >> 8;
+      v += ((color[k] - v) * a + 127) >> 8;
+      t[k] = static_cast<uint8_t>(v);
+    }
+  };
+  int scount = 0;
+  if (horizontal) {
+    int64_t x = pt1.x >> XY_SHIFT;
+    for (; ecount >= 0; x++, pt1.y += y_step, scount++, ecount--) {
+      if (static_cast<uint64_t>(x) >= static_cast<uint64_t>(c.w)) continue;
+      const int64_t y = (pt1.y >> XY_SHIFT) - 1;
+      const int ep_corr = ep_table[(((scount >= 2) + 1) & (scount | 2)) * 3 +
+                                   (((ecount >= 2) + 1) & (ecount | 2))];
+      const int dist = static_cast<int>((pt1.y >> (XY_SHIFT - 5)) & 31);
+      if (static_cast<uint64_t>(y) < static_cast<uint64_t>(c.h))
+        put(x, y, (ep_corr * kFilter[dist + 32] >> 8) & 0xff);
+      if (static_cast<uint64_t>(y + 1) < static_cast<uint64_t>(c.h))
+        put(x, y + 1, (ep_corr * kFilter[dist] >> 8) & 0xff);
+      if (static_cast<uint64_t>(y + 2) < static_cast<uint64_t>(c.h))
+        put(x, y + 2, (ep_corr * kFilter[63 - dist] >> 8) & 0xff);
+    }
+  } else {
+    int64_t y = pt1.y >> XY_SHIFT;
+    for (; ecount >= 0; y++, pt1.x += x_step, scount++, ecount--) {
+      if (static_cast<uint64_t>(y) >= static_cast<uint64_t>(c.h)) continue;
+      const int64_t x = (pt1.x >> XY_SHIFT) - 1;
+      const int ep_corr = ep_table[(((scount >= 2) + 1) & (scount | 2)) * 3 +
+                                   (((ecount >= 2) + 1) & (ecount | 2))];
+      const int dist = static_cast<int>((pt1.x >> (XY_SHIFT - 5)) & 31);
+      if (static_cast<uint64_t>(x) < static_cast<uint64_t>(c.w))
+        put(x, y, (ep_corr * kFilter[dist + 32] >> 8) & 0xff);
+      if (static_cast<uint64_t>(x + 1) < static_cast<uint64_t>(c.w))
+        put(x + 1, y, (ep_corr * kFilter[dist] >> 8) & 0xff);
+      if (static_cast<uint64_t>(x + 2) < static_cast<uint64_t>(c.w))
+        put(x + 2, y, (ep_corr * kFilter[63 - dist] >> 8) & 0xff);
+    }
   }
 }
 
@@ -775,6 +903,22 @@ int ssp_fill_poly(uint8_t* img, int h, int w, const int32_t* xy, int n, int colo
   std::vector<P> v(static_cast<size_t>(n));
   for (int i = 0; i < n; i++) v[i] = P{xy[2 * i], xy[2 * i + 1]};
   fill_poly(Canvas{img, h, w}, v.data(), n, static_cast<uint8_t>(color));
+  return 0;
+}
+
+int ssp_line_aa(uint8_t* img, int h, int w, int nch, int64_t x1, int64_t y1, int64_t x2,
+                int64_t y2, const uint8_t* color) {
+  line_aa(ColorCanvas{img, h, w, nch}, P{x1 * XY_ONE, y1 * XY_ONE}, P{x2 * XY_ONE, y2 * XY_ONE},
+          color);
+  return 0;
+}
+
+int ssp_circle_filled_color(uint8_t* img, int h, int w, int nch, int cx, int cy, int radius,
+                            const uint8_t* color) {
+  const ColorCanvas c{img, h, w, nch};
+  circle_spans(w, h, cx, cy, radius, [&](int y, int x1, int x2) {
+    for (int x = x1; x <= x2; x++) std::memcpy(c.at(x, y), color, static_cast<size_t>(nch));
+  });
   return 0;
 }
 

@@ -1,4 +1,5 @@
-"""Grayscale image decoding without OpenCV: JPEG, PNG and binary netpbm.
+"""Grayscale image decoding without OpenCV: JPEG, PNG and binary netpbm;
+and a PNG writer (:func:`write_png`).
 
 :func:`decode_gray` returns what ``cv2.imread(path, cv2.IMREAD_GRAYSCALE)``
 returns, byte for byte, for the forms it reads (the JAX package reads
@@ -28,6 +29,12 @@ The C++ library is built with the system ``g++`` at first use, into
 ``ssp_torch/_build`` (``ssp_torch.kernels._build``).  Its calls go through
 ``ctypes``, which releases the GIL, so decoding scales over the threads of
 ``ImageDataset.batches(workers=N)``.
+
+:func:`write_png` writes a gray or BGR uint8 image as ``cv2.imwrite`` does
+for a ``.png`` path: the channels swapped to the file's RGB order, 8 bits.
+The bytes are its own (``zlib`` and ``struct`` alone, each row's filter
+type cycling through 0-4), the pixels ``cv2.imread`` reads back are
+``cv2.imwrite``'s.
 """
 
 from __future__ import annotations
@@ -69,6 +76,45 @@ def _lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib._ssp_typed = True
     return lib
+
+
+def write_png(path, img: np.ndarray) -> Path:
+    """uint8 [H, W] gray or [H, W, 3] BGR → an 8-bit PNG at ``path`` (RGB on
+    disk, as ``cv2.imwrite`` writes it).  Row y is filtered with type y % 5
+    (None, Sub, Up, Average, Paeth), so that reading it back takes every
+    filter."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or not (img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
+        raise ValueError(f"write_png takes uint8 [H, W] or [H, W, 3], not {img.dtype} "
+                         f"{img.shape}")
+    img = np.ascontiguousarray(img if img.ndim == 2 else img[..., ::-1])  # BGR → RGB
+    h, w = img.shape[:2]
+    ch = 1 if img.ndim == 2 else 3
+    px = img.reshape(h, w * ch).astype(np.int16)
+    pad = np.zeros(ch, np.int16)
+    prev = np.zeros(w * ch, np.int16)
+    rows = []
+    for y in range(h):
+        cur = px[y]
+        a = np.concatenate([pad, cur[:-ch]])  # left
+        c = np.concatenate([pad, prev[:-ch]])  # up-left
+        p = a + prev - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - prev), np.abs(p - c)
+        pred = (0, a, prev, (a + prev) >> 1,
+                np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, prev, c)))[y % 5]
+        rows.append(bytes([y % 5]) + ((cur - pred) & 0xFF).astype(np.uint8).tobytes())
+        prev = cur
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        crc = struct.pack(">I", zlib.crc32(kind + body))
+        return struct.pack(">I", len(body)) + kind + body + crc
+
+    path = Path(path)
+    path.write_bytes(
+        PNG_MAGIC
+        + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0 if ch == 1 else 2, 0, 0, 0))
+        + chunk(b"IDAT", zlib.compress(b"".join(rows), 6)) + chunk(b"IEND", b""))
+    return path
 
 
 def decode_gray(path) -> np.ndarray:

@@ -1,9 +1,12 @@
-"""The OpenCV drawing and filtering calls of the synthetic-shapes generator,
-without OpenCV (C++ ``ssp_torch/csrc/raster_host.cpp``).
+"""The OpenCV drawing and filtering calls of the synthetic-shapes generator
+and of the drawing helpers, without OpenCV (C++
+``ssp_torch/csrc/raster_host.cpp``).
 
 Each function reproduces, byte for byte, the ``cv2`` call it is named after
-at the arguments ``ssp_torch.data.synthetic_shapes`` passes: 8-bit
-single-channel canvases, 8-connected lines, integer coordinates.  The
+at the arguments ``ssp_torch.data.synthetic_shapes`` passes (8-bit
+single-channel canvases, 8-connected lines, integer coordinates) or, for
+:func:`line_aa` and :func:`circle_color`, those ``ssp_torch.utils.draw``
+passes (8-bit canvases of 1, 3 or 4 channels, a colour per channel).  The
 drawing functions paint into the uint8 array they are given, in place, as
 ``cv2`` does; the filters return a new array.  The library is built with
 the system ``g++`` at first use (``ssp_torch.kernels._build``); its calls go
@@ -27,6 +30,8 @@ def _lib() -> ctypes.CDLL:
         lib.ssp_fill_convex_poly.argtypes = [ptr, i, i, ptr, i, i]
         lib.ssp_fill_poly.argtypes = [ptr, i, i, ptr, i, i]
         lib.ssp_circle_filled.argtypes = [ptr, i, i, i, i, i, i]
+        lib.ssp_circle_filled_color.argtypes = [ptr, i, i, i, i, i, i, ptr]
+        lib.ssp_line_aa.argtypes = [ptr, i, i, i, i64, i64, i64, i64, ptr]
         lib.ssp_ellipse_filled.argtypes = [ptr, i, i, i, i, i, i, f64, i]
         lib.ssp_box_blur.argtypes = [ptr, ptr, i, i, i]
         lib.ssp_gaussian_blur.argtypes = [ptr, ptr, i, i, i]
@@ -79,6 +84,38 @@ def circle_filled(img: np.ndarray, center, radius: int, color: int) -> None:
     h, w = img.shape
     _lib().ssp_circle_filled(img.ctypes.data, h, w, int(center[0]), int(center[1]),
                              int(radius), int(color))
+
+
+def _color_canvas(img: np.ndarray, color) -> tuple:
+    """(h, w, channels, the colour as uint8 bytes) of a C-contiguous uint8
+    [H, W] or [H, W, C] canvas, C in 1..4; the colour has a value per
+    channel (OpenCV's scalar, channel 0 first)."""
+    if img.dtype != np.uint8 or img.ndim not in (2, 3) or not img.flags.c_contiguous or \
+            (img.ndim == 3 and not 1 <= img.shape[2] <= 4):
+        raise ValueError(f"a colour canvas is a C-contiguous uint8 [H, W] or [H, W, 1..4] "
+                         f"array, not {img.dtype} {img.shape}")
+    nch = 1 if img.ndim == 2 else img.shape[2]
+    col = np.zeros(4, np.uint8)
+    vals = [int(v) for v in np.atleast_1d(color)][:nch]
+    col[:len(vals)] = vals
+    return img.shape[0], img.shape[1], nch, col
+
+
+def line_aa(img: np.ndarray, pt1, pt2, color) -> None:
+    """``cv2.line(img, pt1, pt2, color, 1, cv2.LINE_AA)``: integer (x, y)
+    end points, anywhere (the segment is clipped to the canvas); each pixel
+    is blended towards ``color``."""
+    h, w, nch, col = _color_canvas(img, color)
+    _lib().ssp_line_aa(img.ctypes.data, h, w, nch, int(pt1[0]), int(pt1[1]), int(pt2[0]),
+                       int(pt2[1]), col.ctypes.data)
+
+
+def circle_color(img: np.ndarray, center, radius: int, color) -> None:
+    """``cv2.circle(img, center, radius, color, -1)`` on a canvas of 1-4
+    channels."""
+    h, w, nch, col = _color_canvas(img, color)
+    _lib().ssp_circle_filled_color(img.ctypes.data, h, w, nch, int(center[0]), int(center[1]),
+                                   int(radius), col.ctypes.data)
 
 
 def ellipse_filled(img: np.ndarray, center, axes, angle: float, color: int) -> None:

@@ -22,6 +22,9 @@ reference's PyTorch state dicts.
 * :func:`load_weights` loads what a config's ``pretrained`` names: a flax
   npz or a reference checkpoint (an orbax directory needs the JAX package);
   :func:`read_state_dict` reads either as a reference-named state dict.
+* ``SubpixelNet``'s decoder: ``params/up1/DoubleConv_0/ConvBNRelu_0/...`` ↔
+  ``up1.conv.conv.0...`` (the reference's ``unet_parts.up``), and the bare
+  1×1 ``params/outc/kernel`` ↔ ``outc.weight``.
 * The MagicLeap model (``SuperPointNet_pretrained``) has no BatchNorm and
   flat scopes, ``params/conv1a/kernel`` ↔ ``conv1a.weight``: its flax npz
   (``ssp/models/weights.py::import_torch_magicleap``'s params) and its
@@ -44,13 +47,18 @@ import torch.nn as nn
 from ssp_torch._device import resolve_device
 from ssp_torch.models.superpoint import build_model
 
-# flax scope → reference prefix of the DoubleConv's Sequential
+# flax scope → reference prefix of the DoubleConv's Sequential; SubpixelNet's
+# decoder blocks hold theirs one scope deeper (``up1/DoubleConv_0/...``)
 _BLOCKS = {
     "inc": "inc.conv.conv",
     "down1": "down1.mpconv.1.conv",
     "down2": "down2.mpconv.1.conv",
     "down3": "down3.mpconv.1.conv",
+    "up1": "up1.conv.conv",
+    "up2": "up2.conv.conv",
+    "up3": "up3.conv.conv",
 }
+_UP_SCOPE = "DoubleConv_0"
 # flax ConvBNRelu scope → (reference conv name, reference BN name)
 _HEADS = {
     "convPa": ("convPa", "bnPa"),
@@ -65,7 +73,9 @@ _SEMANTIC_SCOPES = ("convDS", "convSout")
 def _flax_to_torch_name(key: str) -> str:
     """``params/down1/ConvBNRelu_1/Conv_0/kernel`` → ``down1.mpconv.1.conv.3.weight``."""
     kind, scope, *rest = key.split("/")
-    if len(rest) == 1:  # a bare conv: convSout, or any conv of the MagicLeap model
+    if scope.startswith("up") and rest[:1] == [_UP_SCOPE]:
+        rest = rest[1:]
+    if len(rest) == 1:  # a bare conv: convSout, SubpixelNet's outc, any MagicLeap conv
         (leaf,) = rest
         prefix = scope
     elif scope in _BLOCKS:
@@ -127,7 +137,8 @@ def _torch_to_flax_name(name: str) -> Optional[str]:
         if prefix.startswith(block + "."):
             i, r = divmod(int(prefix[len(block) + 1:]), 3)
             is_bn = r == 1
-            path = f"{scope}/ConvBNRelu_{i}/{'BatchNorm_0' if is_bn else 'Conv_0'}"
+            inner = f"{scope}/{_UP_SCOPE}" if scope.startswith("up") else scope
+            path = f"{inner}/ConvBNRelu_{i}/{'BatchNorm_0' if is_bn else 'Conv_0'}"
             break
     else:
         heads = {name: (scope, j) for scope, pair in _HEADS.items() for j, name in enumerate(pair)}
@@ -135,7 +146,7 @@ def _torch_to_flax_name(name: str) -> Optional[str]:
             scope, j = heads[prefix]
             is_bn = j == 1
             path = f"{scope}/{'BatchNorm_0' if is_bn else 'Conv_0'}"
-        else:  # a bare conv: convSout, or any conv of the MagicLeap model
+        else:  # a bare conv: convSout, SubpixelNet's outc, any MagicLeap conv
             path = prefix
     if is_bn and leaf == "weight":
         flax_leaf = "scale"

@@ -4,11 +4,13 @@ reference ``train_val_sample``, ``Train_model_heatmap_all.py:195-572``).
 Two forwards, the image's then the warped image's, with the BatchNorm
 statistics chained (the second forward's running averages start from the
 first's, as the JAX step threads ``batch_stats``); the detector BCE on
-both, the sparse descriptor loss across the pair, the semantic CE on both
-(fused: the 1/8-resolution logits, ``semantic_loss_coarse``), and the Kendall
-combination or the plain sum.  :func:`train_step` makes one backward and one
-Adam update.  Metrics stay on the device as 0-d tensors: reading them is the
-caller's choice of when to wait for the card.
+both, the sparse or the dense descriptor loss across the pair, the semantic
+CE on both (fused: the 1/8-resolution logits, ``semantic_loss_coarse``), and
+the Kendall combination or the plain sum.  :func:`train_step` makes one backward and one
+Adam update; :func:`accum_train_step` splits the batch into micro-batches,
+sums their gradients and makes one update.  Metrics stay on the device as
+0-d tensors: reading them is the caller's choice of when to wait for the
+card.
 """
 
 from __future__ import annotations
@@ -18,8 +20,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ssp_torch.core.grid import labels_to_cells, space_to_depth
-from ssp_torch.losses import (detector_loss, multi_task_loss, semantic_loss,
-                              semantic_loss_coarse)
+from ssp_torch.losses import (descriptor_loss_dense, detector_loss, multi_task_loss,
+                              semantic_loss, semantic_loss_coarse)
 from ssp_torch.losses.descriptor_sparse import SparseDraws, descriptor_loss_sparse
 from ssp_torch.train.state import TrainState
 
@@ -49,12 +51,10 @@ def compute_losses(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss, metrics) of ``batch`` in the module's current mode (``train()``:
     batch statistics, running averages updated; ``eval()``: running ones).
-    The descriptor loss's draws are ``desc_draws`` or come from
-    ``generator``."""
-    if desc_loss != "sparse":
-        raise NotImplementedError(
-            f"desc_loss {desc_loss!r}: the dense descriptor loss is not ported yet "
-            "(ROADMAP.md Queue 1 item 9, 'dense loss')")
+    ``desc_loss`` is ``"sparse"`` (its draws are ``desc_draws`` or come from
+    ``generator``) or ``"dense"``; ``desc_params`` are that loss's keywords."""
+    if desc_loss not in ("sparse", "dense"):
+        raise ValueError(f"desc_loss {desc_loss!r}: 'sparse' or 'dense'")
     kw = {"upsample_sem": False} if (semantic and sem_fused) else {}
 
     def sem_ce(out, labels):
@@ -77,7 +77,10 @@ def compute_losses(
                                       cmask2, det_loss_type)
         if semantic:
             loss_sem_warp = sem_ce(out2, batch["warped_sem"])
-        if lambda_loss > 0:
+        if lambda_loss > 0 and desc_loss == "dense":
+            loss_desc, _, pos_term, neg_term = descriptor_loss_dense(
+                out1["desc"], out2["desc"], batch["H_pair"], cmask2, **(desc_params or {}))
+        elif lambda_loss > 0:
             loss_desc, _, pos_term, neg_term = descriptor_loss_sparse(
                 out1["desc"], out2["desc"], batch["H_pair"], desc_draws, generator=generator,
                 **(desc_params or {}))
@@ -119,6 +122,35 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], **kwargs) -> D
     state.scheduler.step()
     state.step += 1
     return metrics
+
+
+def accum_train_step(state: TrainState, batch: Dict[str, torch.Tensor], r: int,
+                     **kwargs) -> Dict[str, torch.Tensor]:
+    """One update from ``r`` micro-batches (port of ``make_accum_train_step``;
+    reference ``Train_model_heatmap_all.py:406-413``): the global batch of
+    r·b splits into ``r`` consecutive micro-batches of b; each takes its own
+    training-mode forward (the BatchNorm statistics chain through them) and
+    its own backward into the same ``.grad``, so the gradients of the
+    parameters and ηs are *summed*, each micro-batch's losses normalised
+    over b; then one Adam step and one schedule step.  The sparse loss draws
+    per micro-batch from ``generator``.  The metrics are the mean over the
+    micro-batches."""
+    n = batch["image"].shape[0]
+    if n % r:
+        raise ValueError(f"a batch of {n} does not split into {r} micro-batches")
+    b = n // r
+    state.model.train()
+    state.optimizer.zero_grad(set_to_none=True)
+    per_micro = []
+    for i in range(r):
+        micro = {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
+        loss, metrics = compute_losses(state.model, state.etas, micro, **kwargs)
+        loss.backward()
+        per_micro.append(metrics)
+    state.optimizer.step()
+    state.scheduler.step()
+    state.step += 1
+    return {k: torch.stack([m[k] for m in per_micro]).mean() for k in per_micro[0]}
 
 
 def eval_step(state: TrainState, batch: Dict[str, torch.Tensor], **kwargs) -> Dict[str, torch.Tensor]:

@@ -22,13 +22,23 @@ numbers are not ``jax.random``'s.
 
 With ``training.device_corpus`` the CLI attaches the training set to the
 card (:meth:`TrainAgent.attach_device_corpus`) and each step samples its
-batch there; validation keeps the host loader.  Not ported yet, each
-refused with an error naming its ROADMAP.md item: ``exact_accumulation``
-with ``r > 1`` and the dense descriptor loss.  ``steps_per_dispatch`` (a
-``lax.scan`` of several steps per device program in the JAX trainer) is
+batch there; validation keeps the host loader.  ``model.exact_accumulation``
+with ``r > 1`` runs :func:`~ssp_torch.train.step.accum_train_step` (the
+reference's summed micro-batch gradients) on the real batch;
+``model.dense_loss.enable`` the dense descriptor loss.  ``steps_per_dispatch``
+(a ``lax.scan`` of several steps per device program in the JAX trainer) is
 accepted: the port runs one step per loop turn, says so in the log, and
 aligns the intervals as the JAX trainer does, so boundaries and checkpoint
 names are the JAX trainer's.
+
+Validation telemetry, as the JAX trainer's: ``val_residual_diagnostic: true``
+adds the soft-argmax residual error at the label points
+(``val_subpix_residual_err``) and a histogram of the predicted offsets; the
+first validation image and its warped view are logged as heatmap overlays
+and NMS detections (``ssp_torch.utils.draw``; the NMS kernel on the card).
+Neither ever stops training: a failure is logged and the run goes on.
+``profile: {enable, logdir, steps}`` writes a ``torch.profiler`` trace of
+the ``steps`` steps after the second to ``logdir`` (``<exper>/profile``).
 """
 
 from __future__ import annotations
@@ -38,19 +48,23 @@ import logging
 import resource
 import signal
 import time
+from pathlib import Path
 from typing import Any, Dict, Iterator, Optional
 
 import numpy as np
 import torch
 
 from ssp_torch._device import resolve_device, to_device
+from ssp_torch.core.grid import flatten_detection
 from ssp_torch.data.device_corpus import DeviceCorpus
 from ssp_torch.data.pipeline import prepare_batch
+from ssp_torch.losses.subpixel import subpixel_residual_loss
 from ssp_torch.models.superpoint import build_model
+from ssp_torch.postprocess.points import extract_keypoints, soft_argmax_refine
 from ssp_torch.registry import register
 from ssp_torch.train.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from ssp_torch.train.state import TrainState
-from ssp_torch.train.step import eval_step, train_step
+from ssp_torch.train.step import accum_train_step, eval_step, train_step
 from ssp_torch.utils.config import dict_update
 from ssp_torch.utils.experiment import ExperimentPaths, MetricsLogger
 
@@ -123,10 +137,11 @@ class TrainAgent:
         self.r = max(self.real_batch_size // self.batch_size, 1)
         for k in ("train_iter", "validation_interval", "tensorboard_interval", "save_interval"):
             self.config[k] = int(self.config[k]) * self.r
-        if bool(m.get("exact_accumulation", False)) and self.r > 1:
-            raise NotImplementedError(
-                "model.exact_accumulation is not ported yet (ROADMAP.md Queue 1 item 9, "
-                "'accumulation')")
+        # reference-exact micro-batch accumulation (summed gradients, BatchNorm
+        # statistics per micro-batch); otherwise the real batch is one batch
+        self.accumulate = bool(m.get("exact_accumulation", False)) and self.r > 1
+        if self.accumulate:
+            log.info("exact gradient accumulation: r=%d micro-batches", self.r)
         spd = max(int(self.config.get("steps_per_dispatch", 1)), 1)
         if spd > 1:
             # the JAX trainer's alignment of the intervals to its stride, so
@@ -163,21 +178,24 @@ class TrainAgent:
                                        max_steps=max(self.max_iter // self.r, 1))
 
         if m.get("dense_loss", {}).get("enable"):
-            raise NotImplementedError("model.dense_loss is not ported yet (ROADMAP.md Queue 1 "
-                                      "item 9, 'dense loss')")
-        p = dict(m.get("sparse_loss", {}).get("params") or {})
-        self.step_kwargs = dict(
-            semantic=self.semantic,
-            warped_pair=self.warped_pair,
-            det_loss_type=m.get("detector_loss", {}).get("loss_type", "softmax"),
-            desc_loss="sparse",
-            desc_params={
+            p = dict(m["dense_loss"].get("params") or {})
+            desc_loss, desc_params = "dense", {"lambda_d": p.get("lambda_d", 250),
+                                               "descriptor_dist": p.get("descriptor_dist", 4)}
+        else:
+            p = dict(m.get("sparse_loss", {}).get("params") or {})
+            desc_loss, desc_params = "sparse", {
                 "num_matching_attempts": int(p.get("num_matching_attempts", 1000)),
                 "num_masked_non_matches_per_match": int(
                     p.get("num_masked_non_matches_per_match", 100)),
                 "lamda_d": float(p.get("lamda_d", 1.0)),
                 "method": p.get("method", "2d"),
-            },
+            }
+        self.step_kwargs = dict(
+            semantic=self.semantic,
+            warped_pair=self.warped_pair,
+            det_loss_type=m.get("detector_loss", {}).get("loss_type", "softmax"),
+            desc_loss=desc_loss,
+            desc_params=desc_params,
             lambda_loss=float(m.get("lambda_loss", 1)),
             multi_task=bool(m.get("multi_task_loss", False)),
             ignore_class=int(data.get("ignore_class", 133)),
@@ -266,6 +284,19 @@ class TrainAgent:
                              generator=self.generator, host_generator=self.host_generator,
                              **(self.prep_train if train else self.prep_val), **kwargs)
 
+    # -- steps ----------------------------------------------------------
+    def step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """One update on a prepared batch: the accumulated step with
+        ``exact_accumulation`` and r > 1, else the plain one."""
+        if self.accumulate:
+            return accum_train_step(self.state, batch, self.r, generator=self.generator,
+                                    **self.step_kwargs)
+        return train_step(self.state, batch, generator=self.generator, **self.step_kwargs)
+
+    def eval_batch(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The metrics of a prepared validation batch (running statistics)."""
+        return eval_step(self.state, batch, generator=self.generator, **self.step_kwargs)
+
     # -- loop ---------------------------------------------------------
     def train(self) -> None:
         if self.train_loader is None and self.device_corpus is None:
@@ -288,15 +319,26 @@ class TrainAgent:
                 budget_mb = 0
         budget_mb = float(budget_mb)
 
+        # a torch.profiler trace of the steps after the second (profile:
+        # {enable: true, logdir: ..., steps: N})
+        prof_cfg = self.config.get("profile", {}) or {}
+        prof = None
+        prof_done = not prof_cfg.get("enable")
+
         t0 = time.time()
         n_last_log = self.n_iter
         try:
             while self.n_iter < self.max_iter and not interrupted["flag"]:
                 n0 = self.n_iter
+                if not prof_done and prof is None and n0 >= 2 * self.r:
+                    prof = self._start_profile()
                 batch = self.prepare(self.next_batch(), train=True)
-                metrics = train_step(self.state, batch, generator=self.generator,
-                                     **self.step_kwargs)
+                metrics = self.step(batch)
                 self.n_iter = n0 + self.r
+                if prof is not None and self.n_iter >= (2 + int(prof_cfg.get("steps", 5))) * self.r:
+                    self._stop_profile(prof, Path(prof_cfg.get("logdir",
+                                                               self.exper.root / "profile")))
+                    prof, prof_done = None, True
 
                 if hits(n0, self.n_iter, tb_int):
                     scal = {k: float(v) for k, v in metrics.items()}
@@ -323,25 +365,122 @@ class TrainAgent:
                                     boundary(self.n_iter, save_int))
         finally:
             signal.signal(signal.SIGINT, prev_handler)
+            if prof is not None:
+                prof.__exit__(None, None, None)
             save_checkpoint(self.exper.checkpoints, self.state, self.n_iter)
             logger.close()
             if self._val_logger is not None:
                 self._val_logger.close()
                 self._val_logger = None
 
+    def _start_profile(self):
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        prof.__enter__()
+        return prof
+
+    def _stop_profile(self, prof, logdir: Path) -> None:
+        """Wait for the card, stop ``prof`` and write its Chrome trace as
+        ``<logdir>/trace_<n_iter>.json``."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.__exit__(None, None, None)
+        logdir.mkdir(parents=True, exist_ok=True)
+        path = logdir / f"trace_{self.n_iter}.json"
+        prof.export_chrome_trace(str(path))
+        log.info("profile of iterations up to %d written to %s", self.n_iter, path)
+
     def _validate(self, label: Optional[int] = None) -> Dict[str, float]:
         """The mean of each metric over ``validation_size + 1`` validation
         batches (running BatchNorm statistics), logged with the ``val_``
-        prefix at ``label`` (``n_iter`` without one)."""
+        prefix at ``label`` (``n_iter`` without one), with the residual
+        diagnostic (``val_residual_diagnostic``) and the first batch's
+        images."""
         if self._val_logger is None:
             self._val_logger = MetricsLogger(self.exper, "val")
+        logger = self._val_logger
+        step_label = self.n_iter if label is None else label
         n_batches = int(self.config.get("validation_size", 4)) + 1
         agg: Dict[str, list] = {}
-        for _ in range(n_batches):
+        first_batch = None
+        for i in range(n_batches):
             batch = self.prepare(next(self.val_loader), train=False)
-            metrics = eval_step(self.state, batch, generator=self.generator, **self.step_kwargs)
-            for k, v in metrics.items():
+            if i == 0:
+                first_batch = batch
+            for k, v in self.eval_batch(batch).items():
                 agg.setdefault(k, []).append(float(v))
         scalars = {k: float(np.mean(v)) for k, v in agg.items()}
-        self._val_logger.log(self.n_iter if label is None else label, scalars, prefix="val_")
+        if first_batch is not None and self.config.get("val_residual_diagnostic", False):
+            diag = self.residual_diagnostic(first_batch)
+            if diag is not None:
+                scalars["subpix_residual_err"], offsets = diag
+                logger.log_histogram(step_label, "val/subpix_residual_offsets", offsets)
+        logger.log(step_label, scalars, prefix="val_")
+        if first_batch is not None:
+            self._log_val_images(logger, first_batch, step_label)
         return scalars
+
+    def _eval_forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The model's evaluation forward (running statistics, no gradient);
+        its mode is restored after."""
+        model = self.state.model
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.no_grad():
+                return model(images)
+        finally:
+            model.train(was_training)
+
+    def residual_diagnostic(self, batch: Dict[str, torch.Tensor]):
+        """(mean soft-argmax residual error, predicted offsets [n, 2] numpy of
+        the valid points) of the batch's label points: each point rounded,
+        refined on the evaluation heatmap, and held against its true
+        fractional part (reference ``pred_soft_argmax`` diagnostics,
+        ``Train_model_heatmap_all.py:623-675``).  None when the batch has no
+        points or the diagnostic fails (it never stops training)."""
+        if "points" not in batch or "points_valid" not in batch:
+            return None
+        try:
+            heat = flatten_detection(self._eval_forward(batch["image"])["semi"])[..., 0]
+            pts, valid = batch["points"], batch["points_valid"]
+            r = torch.round(pts[..., :2])
+            err = subpixel_residual_loss(heat, r, pts[..., :2] - r, valid).mean()
+            pts3 = torch.cat([r, torch.zeros_like(r[..., :1])], dim=-1)
+            offsets = soft_argmax_refine(heat, pts3)[..., :2] - r
+            return float(err), offsets[valid].cpu().numpy()
+        except Exception:  # diagnostics must never kill training
+            log.exception("residual diagnostic failed")
+            return None
+
+    def _log_val_images(self, logger: MetricsLogger, batch: Dict[str, torch.Tensor],
+                        step: int) -> None:
+        """Heatmap and label overlay and NMS detections of the first
+        validation image and of its warped view (reference TensorBoard
+        images, ``Train_model_frontend_all.py:535-566``)."""
+        from ssp_torch.utils.draw import draw_keypoints, img_overlap
+
+        m = self.config["model"]
+        det_thresh = float(m.get("detection_threshold", 0.015))
+        nms_rad = int(m.get("nms", 4))
+
+        def panels(images, labels, tag):
+            heat_t = flatten_detection(self._eval_forward(images[:1])["semi"])[0, ..., 0]
+            heat = heat_t.cpu().numpy()
+            img = images[0, ..., 0].cpu().numpy()
+            logger.log_image(step, f"val/{tag}_heatmap_overlay",
+                             img_overlap(heat / max(float(heat.max()), 1e-6),
+                                         labels[0, ..., 0].cpu().numpy(), img))
+            pts, valid = extract_keypoints(heat_t.contiguous(), k=300, conf_thresh=det_thresh,
+                                           nms_radius=nms_rad)
+            logger.log_image(step, f"val/{tag}_nms_detections",
+                             draw_keypoints(img, pts[valid].cpu().numpy()))
+
+        try:
+            panels(batch["image"], batch["labels_2d"], "base")
+            if "warped_image" in batch:
+                panels(batch["warped_image"], batch["warped_labels_2d"], "warped")
+        except Exception:  # visualization must never kill training
+            log.exception("val image logging failed")

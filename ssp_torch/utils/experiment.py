@@ -15,6 +15,8 @@ import os
 from pathlib import Path
 from typing import Any, Dict, Optional
 
+import numpy as np
+
 
 def settings_paths() -> Dict[str, Path]:
     """DATA_PATH / EXPER_PATH roots (reference ``settings.py:6-9``),
@@ -61,7 +63,7 @@ class MetricsLogger:
     of seconds, and the port does not load TensorFlow), so the scalars go to
     JSONL alone there.  The event files go under ``<exper>/runs/<task>/``
     (the JAX logger writes ``runs/<task>/<exper>_<stamp>`` below the working
-    directory)."""
+    directory).  Images and histograms go to TensorBoard alone."""
 
     def __init__(self, exper: ExperimentPaths, task: str = "train"):
         self._jsonl = open(exper.root / f"metrics_{task}.jsonl", "a")
@@ -83,6 +85,29 @@ class MetricsLogger:
         if self._tb is not None:
             for k, v in scalars.items():
                 self._tb.add_scalar(f"{prefix}{k}", float(v), int(step))
+
+    def log_image(self, step: int, name: str, image) -> None:
+        """An image ([H, W] or [H, W, C], float in [0, 1] or uint8) to
+        TensorBoard (reference label, NMS and heatmap overlays,
+        ``Train_model_frontend_all.py:535-566``); nothing without it."""
+        if self._tb is None:
+            return
+        img = np.asarray(image)
+        if img.ndim == 2:
+            img = img[..., None]
+        if img.dtype != np.uint8:
+            img = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+        self._tb.add_image(name, img, int(step), dataformats="HWC")
+
+    def log_histogram(self, step: int, name: str, values) -> None:
+        """A value distribution to TensorBoard (reference subpixel-residual
+        histograms, ``Train_model_frontend_all.py:568-571``); nothing
+        without it or for no values."""
+        if self._tb is None:
+            return
+        vals = np.asarray(values).reshape(-1)
+        if vals.size:
+            self._tb.add_histogram(name, vals, int(step))
 
     def close(self) -> None:
         self._jsonl.close()

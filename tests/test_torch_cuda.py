@@ -579,3 +579,112 @@ def test_sweep_of_one_checkpoint_on_the_card(cuda, tmp_path, monkeypatch):
         rows = list(csv.DictReader(f))
     assert list(rows[0]) == CSV_FIELDS and rows[0]["iter"] == "1000"
     assert float(rows[0]["repeatability"]) > 0 and float(rows[0]["correctness_50"]) > 0
+
+
+def _train_batch(device, n=4, hw=(64, 96), seed=0):
+    """A prepared warped-pair batch on ``device`` (gather warp on the CPU,
+    moved over, so both devices see the same numbers)."""
+    from ssp_torch.data.pipeline import prepare_batch
+
+    rng = np.random.default_rng(seed)
+    g = torch.Generator().manual_seed(seed)
+    batch = prepare_batch(torch.from_numpy(rng.uniform(size=(n, *hw)).astype(np.float32)),
+                          torch.from_numpy(rng.uniform(0, 60, (n, 40, 2)).astype(np.float32)),
+                          torch.ones(n, 40, dtype=torch.bool), generator=g, host_generator=g,
+                          warped_pair={"enable": True, "params": {}})
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+@pytest.mark.cuda
+def test_dense_and_accumulated_steps_on_the_card_match_the_cpu(cuda):
+    """One dense-loss step and one accumulated (r = 2) step of gauss2 at fp32
+    with TF32 off, on the card against the CPU from the same weights: every
+    metric within rel 1e-3 (fp32 sums in another order through a forward
+    and a backward)."""
+    from ssp_torch.models.superpoint import build_model
+    from ssp_torch.train import TrainState, accum_train_step, train_step
+
+    kw = dict(semantic=False, warped_pair=True, desc_loss="dense",
+              desc_params={"lambda_d": 800, "descriptor_dist": 4}, multi_task=True)
+    cpu_batch = _train_batch(torch.device("cpu"))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for step in (lambda st, b: train_step(st, b, **kw),
+                     lambda st, b: accum_train_step(st, b, 2, **kw)):
+            got = {}
+            for dev in (torch.device("cpu"), cuda):
+                model = build_model("SuperPointNet_gauss2", device=dev,
+                                    generator=torch.Generator().manual_seed(0))
+                st = TrainState.create(model.train(), max_steps=10)
+                got[dev.type] = {k: float(v) for k, v in
+                                 step(st, {k: v.to(dev) for k, v in cpu_batch.items()}).items()}
+            for k, v in got["cpu"].items():
+                assert abs(got["cuda"][k] - v) <= 1e-3 * max(abs(v), 1e-6), (k, got)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+@pytest.mark.cuda
+def test_subpixel_net_and_agents_on_the_card(cuda):
+    """SubpixelNet's fp32 forward on the card (TF32 off) within 2e-4 of the
+    CPU's; one subpixel train step on the card finite; ``refine_points``
+    adds the offsets read on the card."""
+    from ssp_torch.models.superpoint import build_model
+    from ssp_torch.train import TrainState
+    from ssp_torch.train.subpixel_agent import SubpixelValAgent, subpixel_train_step
+
+    model = build_model("SubpixelNet", device="cpu", dtype=torch.float32,
+                        generator=torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(5).uniform(size=(2, 64, 96, 1))
+                         .astype(np.float32))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want = model(x)
+            got = model.to(cuda)(x.to(cuda))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    for k in ("semi", "desc", "subpixel"):
+        assert float((got[k].cpu() - want[k]).abs().max()) <= 2e-4, k
+    st = TrainState.create(model.train(), max_steps=10)
+    metrics = subpixel_train_step(st, _train_batch(cuda, n=2))
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    agent = SubpixelValAgent(model, device=cuda)
+    pts = torch.tensor([[[10.0, 20.0, 0.5], [95.0, 63.0, 0.9]]] * 2)
+    off = agent.run(x)["subpixel"]
+    refined = agent.refine_points(x, pts)
+    torch.testing.assert_close(refined[0, 0, :2].cpu(), pts[0, 0, :2] + off[0, 20, 10].cpu())
+
+
+@pytest.mark.cuda
+def test_val_agent_launches_the_kernels_once_per_image(cuda):
+    """``Val_model_heatmap`` on the trained weights at 240×320: the stem,
+    down1 and NMS kernels launch once per image, and its points and
+    descriptors agree with the same agent on the plain versions (at least
+    90% of the points at the same pixel, cosine ≥ 0.999 where shared)."""
+    from pathlib import Path
+
+    from ssp_torch.bench import structured_images
+    from ssp_torch.train.val_agent import ValAgent
+
+    npz = Path(__file__).resolve().parents[1] / "evidence" / "wsem_weights.npz"
+    cfg = {"model": {"name": "SuperPointNet_gauss2_ssmall", "params": {"n_classes": 133},
+                     "nms": 4, "top_k": 1000, "detection_threshold": 0.015},
+           "pretrained": str(npz)}
+    agent = ValAgent(cfg, device=cuda)
+    plain = ValAgent(cfg, device=cuda, reference=True)
+    counts = (stem_mod, down1_mod, nms_mod)
+    for img in structured_images(2, 240, 320, 7)[..., 0]:
+        before = [m.launches for m in counts]
+        agent.run(img)
+        assert [m.launches - b for m, b in zip(counts, before)] == [1, 1, 1]
+        plain.run(img)
+        got = {tuple(p[:2]): i for i, p in enumerate(agent.heatmap_to_pts().tolist())}
+        want = {tuple(p[:2]): i for i, p in enumerate(plain.heatmap_to_pts().tolist())}
+        shared = set(got) & set(want)
+        assert len(shared) >= 0.9 * max(len(got), len(want)) > 0
+        d, dp = agent.desc_to_sparse_desc(), plain.desc_to_sparse_desc()
+        cos = [float(d[got[k]] @ dp[want[k]]) for k in shared]
+        assert min(cos) >= 0.999

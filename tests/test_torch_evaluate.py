@@ -159,11 +159,17 @@ def test_flags_and_output_images(pairs, tmp_path, capsys):
     t_eval.main([str(port_dir), "-homo"])
     printed = capsys.readouterr().out
     assert "nn_map: " in printed and "repeatability" not in printed
-    with pytest.raises(NotImplementedError, match="item 10"):
-        t_eval.evaluate(port_dir, output_img=True)
-    with pytest.raises(SystemExit):
-        t_eval.main([str(port_dir), "-o"])
-    assert "item 10" in capsys.readouterr().err
+    # -o: the JAX CLI's drawings (OpenCV), pixel for pixel
+    jax_dir = tmp_path / "jax_img"
+    shutil.copytree(pairs, jax_dir)
+    j_eval.evaluate(jax_dir, do_rep=True, do_homo=False, output_img=True)
+    t_eval.main([str(port_dir), "-r", "-o"])
+    for sub in ("repeatibility3", "matching"):
+        names = sorted(p.name for p in (jax_dir / sub).iterdir())
+        assert names == sorted(p.name for p in (port_dir / sub).iterdir()) and names, sub
+        for name in names:
+            np.testing.assert_array_equal(cv2.imread(str(port_dir / sub / name)),
+                                          cv2.imread(str(jax_dir / sub / name)), err_msg=name)
     with pytest.raises(FileNotFoundError):
         t_eval.evaluate(tmp_path / "nowhere")
 

@@ -55,7 +55,10 @@ def test_port_files_found():
             "ssp_torch/cli/train.py"} <= names
     assert {"ssp_torch/data/raster.py", "ssp_torch/data/synthetic_shapes.py",
             "ssp_torch/data/synthetic_dataset.py"} <= names
-    assert len(names) > 55
+    assert {"ssp_torch/losses/descriptor_dense.py", "ssp_torch/losses/subpixel.py",
+            "ssp_torch/models/subpixel.py", "ssp_torch/train/subpixel_agent.py",
+            "ssp_torch/train/val_agent.py", "ssp_torch/utils/draw.py"} <= names
+    assert len(names) > 61
 
 
 def test_fresh_interpreter_imports_every_module_without_jax_ssp_cv2():

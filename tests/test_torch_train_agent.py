@@ -20,7 +20,9 @@ bf16 convolutions are slow on a CPU, and the bf16 forward has its own test in
   ``load_weights_npz`` and into the port's ``load_weights``, and the two
   evaluation forwards agree at the fp32 bars (2e-4 on semi and desc, 2e-3
   on sem); a full resume continues a run exactly;
-* what is not ported is refused with its ROADMAP.md item.
+* the options once refused (exact accumulation, the dense loss,
+  ``--max-restarts``) now build and dispatch; multi-host runs
+  (``SSP_DISTRIBUTED``) are still refused with their ROADMAP.md item.
 """
 
 import copy
@@ -289,16 +291,32 @@ def test_full_resume_continues_exactly(tmp_path):
     (lambda c: c["model"]["dense_loss"].update(enable=True), "dense loss"),
 ])
 def test_unported_options_are_refused(tmp_path, change, match):
+    """The two options this test once saw refused now build: ``exact_accumulation``
+    with r = 2 takes the accumulated step, ``dense_loss`` the dense loss with
+    the config's ``lambda_d`` and ``descriptor_dist`` (the JAX trainer's
+    mapping, ``ssp/train/trainer.py:162-167``)."""
     cfg = _config(tmp_path)
     change(cfg)
-    with pytest.raises(NotImplementedError, match=match):
-        TrainAgent(cfg, save_path=ExperimentPaths("refused", tmp_path), device="cpu")
+    agent = TrainAgent(cfg, save_path=ExperimentPaths("refused", tmp_path), device="cpu")
+    if match == "accumulation":
+        assert agent.r == 2 and agent.accumulate
+        assert agent.step_kwargs["desc_loss"] == "sparse"
+    else:
+        assert not agent.accumulate
+        assert agent.step_kwargs["desc_loss"] == "dense"
+        assert agent.step_kwargs["desc_params"] == {"lambda_d": 800, "descriptor_dist": 4}
 
 
 def test_cli_refuses_restarts_and_multi_host(monkeypatch, capsys):
-    with pytest.raises(SystemExit):
-        cli.main(["train_joint", "cfg.yaml", "exp", "--max-restarts", "2"])
-    assert "supervised restarts" in capsys.readouterr().err
+    """``--max-restarts`` hands the run to the supervisor with the device
+    (``tests/test_torch_train_telemetry.py`` runs it); multi-host runs are
+    refused."""
+    calls = []
+    monkeypatch.setattr(cli, "run_supervised", lambda *a, **k: calls.append((a, k)) or 0)
+    with pytest.raises(SystemExit) as e:
+        cli.main(["train_joint", "cfg.yaml", "exp", "--max-restarts", "2", "--device", "cpu"])
+    assert e.value.code == 0
+    assert calls == [(("train_joint", "cfg.yaml", "exp", 2), {"debug": False, "device": "cpu"})]
     monkeypatch.setenv("SSP_DISTRIBUTED", "1")
     with pytest.raises(SystemExit):
         cli.main(["train_joint", "cfg.yaml", "exp"])
