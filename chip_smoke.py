@@ -184,14 +184,41 @@ failure (nothing is caught):
     all K points (subpixel off, as phase 12 holds its detections);
     (e) ``evaluate -o`` over a copy of phase 12's export, every PNG decoded by
     the port's decoder to the luma of the canvas drawn again.
+20. ``[rest]``, deployment, data parallelism and the host ops: (a) the host
+    ops of ``ssp_torch.native`` (C++ ``ops_host.cpp``, built by g++ in phase
+    2): the greedy NMS on phase 12's heatmap of its first image at 240×320 and
+    at twice that size, the two-way matcher on the main path's 1000×1000×256
+    descriptors and the bilinear warp at 240×320, each held against its
+    plain numpy version (the warp within VRES_TOL, the others exactly) and
+    timed by the host clock; (b) ``python -m ssp_torch.cli.import_torch`` of
+    the trained weights written as a reference ``.pth.tar``, then phase 12's
+    ``export_descriptor`` on REST_PAIRS of its pairs from the imported
+    checkpoint: the same files (points, descriptors, matches); (c)
+    ``convert2script`` of ssmall-133 at 1×240×320 at fp32 and bf16, each
+    program loaded back and held against the eager module (ART_ATOL at fp32
+    with TF32 off, phase 5's bars at bf16), ms per image of the programs, the
+    eager modules and ``best_apply_fn``'s kernel path; (d) the flagship step
+    on REST_WORLD ranks of the one card over gloo (this script with
+    ``--rest-rank``) against one process on the same prepared batch and draws
+    (loss and Σ|p| within TRAIN_REL, the ηs equal on the ranks), one rank
+    over NCCL at world size 1 against the same, ms per step of each over
+    REST_TIMED steps with ``vresample_coef`` 4 per rank per step, and
+    ``train_joint`` on the ranks for REST_RUN's schedule (rank 0 alone
+    writes; NMS only on rank 0's validation images); (e)
+    ``export_detector_homoAdapt`` on REST_WORLD ranks of the one card over
+    phase 16's images: the same files as phase 16's one process, each written
+    once, the points within HA_MULTI_MAX, every rank launching the stem,
+    down1, NMS and ``vresample_coef``, img/s.
 
 Prints a ``{"kernels": [...]}`` line (each row also with the launches of
 phase 12's export, ``launches_export``, of phase 13's sweep,
 ``launches_sweep``, of phases 15, 16, 17 and 18, ``launches_sequence``,
 ``launches_ha_cli``, ``launches_train`` and ``launches_synth``, of
-phase 18's reload, ``launches_synth_reload``, and of phase 19's four runs,
+phase 18's reload, ``launches_synth_reload``, of phase 19's four runs,
 ``launches_dense``, ``launches_accum``, ``launches_subpixel`` and
-``launches_val_agent``; for the stem, down1 and NMS
+``launches_val_agent``, and of phase 20, ``launches_rest``: (b)'s export,
+(d)'s timed steps and train CLI on every rank and (e)'s export on every
+rank; for the stem, down1 and NMS
 their times at 1×240×320, ``export_1x240x320``, and at 1×384×1248,
 ``sequence_1x384x1248``; for ``vresample_coef`` its time at the training
 shapes, ``train_16x320x320``), then the ``nvidia-smi`` line, and last
@@ -241,7 +268,7 @@ from ssp_torch.export.descriptors_export import (make_detect_describe_fn, run_de
                                                  run_sequence_export)
 from ssp_torch.export.homography_adaptation import DEFAULT_HA, make_ha_fn, run_ha_export
 from ssp_torch.kernels import _build
-from ssp_torch.losses.descriptor_sparse import cell_matches, sample_draws
+from ssp_torch.losses.descriptor_sparse import SparseDraws, cell_matches, sample_draws
 from ssp_torch.kernels import down1 as down1_mod
 from ssp_torch.kernels import nms as nms_mod
 from ssp_torch.kernels import stem as stem_mod
@@ -397,6 +424,22 @@ VRES_TOL = 1e-6
 # refined point counts as the same when a plain-path point lies within half a
 # pixel; the share bar is SHARED_MIN, for the reason given there
 SAME_PX = 0.5
+# phase 20 [rest]: (b) phase 12's export from the imported checkpoint on
+# REST_PAIRS of its pairs; (d) the flagship step on REST_WORLD ranks of the one
+# card against one process, REST_TIMED timed steps each, and the train CLI on
+# the ranks for REST_RUN's schedule; (e) the HA CLI on REST_WORLD ranks
+REST_PAIRS = 4
+REST_WORLD = 2
+REST_TIMED = 10
+REST_RUN = {"train_iter": 4, "validation_interval": 4, "save_interval": 4,
+            "tensorboard_interval": 1, "validation_size": 0}
+# (c) the deployment program against the eager module at fp32, TF32 off: the
+# fp32 forward bar of the port's parity tests (the same ops, algorithms may
+# differ); at bf16 phase 5's REL_MAX and COS_MIN
+ART_ATOL = 2e-4
+# (e) the points of the multi-rank HA export against the one-process export:
+# the bar of the JAX package's multi-process test (tests/test_multiproc.py)
+HA_MULTI_MAX = 1e-5
 
 
 def log(msg: str) -> None:
@@ -1083,6 +1126,7 @@ def main() -> None:
         train = train_phase(dev, td, smi)
         synth = synth_phase(dev, td, smi)
         train2 = train2_phase(dev, td, smi)
+        rest = rest_phase(dev, td, smi, desc)
     for row in kernels:
         row["launches_export"] = export_launches.get(row["name"], 0)
         row["launches_sweep"] = sweep_launches.get(row["name"], 0)
@@ -1093,6 +1137,7 @@ def main() -> None:
         row["launches_synth_reload"] = synth["reload_launches"].get(row["name"], 0)
         for path in ("dense", "accum", "subpixel", "val_agent"):
             row[f"launches_{path}"] = train2[path].get(row["name"], 0)
+        row["launches_rest"] = rest.get(row["name"], 0)
         if row["name"] in export_times:
             row["export_1x240x320"] = export_times[row["name"]]
         if row["name"] in sequence_times:
@@ -2389,5 +2434,357 @@ def train2_phase(dev: torch.device, td: Path, smi: str) -> dict:
     return out
 
 
+def _host_ms(fn, reps: int) -> float:
+    """Mean host-clock ms of ``fn()`` over ``reps`` calls."""
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _step_result(state, metrics) -> dict:
+    """A step's loss, the parameter checksum Σ|p| (fp64) and the ηs."""
+    return {"loss": float(metrics["loss"]),
+            "checksum": sum(float(p.detach().double().abs().sum())
+                            for p in state.model.parameters()),
+            "etas": state.etas.detach().cpu().clone()}
+
+
+def _timed_steps(agent, n: int):
+    """ms per training step by the host clock (a batch sampled from the device
+    corpus, prepared, one update), and the launches of the ``n`` steps."""
+    agent.step(agent.prepare(agent.next_batch()))
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        agent.step(agent.prepare(agent.next_batch()))
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n, read_launches()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_ranks(job: str, world: int, backend: str, work: Path, timeout: float = 300) -> list:
+    """``world`` processes of this script (``--rest-rank``), every one on the
+    one card (``LOCAL_RANK`` 0), joined over ``backend``; their results in
+    rank order.  All are killed when one fails or at ``timeout`` seconds."""
+    port, procs = _free_port(), []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        out = open(work / f"{job}_{world}_{r}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--rest-rank", job, backend,
+             str(work)], env=env, stdout=out, stderr=subprocess.STDOUT), out))
+    deadline = time.time() + timeout
+    try:
+        while time.time() < deadline:
+            codes = [p.poll() for p, _ in procs]
+            if None not in codes or any(c not in (None, 0) for c in codes):
+                break
+            time.sleep(0.5)
+    finally:
+        for p, out in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            out.close()
+    failed = [r for r, (p, _) in enumerate(procs) if p.returncode != 0]
+    if failed:
+        tails = {r: (work / f"{job}_{world}_{r}.log").read_text()[-3000:] for r in failed}
+        raise AssertionError(f"[rest] {job} ranks {failed} of {world} failed: {tails}")
+    return [torch.load(work / f"{job}_{world}_{r}.pt", weights_only=False) for r in range(world)]
+
+
+def rest_rank(job: str, backend: str, work: Path) -> None:
+    """One rank of phase 20 (``python chip_smoke.py --rest-rank <job>
+    <backend> <dir>``, rank and world from the environment): ``train``, the
+    flagship step on this rank's rows of the parent's prepared batch, timed
+    steps, and (on several ranks) the train CLI's ``train_joint``; ``ha``, the
+    HA CLI's ``export_detector_homoAdapt``.  Writes its result to ``dir``."""
+    from ssp_torch.parallel import mesh
+    from ssp_torch.train.trainer import TrainAgent
+    from ssp_torch.utils.experiment import ExperimentPaths
+
+    dev = mesh.init_distributed("cuda", backend=backend)
+    rank, world = mesh.rank(), mesh.world()
+    if job == "train":
+        inp = torch.load(work / "train_in.pt", weights_only=False)
+        cfg = inp["cfg"]
+        agent = TrainAgent(cfg, save_path=ExperimentPaths(f"rest_ranks{world}"), device=dev)
+        agent.attach_device_corpus(train_cli.make_dataset(cfg, "train"))
+        batch = mesh.shard_rows({k: v.to(dev) for k, v in inp["batch"].items()}, world, rank)
+        draws = mesh.shard_rows({k: v.to(dev) for k, v in inp["draws"].items()}, world, rank)
+        metrics = train_step(agent.state, batch, desc_draws=SparseDraws(**draws),
+                             **agent.step_kwargs)
+        out = _step_result(agent.state, metrics)
+        out["ms"], out["launches"] = _timed_steps(agent, REST_TIMED)
+        if world > 1:
+            reset_launches()
+            t0 = time.perf_counter()
+            train_cli.train_joint(dict(cfg, **REST_RUN), "rest_cli", device=dev)
+            torch.cuda.synchronize()
+            out["cli_s"], out["cli_launches"] = time.perf_counter() - t0, read_launches()
+    else:
+        config = {**HA_CLI_CONFIG, "pretrained": str(ROOT / HA_CLI_CONFIG["pretrained"])}
+        reset_launches()
+        t0 = time.perf_counter()
+        written = export_detector_homoAdapt(config, "ha_rest", device=dev)
+        torch.cuda.synchronize()
+        out = {"written": written, "s": time.perf_counter() - t0, "launches": read_launches()}
+    torch.save(out, work / f"{job}_{world}_{rank}.pt")
+    mesh.shutdown()
+
+
+def rest_phase(dev: torch.device, td: Path, smi: str, main_desc: torch.Tensor) -> dict:
+    """Phase 20 [rest]: the host ops, ``import_torch``, ``convert2script``,
+    multi-rank training and the multi-rank HA export, on the trees and
+    outputs of phases 12, 16 and 17 under ``td``.  Returns the launches per
+    kernel of (b)'s export, (d)'s timed steps and train CLI on every rank and
+    (e)'s export on every rank."""
+    from ssp_torch import native
+    from ssp_torch.cli import import_torch
+    from ssp_torch.cli.convert2script import export_model
+    from ssp_torch.train.trainer import TrainAgent
+    from ssp_torch.utils.experiment import ExperimentPaths
+
+    torch.cuda.empty_cache()
+    work = td / "rest"
+    work.mkdir()
+    name = HPATCHES_CONFIG["model"]["name"]
+    hh, hw = HPATCHES_CONFIG["data"]["preprocessing"]["resize"]
+    preds = td / "logs" / "smoke" / "predictions"
+    with np.load(preds / "0.npz") as z:
+        img = z["image"][..., 0] if z["image"].ndim == 3 else z["image"]
+    img = np.ascontiguousarray(img, np.float32)
+    total: dict = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    # ---- (a) the host ops against their plain numpy versions
+    ss = load_flax_npz(NPZ, name, device=dev)
+    maps = {}
+    for shape, im in (((hh, hw), img), ((2 * hh, 2 * hw), np.kron(img, np.ones((2, 2))))):
+        with torch.inference_mode():
+            semi = best_apply_fn(ss, input_hw=shape, device=dev)(
+                torch.from_numpy(im[None, ..., None].astype(np.float32)).to(dev))["semi"]
+        maps[shape] = flatten_detection(semi)[0, ..., 0].float().cpu().numpy()
+    m = HPATCHES_CONFIG["model"]
+    for shape, heat in maps.items():
+        got = native.greedy_nms(heat, m["nms"], m["detection_threshold"])
+        want = native.greedy_nms_plain(heat, m["nms"], m["detection_threshold"])
+        if not np.array_equal(got, want):
+            raise AssertionError(f"[rest] greedy_nms {shape}: {int((got != want).sum())} cells "
+                                 f"differ from the plain version")
+        args = (heat, m["nms"], m["detection_threshold"])
+        log(f"[rest] (a) greedy_nms on phase 12's heatmap at {shape[0]}x{shape[1]} (dist "
+            f"{m['nms']}, min score {m['detection_threshold']}): {int(got.sum())} kept, equal "
+            f"to the plain version; {_host_ms(lambda: native.greedy_nms(*args), 20):.3f} ms "
+            f"(C++), plain {_host_ms(lambda: native.greedy_nms_plain(*args), 2):.3f} ms, host "
+            f"clock")
+    d1, d2 = (main_desc[i].float().cpu().numpy() for i in (0, 1))
+    got = native.nn_match_two_way_native(d1, d2, m["nn_thresh"])
+    want = native.nn_match_two_way_plain(d1, d2, m["nn_thresh"])
+    if got.shape != want.shape or not np.array_equal(got, want):
+        raise AssertionError(f"[rest] matcher {got.shape} differs from the plain {want.shape}")
+    log(f"[rest] (a) nn_match_two_way_native on the main path's {d1.shape[0]}x{d2.shape[0]}x"
+        f"{d1.shape[1]} descriptors: {got.shape[1]} mutual matches under {m['nn_thresh']}, "
+        f"equal to the plain version; "
+        f"{_host_ms(lambda: native.nn_match_two_way_native(d1, d2, m['nn_thresh']), 3):.3f} ms "
+        f"(C++), plain {_host_ms(lambda: native.nn_match_two_way_plain(d1, d2, m['nn_thresh']), 1):.3f}"
+        f" ms")
+    ha_h = HA_CLI_CONFIG["data"]["homography_adaptation"]["homographies"]["params"]
+    Hm = sample_homographies(1, generator=torch.Generator().manual_seed(SEED + 20),
+                             **ha_h)[0].double().numpy()
+    got = native.inv_warp_bilinear(img, Hm)
+    err = float(np.abs(got - native.inv_warp_bilinear_plain(img, Hm)).max())
+    if not err <= VRES_TOL:
+        raise AssertionError(f"[rest] inv_warp_bilinear: max abs err {err} > {VRES_TOL}")
+    log(f"[rest] (a) inv_warp_bilinear at {hh}x{hw}: max abs err {err:.3g} against the plain "
+        f"version; {_host_ms(lambda: native.inv_warp_bilinear(img, Hm), 20):.3f} ms (C++), "
+        f"plain {_host_ms(lambda: native.inv_warp_bilinear_plain(img, Hm), 5):.3f} ms")
+
+    # ---- (b) import_torch: the trained weights as a reference checkpoint
+    # file, imported, then phase 12's export on REST_PAIRS of its pairs
+    torch.save({"model_state_dict": read_state_dict(NPZ, name), "n_iter": 200000},
+               work / "wsem.pth.tar")
+    imported = import_torch.main([str(work / "wsem.pth.tar"), str(work / "imported"),
+                                  "--model", name, "--n-classes", "133"])
+    if imported.name != "superPointNet_200000.pth.tar":
+        raise AssertionError(f"[rest] import wrote {imported}")
+    sub = work / "HPatches"
+    sub.mkdir()
+    for seq in sorted(p for p in (td / "HPatches").iterdir() if p.is_dir())[
+            :REST_PAIRS // len(HP_VIEWS)]:
+        (sub / seq.name).symlink_to(seq, target_is_directory=True)
+    config = copy.deepcopy(HPATCHES_CONFIG)
+    config["data"]["root"], config["pretrained"] = str(sub), str(imported)
+    reset_launches()
+    written = export_descriptor(config, "rest_import", device=dev)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    add(launches)
+    if written != REST_PAIRS or any(launches[k] != 2 * REST_PAIRS for k in ("stem", "down1", "nms")):
+        raise AssertionError(f"[rest] export from the import: {written} pairs, {launches}")
+    for i in range(REST_PAIRS):
+        with np.load(td / "logs" / "rest_import" / "predictions" / f"{i}.npz") as a, \
+                np.load(preds / f"{i}.npz") as b:
+            if a.files != b.files or not all(np.array_equal(a[k], b[k]) for k in a.files):
+                raise AssertionError(f"[rest] pair {i} from the import differs from phase 12's")
+    log(f"[rest] (b) import_torch of {NPZ.name} written as a reference .pth.tar: "
+        f"{imported.name}; export_descriptor from it on {REST_PAIRS} pairs equals phase 12's "
+        f"files (points, descriptors, matches); launches {launches}")
+
+    # ---- (c) convert2script: ssmall-133 at 1x240x320, fp32 and bf16
+    x = torch.from_numpy(img[None, ..., None]).to(dev)
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    times = {}
+    try:
+        for dt in ("float32", "bfloat16"):
+            cfg = {"model": {"name": name, "params": {"n_classes": 133, "dtype": dt}},
+                   "pretrained": str(imported)}
+            t0 = time.perf_counter()
+            path = export_model(cfg, work / f"ssmall_{dt}.pt2", 1, hh, hw, device=dev)
+            export_s = time.perf_counter() - t0
+            program = torch.export.load(path).module()
+            eager = load_weights(imported, name, cfg["model"]["params"], device=dev)
+            with torch.no_grad():
+                a, e = program(x), eager(x)
+                errs = {k: float((u.float() - e[k].float()).abs().max())
+                        for k, u in zip(("semi", "desc"), a)}
+                scale = {k: float(e[k].float().abs().max()) for k in errs}
+                cos = float((a[1].float() * e["desc"].float()).sum(-1).min())
+                times[dt] = (time_ms(lambda: program(x)), time_ms(lambda: eager(x)))
+            ok = (max(errs.values()) <= ART_ATOL if dt == "float32" else
+                  all(errs[k] <= REL_MAX * scale[k] for k in errs) and cos >= COS_MIN)
+            log(f"[rest] (c) convert2script {dt} 1x{hh}x{hw}: {path.stat().st_size} bytes in "
+                f"{export_s:.1f} s; the loaded program against the eager module: max abs err "
+                f"{errs}, desc cosine >= {cos:.6f}")
+            if not ok or a[0].shape != (1, hh // 8, hw // 8, 65):
+                raise AssertionError(f"[rest] the {dt} program: {errs}, cosine {cos}")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    fast = best_apply_fn(ss, input_hw=(hh, hw), device=dev)
+    fast_ms = time_ms(lambda: fast(x))
+    log(f"[rest] (c) ms per image at 1x{hh}x{hw} by CUDA events ({smi}): program fp32 "
+        f"{times['float32'][0]:.3f}, eager fp32 {times['float32'][1]:.3f}, program bf16 "
+        f"{times['bfloat16'][0]:.3f}, eager bf16 {times['bfloat16'][1]:.3f}, best_apply_fn's "
+        f"kernel path {fast_ms:.3f}")
+    del ss, fast
+    torch.cuda.empty_cache()
+
+    # ---- (d) the flagship step on REST_WORLD ranks of the one card (gloo)
+    # against one process on the same prepared global batch and draws
+    cfg = yaml.safe_load((td / "train_cfg.yaml").read_text())
+    agent = TrainAgent(cfg, save_path=ExperimentPaths("rest_single"), device=dev)
+    agent.attach_device_corpus(train_cli.make_dataset(cfg, "train"))
+    batch = agent.prepare(agent.next_batch())
+    p = agent.step_kwargs["desc_params"]
+    th, tw = cfg["data"]["preprocessing"]["resize"]
+    _, _, valid = cell_matches(batch["H_pair"], (th // 8, tw // 8))
+    draws = sample_draws(valid, p["num_matching_attempts"], p["num_masked_non_matches_per_match"],
+                         torch.Generator(dev).manual_seed(SEED + 20))
+    torch.save({"cfg": cfg, "batch": {k: v.cpu() for k, v in batch.items()},
+                "draws": {k: v.cpu() for k, v in vars(draws).items()}}, work / "train_in.pt")
+    one = _step_result(agent.state, train_step(agent.state, batch, desc_draws=draws,
+                                               **agent.step_kwargs))
+    one["ms"], one_launches = _timed_steps(agent, REST_TIMED)
+    del agent, batch
+    torch.cuda.empty_cache()
+    B = cfg["model"]["batch_size"]
+    ranks = run_ranks("train", REST_WORLD, "gloo", work)
+    nccl = run_ranks("train", 1, "nccl", work)[0]
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-12)
+
+    worst = max(max(rel(r["loss"], one["loss"]), rel(r["checksum"], one["checksum"]))
+                for r in ranks)
+    nccl_diff = max(rel(nccl["loss"], one["loss"]), rel(nccl["checksum"], one["checksum"]))
+    coef = [r["launches"]["vresample_coef"] / REST_TIMED for r in ranks]
+    log(f"[rest] (d) the flagship step ({B} pairs at {th}x{tw}, ssmall-133, sparse, Kendall) on "
+        f"{REST_WORLD} ranks of one card over gloo, {B // REST_WORLD} pairs each, against one "
+        f"process on the same prepared batch and draws: loss {[r['loss'] for r in ranks]} / "
+        f"{one['loss']:.6f}, checksum {[r['checksum'] for r in ranks]} / {one['checksum']:.4f}: "
+        f"max rel diff {worst:.3g} (bar {TRAIN_REL}); ηs per rank "
+        f"{[r['etas'].tolist() for r in ranks]}; one rank over NCCL at world size 1 against "
+        f"the non-distributed step: max rel diff {nccl_diff:.3g}")
+    log(f"[rest] (d) ms/step by the host clock over {REST_TIMED} steps ({smi}): one process "
+        f"{one['ms']:.3f} ({B} pairs), {REST_WORLD} ranks on one card "
+        f"{[round(r['ms'], 3) for r in ranks]} ({B // REST_WORLD} pairs each), NCCL world 1 "
+        f"{nccl['ms']:.3f}; vresample_coef per rank per step {coef} (one process "
+        f"{one_launches['vresample_coef'] / REST_TIMED})")
+    if worst > TRAIN_REL or nccl_diff > TRAIN_REL:
+        raise AssertionError(f"[rest] multi-rank step: {worst}, NCCL world 1: {nccl_diff}")
+    if not torch.equal(ranks[0]["etas"], ranks[1]["etas"]):
+        raise AssertionError(f"[rest] the ranks' ηs differ: {[r['etas'] for r in ranks]}")
+    if coef != [4.0] * REST_WORLD:
+        raise AssertionError(f"[rest] vresample_coef per rank per step {coef}, expected 4")
+    steps, n_val = REST_RUN["train_iter"], 1
+    exper = td / "logs" / "rest_cli"
+    rows = [json.loads(r) for r in (exper / "metrics_train.jsonl").read_text().splitlines()]
+    for r, res in enumerate(ranks):
+        want = {"stem": 0, "down1": 0, "nms": 2 * n_val if r == 0 else 0, "vresample": 0,
+                "vresample_coef": 4 * (steps + n_val)}
+        if res["cli_launches"] != want:
+            raise AssertionError(f"[rest] train CLI rank {r}: launches {res['cli_launches']}, "
+                                 f"expected {want}")
+        add(res["launches"])
+        add(res["cli_launches"])
+    if [r["step"] for r in rows] != list(range(steps)) or \
+            not all(np.isfinite(v) for r in rows for v in r.values()) or \
+            not (exper / "checkpoints" / f"superPointNet_{steps}.pth.tar").exists():
+        raise AssertionError(f"[rest] train CLI on {REST_WORLD} ranks: rows {rows}")
+    log(f"[rest] (d) train_joint on {REST_WORLD} ranks ({steps} steps, one validation): "
+        f"{[round(r['cli_s'], 2) for r in ranks]} s with the model load; rank 0 alone wrote "
+        f"{len(rows)} metric rows and the checkpoints; launches per rank "
+        f"{[r['cli_launches'] for r in ranks]}")
+
+    # ---- (e) the HA CLI on REST_WORLD ranks of the one card
+    t0 = time.perf_counter()
+    ha = run_ranks("ha", REST_WORLD, "gloo", work)
+    wall = time.perf_counter() - t0
+    single = td / "logs" / "ha_cli" / "predictions" / "train2017"
+    multi = td / "logs" / "ha_rest" / "predictions" / "train2017"
+    names = sorted(f.name for f in single.glob("*.npz"))
+    n = len(names)
+    if sorted(f.name for f in multi.glob("*.npz")) != names or \
+            sum(r["written"] for r in ha) != n:
+        raise AssertionError(f"[rest] HA on {REST_WORLD} ranks wrote {[r['written'] for r in ha]}")
+    diff = 0.0
+    for f in names:
+        with np.load(single / f) as a, np.load(multi / f) as b:
+            if a["pts"].shape != b["pts"].shape:
+                raise AssertionError(f"[rest] {f}: {a['pts'].shape} vs {b['pts'].shape}")
+            diff = max(diff, float(np.abs(a["pts"] - b["pts"]).max(initial=0.0)))
+    for r, res in enumerate(ha):
+        idle = [k for k in ("stem", "down1", "nms", "vresample_coef") if res["launches"][k] == 0]
+        if idle:
+            raise AssertionError(f"[rest] HA rank {r} launched no {idle}")
+        add(res["launches"])
+    audit = (td / "logs" / "ha_rest" / "export.txt").read_text().splitlines()
+    log(f"[rest] (e) export_detector_homoAdapt on {REST_WORLD} ranks of one card: "
+        f"{[r['written'] for r in ha]} of the {n} images each, the same {n} files as phase 16's "
+        f"one process, points max abs diff {diff:.3g} (bar {HA_MULTI_MAX}); launches per rank "
+        f"{[r['launches'] for r in ha]}; {n / max(r['s'] for r in ha):.2f} img/s over the "
+        f"ranks' exports with the model load ({wall:.1f} s with the processes' start; {smi})")
+    if diff > HA_MULTI_MAX or len(audit) != 2:
+        raise AssertionError(f"[rest] HA on {REST_WORLD} ranks: diff {diff}, audit {audit}")
+    return total
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:2] == ["--rest-rank"]:
+        rest_rank(sys.argv[2], sys.argv[3], Path(sys.argv[4]))
+    else:
+        sys.exit(main())

@@ -19,12 +19,25 @@ Usage::
 
 Each runs on the card unless ``--device cpu`` is given, and skips the files
 that exist, so a stopped export resumes.
+
+``export_detector_homoAdapt`` also runs over several processes, one per card,
+as the JAX CLI shards its groups over a mesh of all devices: with
+``SSP_DISTRIBUTED`` set each process of a ``torchrun --nproc_per_node=N``
+launch joins the process group (``ssp_torch.parallel.init_distributed``) and
+exports its share of the images on its own card, one image per call::
+
+  SSP_DISTRIBUTED=1 torchrun --nproc_per_node=N -m ssp_torch.cli.export \
+      export_detector_homoAdapt <config> <exper_name>
+
+``export_descriptor`` and ``export_sequence`` run in one process, as in the
+JAX package.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 from typing import Any, Dict
 
 import torch
@@ -33,6 +46,7 @@ import torch.nn as nn
 from ssp_torch import registry
 from ssp_torch.models.superpoint import build_model
 from ssp_torch.models.weights import load_weights
+from ssp_torch.parallel import mesh
 from ssp_torch.utils.config import load_config
 from ssp_torch.utils.experiment import ExperimentPaths
 
@@ -97,8 +111,11 @@ def _dataset(config: Dict[str, Any]):
 def export_detector_homoAdapt(config: Dict[str, Any], exper_name: str, *, device="cuda") -> int:
     """Stage-2 homography-adaptation pseudo-labels from ``config`` (see
     ``configs/magicpoint_coco_export.yaml``); returns the number of npz
-    files written.  One image per call (``group=1``), as the JAX CLI runs on
-    one device; its ``one_dispatch`` mode is not carried over and raises."""
+    files this process wrote.  One image per call (``group=1``), as the JAX
+    CLI runs on one device; in a process group (``ssp_torch.parallel``) each
+    rank exports its share of the images (``run_ha_export``'s ``rank`` and
+    ``world``) and rank 0 writes ``export.txt``.  The JAX CLI's
+    ``one_dispatch`` mode is not carried over and raises."""
     from ssp_torch.export.homography_adaptation import make_ha_fn, run_ha_export
     from ssp_torch.models.fast_infer import best_apply_fn
 
@@ -129,11 +146,12 @@ def export_detector_homoAdapt(config: Dict[str, Any], exper_name: str, *, device
     exper = ExperimentPaths(exper_name)
     out_dir = exper.predictions / type(dataset).split_dir(split)
     # audit log, appended across resumed runs (reference export.py:263-275)
-    with open(exper.root / "export.txt", "a") as audit:
-        audit.write(f"load model: {config.get('pretrained') or m.get('pretrained')}\n")
-        audit.write(f"homography adaptation: {num}\n")
+    if mesh.is_rank0():
+        with open(exper.root / "export.txt", "a") as audit:
+            audit.write(f"load model: {config.get('pretrained') or m.get('pretrained')}\n")
+            audit.write(f"homography adaptation: {num}\n")
     n = run_ha_export(ha_fn, dataset.images(), out_dir, seed=int(config.get("seed", 0)),
-                      group=1)
+                      group=1, rank=mesh.rank(), world=mesh.world())
     log.info("exported %d predictions to %s", n, out_dir)
     return n
 
@@ -182,7 +200,14 @@ def main(argv=None) -> None:
         p.add_argument("exper_name")
         p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    COMMANDS[args.command](load_config(args.config), args.exper_name, device=args.device)
+    distributed = bool(os.environ.get("SSP_DISTRIBUTED"))
+    if distributed and args.command != "export_detector_homoAdapt":
+        ap.error(f"SSP_DISTRIBUTED: {args.command} runs in one process (only "
+                 f"export_detector_homoAdapt runs over several)")
+    device = mesh.init_distributed(args.device) if distributed else args.device
+    COMMANDS[args.command](load_config(args.config), args.exper_name, device=device)
+    if distributed:
+        mesh.shutdown()
 
 
 if __name__ == "__main__":

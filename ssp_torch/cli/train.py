@@ -23,8 +23,22 @@ training runs in a child ``python -m ssp_torch.cli.train`` on the same
 kill) it is relaunched from the newest checkpoint through
 ``<exper>/resume_auto.yaml``, up to N times, and a child whose metrics files
 stop moving for ``SSP_STALL_TIMEOUT_S`` seconds (default 2400) is killed and
-relaunched so.  Multi-host runs (``SSP_DISTRIBUTED``) are not ported and
-exit with an error naming their ROADMAP.md item.
+relaunched so.
+
+Data-parallel training: with ``SSP_DISTRIBUTED`` set, each process of a
+``torchrun --nproc_per_node=N`` launch joins the process group
+(``ssp_torch.parallel.init_distributed``: NCCL, one card per rank,
+``cuda:LOCAL_RANK``; gloo over the CPU with ``--device cpu``) and trains its
+share of every global batch (``ssp_torch.train.trainer``)::
+
+  SSP_DISTRIBUTED=1 torchrun --nproc_per_node=N -m ssp_torch.cli.train \
+      train_joint <config> <exper_name>
+
+The JAX CLI's ``SSP_DISTRIBUTED`` joins a multi-host JAX runtime and then
+supervises children that would each join it again; the port refuses
+``--max-restarts`` with ``SSP_DISTRIBUTED`` instead: torchrun's own
+``--max-restarts`` relaunches every rank of a failed run, and a relaunch
+resumes from the newest checkpoint (``auto_resume``).
 """
 
 from __future__ import annotations
@@ -38,6 +52,7 @@ import time
 
 from ssp_torch import registry
 from ssp_torch.data.prefetch import Prefetcher
+from ssp_torch.parallel import mesh
 from ssp_torch.train import trainer as _trainer  # noqa: F401  (registers the agent names)
 from ssp_torch.train import subpixel_agent as _subpixel  # noqa: F401  (registers the agent names)
 from ssp_torch.train import val_agent as _val  # noqa: F401  (registers the agent names)
@@ -76,7 +91,8 @@ def train_joint(config: dict, exper_name: str, debug: bool = False, eval_only: b
         workers=int(training_cfg.get("workers_val", 2)))
     if eval_only:
         agent._validate()
-        agent._val_logger.close()
+        if agent._val_logger is not None:
+            agent._val_logger.close()
         return agent
     if debug:
         agent.max_iter = min(agent.max_iter, 10)
@@ -165,14 +181,19 @@ def main(argv=None):
                        help="supervise the run in child processes: on a crash or a hang, "
                             "resume from the newest checkpoint, up to N times")
     args = ap.parse_args(argv)
-    if os.environ.get("SSP_DISTRIBUTED"):
-        ap.error("SSP_DISTRIBUTED: multi-host training is not ported (ROADMAP.md Queue 1 "
-                 "item 10, DDP with SyncBatchNorm)")
+    distributed = bool(os.environ.get("SSP_DISTRIBUTED"))
+    if distributed and args.max_restarts > 0:
+        ap.error("--max-restarts with SSP_DISTRIBUTED: restart the ranks with torchrun's own "
+                 "--max-restarts (a relaunch resumes from the newest checkpoint)")
     if args.max_restarts > 0:
         raise SystemExit(run_supervised(args.command, args.config, args.exper_name,
                                         args.max_restarts, debug=args.debug, device=args.device))
-    return train_joint(load_config(args.config), args.exper_name, debug=args.debug,
-                       eval_only=args.eval, device=args.device)
+    device = mesh.init_distributed(args.device) if distributed else args.device
+    agent = train_joint(load_config(args.config), args.exper_name, debug=args.debug,
+                        eval_only=args.eval, device=device)
+    if distributed:
+        mesh.shutdown()
+    return agent
 
 
 if __name__ == "__main__":

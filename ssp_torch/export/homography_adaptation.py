@@ -13,7 +13,10 @@ The three stages are plain functions under ``torch.inference_mode()``:
 masked accumulation per chunk of warps, (3) aggregate + NMS + top-k.  The
 JAX package's ``one_dispatch`` mode (the same chain as one program with a
 ``lax.scan`` over the chunks) has no eager counterpart and is not carried
-over; neither are ``mesh`` and the multi-process export.
+over.  The JAX package's ``mesh`` splits each group over the devices and its
+processes each write their rows; here :func:`run_ha_export` takes a
+``rank`` and a ``world``, and each rank (one per card) exports its share of
+the image list and writes only its own files.
 
 Homographies are sampled on the host, from per-image CPU generators (a few
 hundred 3×3 matrices per group): the same seed gives the same homographies
@@ -217,6 +220,8 @@ def run_ha_export(
     seed: int = 0,
     group: int = 1,
     depth: int = 3,
+    rank: int = 0,
+    world: int = 1,
 ) -> int:
     """Drive the export: iterate (name, image [H, W]) pairs, skip those whose
     npz exists (a stopped run resumes), write ``<name>.npz`` with
@@ -228,7 +233,15 @@ def run_ha_export(
     result.  ``depth`` is the software-pipeline depth: a group's points are
     copied to pinned host memory without blocking and written ``depth``
     groups later, so the host never waits for the group it has just queued.
+
+    ``rank`` of ``world`` exports the images at the positions of the list
+    congruent to ``rank`` modulo ``world`` and writes only their files, as
+    each JAX process writes its rows.  The homographies are keyed by the
+    position, so every image gets the points of a one-process run, and
+    skipped files do not move any position.
     """
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} is not one of {world} ranks")
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     count = 0
@@ -236,7 +249,7 @@ def run_ha_export(
     def group_iter():
         pending: list = []
         for idx, (name, img) in enumerate(images):
-            if (out_dir / f"{name}.npz").exists():
+            if idx % world != rank or (out_dir / f"{name}.npz").exists():
                 continue
             pending.append((name, img, idx))
             if len(pending) >= group:

@@ -16,12 +16,14 @@ would multiply by the reciprocal of a Python number), the distance as the
 square root of the summed squares, the threshold ``dist <= descriptor_dist``
 in fp32 (in fp64 for fp64 descriptors, as JAX computes it with x64 on).
 The all-pairs product is one ``torch.bmm``, as it is one einsum outside any
-Pallas kernel in the JAX package.
+Pallas kernel in the JAX package.  ``valid_total`` and ``batch_total`` are
+the global batch's Σ valid and B when the batch is split over ranks
+(``ssp_torch.train.step``): each rank's loss is then its additive share.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -40,6 +42,9 @@ def descriptor_loss_dense(
     descriptor_dist: float = 4.0,
     margin_pos: float = 1.0,
     margin_neg: float = 0.2,
+    *,
+    valid_total: Optional[torch.Tensor] = None,
+    batch_total: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """desc/desc_warped [B, Hc, Wc, D]; H_pair [B, 3, 3] normalised
     ([-1, 1]²) homographies from image 1 to image 2; valid_mask [B, Hc, Wc]
@@ -64,6 +69,8 @@ def descriptor_loss_dense(
                     .transpose(1, 2))
     pos = torch.clamp(margin_pos - dot, min=0.0) * pos_weight
     neg = torch.clamp(dot - margin_neg, min=0.0) * neg_weight
-    norm = B * (valid_mask.sum() + 1.0) * Hc * Wc
+    b = B if batch_total is None else batch_total
+    v = valid_mask.sum() if valid_total is None else valid_total
+    norm = b * (v + 1.0) * Hc * Wc
     loss = (pos + neg).sum() / norm
     return loss, corr, pos.sum() / norm, neg.sum() / norm

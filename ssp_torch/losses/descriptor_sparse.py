@@ -12,7 +12,9 @@
     view per match, perturbed off collisions with the true match and wrapped
     at the borders; the non-match loss is ``sum(max(0, d·d′ − 0.2)) /
     (hard negatives + 1)``;
-  * total = λ_d·match + non_match; the batch takes the mean of each.
+  * total = λ_d·match + non_match; the batch takes the mean of each (over
+    ``batch_total`` samples when the batch is split over ranks, so that each
+    rank's loss is its additive share of the global batch's).
 
 The draws (:class:`SparseDraws`) are separate from the arithmetic, so a test
 can feed the port the JAX package's own draws.  The port draws its own from
@@ -101,6 +103,7 @@ def descriptor_loss_sparse(
     num_masked_non_matches_per_match: int = 100,
     lamda_d: float = 1.0,
     method: str = "2d",
+    batch_total: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, None, torch.Tensor, torch.Tensor]:
     """desc/desc_warped ``[B, Hc, Wc, D]``; H_pair ``[B, 3, 3]`` normalised
     homography (image 1 → image 2).  Returns (mean total, None, mean match,
@@ -155,4 +158,7 @@ def descriptor_loss_sparse(
     non_match_loss = nm_hinge.sum(dim=(1, 2)) / (num_hard + 1.0)
 
     total = lamda_d * match_loss + non_match_loss
-    return total.mean(), None, match_loss.mean(), non_match_loss.mean()
+    if batch_total is None:
+        return total.mean(), None, match_loss.mean(), non_match_loss.mean()
+    return (total.sum() / batch_total, None, match_loss.sum() / batch_total,
+            non_match_loss.sum() / batch_total)

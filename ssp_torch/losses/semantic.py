@@ -11,9 +11,15 @@ align_corners=False)`` convention), so the CE reads ``[B, Hc, Wc, 9, C]``
 taps through the ``[64, 9]`` phase matrix.  Value and gradient equal the
 upsample-then-CE form.  The class pick is an index (``gather``); the JAX
 package's one-hot reduction avoided a TPU gather.
+
+``valid_total`` is the global batch's count of pixels that are not ignored
+when the batch is split over ranks (``ssp_torch.train.step``): each rank's
+loss is then its additive share of the global batch's.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -27,13 +33,14 @@ def _picked(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.gather(logits, -1, labels.long()[..., None])[..., 0]
 
 
-def semantic_loss(logits: torch.Tensor, labels: torch.Tensor,
-                  ignore_class: int = 133) -> torch.Tensor:
+def semantic_loss(logits: torch.Tensor, labels: torch.Tensor, ignore_class: int = 133, *,
+                  valid_total: Optional[torch.Tensor] = None) -> torch.Tensor:
     """logits: [B, H, W, C]; labels: int [B, H, W] in [0, C] (C = ignore)."""
     valid = (labels != ignore_class).float()
     safe = torch.where(labels == ignore_class, torch.zeros_like(labels), labels)
     nll = torch.logsumexp(logits, dim=-1) - _picked(logits, safe)
-    return (nll * valid).sum() / (valid.sum() + 1e-9)
+    total = valid.sum() if valid_total is None else valid_total
+    return (nll * valid).sum() / (total + 1e-9)
 
 
 def _phase_tables(scale: int):
@@ -62,13 +69,14 @@ def _phase_tap_matrix(scale: int) -> np.ndarray:
     return P
 
 
-def semantic_loss_coarse(coarse: torch.Tensor, labels: torch.Tensor,
-                         ignore_class: int = 133) -> torch.Tensor:
+def semantic_loss_coarse(coarse: torch.Tensor, labels: torch.Tensor, ignore_class: int = 133, *,
+                         valid_total: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``semantic_loss(upsample(coarse, 8), labels)`` read from the coarse
     logits ``[B, Hc, Wc, C]``; ``labels`` int ``[B, 8·Hc, 8·Wc]``."""
     B, Hc, Wc, C = coarse.shape
     scale = 8
     P = to_device(torch.from_numpy(_phase_tap_matrix(scale)), coarse.device)  # [s², 9]
+    P = P.to(coarse.dtype)  # an fp64 forward keeps fp64
     # 3×3 tap neighbourhood through an edge-clamped pad
     cpad = F.pad(coarse.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="replicate").permute(0, 2, 3, 1)
     V = torch.stack([cpad[:, r:r + Hc, c:c + Wc, :] for r in range(3) for c in range(3)],
@@ -79,4 +87,5 @@ def semantic_loss_coarse(coarse: torch.Tensor, labels: torch.Tensor,
     safe = torch.where(lab == ignore_class, torch.zeros_like(lab), lab)
     logits = torch.einsum("bhwkc,pk->bhwpc", V, P)  # [B, Hc, Wc, s², C]
     nll = torch.logsumexp(logits, dim=-1) - _picked(logits, safe)
-    return (nll * valid).sum() / (valid.sum() + 1e-9)
+    total = valid.sum() if valid_total is None else valid_total
+    return (nll * valid).sum() / (total + 1e-9)

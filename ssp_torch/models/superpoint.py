@@ -41,6 +41,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ssp_torch._device import resolve_device
+from ssp_torch.parallel import mesh
 from ssp_torch.registry import register
 
 BN_EPS = 1e-5
@@ -58,12 +59,20 @@ class BatchNorm(nn.BatchNorm2d):
     same ``F.batch_norm`` call (with momentum 1 into scratch buffers), so no
     extra pass reads the input.  The input may be bf16: the statistics and
     the affine are fp32 and the output takes the input's type.
+
+    In a process group of more than one rank (``ssp_torch.parallel``) the
+    batch is the global one, every rank's rows, as flax's BatchNorm sees it
+    under GSPMD (:meth:`_forward_global`); ``nn.SyncBatchNorm`` would move
+    the running variance by the unbiased variance again and gathers with
+    ``all_gather``, which gloo refuses for CUDA tensors.
     """
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                                 False, 0.0, self.eps)
+        if mesh.world() > 1:
+            return self._forward_global(x)
         mean = torch.zeros_like(self.running_mean)
         var = torch.ones_like(self.running_var)
         out = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
@@ -75,6 +84,30 @@ class BatchNorm(nn.BatchNorm2d):
             self.running_var.mul_(1.0 - m).add_(var, alpha=m * (n - 1) / n)
             self.num_batches_tracked.add_(1)
         return out
+
+    def _forward_global(self, x: torch.Tensor) -> torch.Tensor:
+        """Training mode over the global batch of all ranks
+        (``ssp_torch.parallel``): Σx, Σx² per channel and the count, at fp32
+        (or wider), summed over the ranks by one differentiable all-reduce;
+        the biased variance E[x²] − E[x]², as flax computes it; the running
+        averages moved by the global mean and biased variance."""
+        dt = torch.promote_types(x.dtype, torch.float32)
+        xf = x.to(dt)
+        C = x.shape[1]
+        local = torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)),
+                           xf.new_full((1,), x.numel() // C)])
+        sums = mesh.all_reduce_sum(local)
+        n = sums[2 * C]
+        mean = sums[:C] / n
+        var = torch.clamp(sums[C:2 * C] / n - mean * mean, min=0.0)
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        out = (xf - mean[:, None, None]) * scale[:, None, None] + self.bias[:, None, None]
+        m = self.momentum
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - m).add_(mean.to(self.running_mean.dtype), alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var.to(self.running_var.dtype), alpha=m)
+            self.num_batches_tracked.add_(1)
+        return out.to(x.dtype)
 
 
 def _bn(c: int) -> BatchNorm:

@@ -21,31 +21,43 @@ from ssp_torch._device import resolve_device
 from ssp_torch.core.grid import flatten_detection, labels_to_cells
 from ssp_torch.losses import detector_loss
 from ssp_torch.models.weights import load_reference_state_dict
+from ssp_torch.parallel import mesh
 from ssp_torch.registry import register
 from ssp_torch.train.state import TrainState
-from ssp_torch.train.step import cell_valid_mask
+from ssp_torch.train.step import cell_valid_mask, global_totals, reduce_step
 from ssp_torch.train.trainer import TrainAgent
 
 
-def subpixel_map_loss(pred: torch.Tensor, labels_res: torch.Tensor,
-                      labels_2d: torch.Tensor) -> torch.Tensor:
+def subpixel_map_loss(pred: torch.Tensor, labels_res: torch.Tensor, labels_2d: torch.Tensor, *,
+                      mask_total: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Masked MSE of the dense offset map ``pred [B, H, W, 2]`` against the
     residual targets ``labels_res [B, H, W, 2]``; only keypoint pixels of
-    ``labels_2d [B, H, W, 1]`` supervise (reference ``utils/losses.py:201-210``)."""
+    ``labels_2d [B, H, W, 1]`` supervise (reference ``utils/losses.py:201-210``).
+    ``mask_total`` is the global batch's keypoint count on several ranks."""
     mask = labels_2d[..., 0]
     err = ((pred.float() - labels_res) ** 2).sum(dim=-1) * mask
-    return err.sum() / (mask.sum() + 1e-6)
+    total = mask.sum() if mask_total is None else mask_total
+    return err.sum() / (total + 1e-6)
 
 
 def subpixel_losses(model: nn.Module, batch: Dict[str, torch.Tensor], *,
                     det_loss_type: str = "softmax",
                     lambda_subpix: float = 1.0) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss, metrics) in the module's current mode: the detector BCE (65
-    channels, the dustbin always on) + ``lambda_subpix`` × the offset MSE."""
+    channels, the dustbin always on) + ``lambda_subpix`` × the offset MSE,
+    normalised over the global batch on several ranks (as
+    ``ssp_torch.train.step.compute_losses``)."""
+    cmask = cell_valid_mask(batch["valid_mask"])
+    tot = dict.fromkeys(("batch", "cells", "points"))
+    if mesh.world() > 1:
+        tot.update(global_totals(
+            batch=torch.full((), cmask.shape[0], dtype=cmask.dtype, device=cmask.device),
+            cells=cmask.sum(), points=batch["labels_2d"][..., 0].sum()))
     out = model(batch["image"])
-    loss_det = detector_loss(out["semi"], labels_to_cells(batch["labels_2d"]),
-                             cell_valid_mask(batch["valid_mask"]), det_loss_type)
-    loss_sub = subpixel_map_loss(out["subpixel"], batch["labels_res"], batch["labels_2d"])
+    loss_det = detector_loss(out["semi"], labels_to_cells(batch["labels_2d"]), cmask,
+                             det_loss_type, mask_total=tot["cells"], batch_total=tot["batch"])
+    loss_sub = subpixel_map_loss(out["subpixel"], batch["labels_res"], batch["labels_2d"],
+                                 mask_total=tot["points"])
     loss = loss_det + lambda_subpix * loss_sub
     return loss, {"loss": loss.detach(), "loss_det": loss_det.detach(),
                   "loss_desc": torch.zeros((), device=loss.device),
@@ -61,6 +73,7 @@ def subpixel_train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     state.optimizer.zero_grad(set_to_none=True)
     loss, metrics = subpixel_losses(state.model, batch, **kwargs)
     loss.backward()
+    metrics = reduce_step(state, metrics)
     state.optimizer.step()
     state.scheduler.step()
     state.step += 1
@@ -75,9 +88,10 @@ def subpixel_eval_step(state: TrainState, batch: Dict[str, torch.Tensor],
     state.model.eval()
     try:
         with torch.no_grad():
-            return subpixel_losses(state.model, batch, **kwargs)[1]
+            metrics = subpixel_losses(state.model, batch, **kwargs)[1]
     finally:
         state.model.train(was_training)
+    return reduce_step(state, metrics, grads=False)
 
 
 @register("agent", "Train_model_subpixel")

@@ -39,6 +39,24 @@ and NMS detections (``ssp_torch.utils.draw``; the NMS kernel on the card).
 Neither ever stops training: a failure is logged and the run goes on.
 ``profile: {enable, logdir, steps}`` writes a ``torch.profiler`` trace of
 the ``steps`` steps after the second to ``logdir`` (``<exper>/profile``).
+
+Data parallelism: in a process group of W ranks (``ssp_torch.parallel``,
+started by ``python -m ssp_torch.cli.train`` under torchrun with
+``SSP_DISTRIBUTED``) each rank trains a replica on ``real_batch_size / W``
+rows of every global batch: the loader's batch split by
+:func:`~ssp_torch.parallel.shard_rows`, or, with the device corpus (which
+each card holds whole, as the JAX package replicates it), rows each rank
+samples itself.  The step is the global batch's (``ssp_torch.train.step``:
+global normalisers and BatchNorm moments, gradients and metrics summed over
+the ranks; with accumulation each rank's rows split into the r
+micro-batches and only the last reduces), and validation reports the
+global batch's metrics.  A world size that does not divide the global batch
+is refused; the JAX trainer instead shrinks its mesh to the largest device
+count that does.  Rank r's generators are seeded with ``seed + 1 + r``, so
+the ranks' draws are not the single process's (nor are the port's
+``jax.random``'s).  Rank 0 alone writes the configuration, the metrics, the
+checkpoints, the validation images and the profile; every rank starts from
+the same weights and resumes from the same checkpoint.
 """
 
 from __future__ import annotations
@@ -60,11 +78,12 @@ from ssp_torch.data.device_corpus import DeviceCorpus
 from ssp_torch.data.pipeline import prepare_batch
 from ssp_torch.losses.subpixel import subpixel_residual_loss
 from ssp_torch.models.superpoint import build_model
+from ssp_torch.parallel import mesh
 from ssp_torch.postprocess.points import extract_keypoints, soft_argmax_refine
 from ssp_torch.registry import register
 from ssp_torch.train.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from ssp_torch.train.state import TrainState
-from ssp_torch.train.step import accum_train_step, eval_step, train_step
+from ssp_torch.train.step import accum_train_step, eval_step, global_totals, train_step
 from ssp_torch.utils.config import dict_update
 from ssp_torch.utils.experiment import ExperimentPaths, MetricsLogger
 
@@ -135,12 +154,20 @@ class TrainAgent:
         self.batch_size = int(m["batch_size"])
         self.real_batch_size = int(m.get("real_batch_size", self.batch_size))
         self.r = max(self.real_batch_size // self.batch_size, 1)
+        self.world, self.rank = mesh.world(), mesh.rank()
+        if self.real_batch_size % self.world:
+            raise ValueError(f"a global batch of {self.real_batch_size} does not split over "
+                             f"{self.world} ranks")
+        self.local_batch = self.real_batch_size // self.world
         for k in ("train_iter", "validation_interval", "tensorboard_interval", "save_interval"):
             self.config[k] = int(self.config[k]) * self.r
         # reference-exact micro-batch accumulation (summed gradients, BatchNorm
         # statistics per micro-batch); otherwise the real batch is one batch
         self.accumulate = bool(m.get("exact_accumulation", False)) and self.r > 1
         if self.accumulate:
+            if self.local_batch % self.r:
+                raise ValueError(f"{self.local_batch} rows per rank ({self.world} ranks) do not "
+                                 f"split into {self.r} micro-batches")
             log.info("exact gradient accumulation: r=%d micro-batches", self.r)
         spd = max(int(self.config.get("steps_per_dispatch", 1)), 1)
         if spd > 1:
@@ -154,7 +181,8 @@ class TrainAgent:
                      "(intervals aligned to %d as the JAX trainer aligns them)", spd, stride)
 
         self.exper = save_path or ExperimentPaths(exper_name)
-        self.exper.dump_config(self.config)
+        if self.rank == 0:
+            self.exper.dump_config(self.config)
         self.n_iter = 0
         self.max_iter = self.config["train_iter"]
         self._val_logger: Optional[MetricsLogger] = None
@@ -217,8 +245,8 @@ class TrainAgent:
                              homographic=self._val_homographic(aug.get("homographic", {})))
         # homographies on the host (the two-pass warp reads them there); the
         # photometric values and the descriptor samples on the device
-        self.host_generator = torch.Generator().manual_seed(seed + 1)
-        self.generator = torch.Generator(self.device).manual_seed(seed + 1)
+        self.host_generator = torch.Generator().manual_seed(seed + 1 + self.rank)
+        self.generator = torch.Generator(self.device).manual_seed(seed + 1 + self.rank)
 
         pretrained = self.config.get("pretrained")
         if not pretrained and self.config.get("auto_resume", True) \
@@ -235,6 +263,7 @@ class TrainAgent:
             log.info("loading pretrained %s (mode=%s)", pretrained, mode)
             load_checkpoint(pretrained, self.state, mode=mode, reset_iter=reset)
             self.n_iter = self.state.step * self.r
+        mesh.barrier()  # every rank has read its checkpoint before rank 0 writes one
 
     def attach_device_corpus(self, dataset) -> None:
         """Upload ``dataset`` to the device (``training.device_corpus_quantize``
@@ -247,11 +276,12 @@ class TrainAgent:
                  {k: (tuple(v.shape), str(v.dtype)) for k, v in self.device_corpus.arrays.items()})
 
     def next_batch(self) -> Dict[str, Any]:
-        """The next training batch before preparation: sampled from the
-        device corpus when one is attached, else read from ``train_loader``."""
+        """This rank's rows of the next training batch before preparation:
+        sampled from the device corpus when one is attached, else its share of
+        the global batch that ``train_loader`` reads."""
         if self.device_corpus is not None:
-            return self.device_corpus.sample(self.real_batch_size, self.generator)
-        return next(self.train_loader)
+            return self.device_corpus.sample(self.local_batch, self.generator)
+        return mesh.shard_rows(next(self.train_loader), self.world, self.rank)
 
     @staticmethod
     def _photo_cfg(cfg: Dict[str, Any], split: str) -> Dict[str, Any]:
@@ -301,7 +331,8 @@ class TrainAgent:
     def train(self) -> None:
         if self.train_loader is None and self.device_corpus is None:
             raise ValueError("set train_loader or attach a device corpus first")
-        logger = MetricsLogger(self.exper, "train")
+        rank0 = self.rank == 0
+        logger = MetricsLogger(self.exper, "train") if rank0 else None
         tb_int = self.config["tensorboard_interval"]
         val_int = self.config["validation_interval"]
         save_int = self.config["save_interval"]
@@ -323,7 +354,7 @@ class TrainAgent:
         # {enable: true, logdir: ..., steps: N})
         prof_cfg = self.config.get("profile", {}) or {}
         prof = None
-        prof_done = not prof_cfg.get("enable")
+        prof_done = not prof_cfg.get("enable") or not rank0
 
         t0 = time.time()
         n_last_log = self.n_iter
@@ -345,8 +376,13 @@ class TrainAgent:
                     scal["iters_per_s"] = ((self.n_iter - n_last_log) / max(time.time() - t0, 1e-9)
                                            if n0 else 0.0)
                     scal["host_rss_mb"] = rss_mb()
-                    if budget_mb and scal["host_rss_mb"] > budget_mb:
-                        save_checkpoint(self.exper.checkpoints, self.state, self.n_iter)
+                    over = bool(budget_mb and scal["host_rss_mb"] > budget_mb)
+                    if self.world > 1:  # one rank over its budget stops every rank
+                        flag = torch.full((), float(over), device=self.device)
+                        over = bool(mesh.global_sum(flag) > 0)
+                    if over:
+                        if rank0:
+                            save_checkpoint(self.exper.checkpoints, self.state, self.n_iter)
                         raise RuntimeError(
                             f"host RSS {scal['host_rss_mb']:.0f} MB exceeds the "
                             f"{budget_mb:.0f} MB budget at iter {self.n_iter}; checkpoint saved: "
@@ -355,20 +391,22 @@ class TrainAgent:
                     t0 = time.time()
                     n_last_log = self.n_iter
                     b = boundary(self.n_iter, tb_int)
-                    logger.log(b, scal)
-                    log.info("iter %d loss %.4f det %.4f desc %.4f", b, scal["loss"],
-                             scal["loss_det"], scal["loss_desc"])
+                    if rank0:
+                        logger.log(b, scal)
+                        log.info("iter %d loss %.4f det %.4f desc %.4f", b, scal["loss"],
+                                 scal["loss_det"], scal["loss_desc"])
                 if val_int and self.val_loader is not None and hits(n0, self.n_iter, val_int):
                     self._validate(label=boundary(self.n_iter, val_int))
-                if hits(n0, self.n_iter, save_int, lo=1):
+                if rank0 and hits(n0, self.n_iter, save_int, lo=1):
                     save_checkpoint(self.exper.checkpoints, self.state,
                                     boundary(self.n_iter, save_int))
         finally:
             signal.signal(signal.SIGINT, prev_handler)
             if prof is not None:
                 prof.__exit__(None, None, None)
-            save_checkpoint(self.exper.checkpoints, self.state, self.n_iter)
-            logger.close()
+            if rank0:
+                save_checkpoint(self.exper.checkpoints, self.state, self.n_iter)
+                logger.close()
             if self._val_logger is not None:
                 self._val_logger.close()
                 self._val_logger = None
@@ -397,8 +435,11 @@ class TrainAgent:
         batches (running BatchNorm statistics), logged with the ``val_``
         prefix at ``label`` (``n_iter`` without one), with the residual
         diagnostic (``val_residual_diagnostic``) and the first batch's
-        images."""
-        if self._val_logger is None:
+        images.  On several ranks every rank validates its rows of each batch,
+        the metrics are the global batch's, and rank 0 logs them and draws its
+        first image."""
+        rank0 = self.rank == 0
+        if self._val_logger is None and rank0:
             self._val_logger = MetricsLogger(self.exper, "val")
         logger = self._val_logger
         step_label = self.n_iter if label is None else label
@@ -406,7 +447,8 @@ class TrainAgent:
         agg: Dict[str, list] = {}
         first_batch = None
         for i in range(n_batches):
-            batch = self.prepare(next(self.val_loader), train=False)
+            batch = self.prepare(mesh.shard_rows(next(self.val_loader), self.world, self.rank),
+                                 train=False)
             if i == 0:
                 first_batch = batch
             for k, v in self.eval_batch(batch).items():
@@ -416,10 +458,12 @@ class TrainAgent:
             diag = self.residual_diagnostic(first_batch)
             if diag is not None:
                 scalars["subpix_residual_err"], offsets = diag
-                logger.log_histogram(step_label, "val/subpix_residual_offsets", offsets)
-        logger.log(step_label, scalars, prefix="val_")
-        if first_batch is not None:
-            self._log_val_images(logger, first_batch, step_label)
+                if rank0:
+                    logger.log_histogram(step_label, "val/subpix_residual_offsets", offsets)
+        if rank0:
+            logger.log(step_label, scalars, prefix="val_")
+            if first_batch is not None:
+                self._log_val_images(logger, first_batch, step_label)
         return scalars
 
     def _eval_forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -440,20 +484,34 @@ class TrainAgent:
         refined on the evaluation heatmap, and held against its true
         fractional part (reference ``pred_soft_argmax`` diagnostics,
         ``Train_model_heatmap_all.py:623-675``).  None when the batch has no
-        points or the diagnostic fails (it never stops training)."""
+        points or the diagnostic fails (it never stops training).  On several
+        ranks the error is the global batch's mean and the offsets this
+        rank's."""
         if "points" not in batch or "points_valid" not in batch:
             return None
+        per_image = offsets = None
         try:
             heat = flatten_detection(self._eval_forward(batch["image"])["semi"])[..., 0]
             pts, valid = batch["points"], batch["points_valid"]
             r = torch.round(pts[..., :2])
-            err = subpixel_residual_loss(heat, r, pts[..., :2] - r, valid).mean()
+            per_image = subpixel_residual_loss(heat, r, pts[..., :2] - r, valid)
             pts3 = torch.cat([r, torch.zeros_like(r[..., :1])], dim=-1)
-            offsets = soft_argmax_refine(heat, pts3)[..., :2] - r
-            return float(err), offsets[valid].cpu().numpy()
+            offsets = (soft_argmax_refine(heat, pts3)[..., :2] - r)[valid].cpu().numpy()
         except Exception:  # diagnostics must never kill training
             log.exception("residual diagnostic failed")
+            per_image = None
+        if self.world > 1:  # every rank joins the sum, whatever happened on its own
+            zero = torch.zeros((), device=self.device)
+            tot = global_totals(
+                err=zero if per_image is None else per_image.sum().float(),
+                n=zero if per_image is None else zero + per_image.numel(),
+                failed=zero + (per_image is None))
+            if float(tot["failed"]) > 0:
+                return None
+            return float(tot["err"] / tot["n"]), offsets
+        if per_image is None:
             return None
+        return float(per_image.mean()), offsets
 
     def _log_val_images(self, logger: MetricsLogger, batch: Dict[str, torch.Tensor],
                         step: int) -> None:

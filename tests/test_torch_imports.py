@@ -58,7 +58,10 @@ def test_port_files_found():
     assert {"ssp_torch/losses/descriptor_dense.py", "ssp_torch/losses/subpixel.py",
             "ssp_torch/models/subpixel.py", "ssp_torch/train/subpixel_agent.py",
             "ssp_torch/train/val_agent.py", "ssp_torch/utils/draw.py"} <= names
-    assert len(names) > 61
+    assert {"ssp_torch/native/__init__.py", "ssp_torch/cli/import_torch.py",
+            "ssp_torch/cli/convert2script.py", "ssp_torch/parallel/__init__.py",
+            "ssp_torch/parallel/mesh.py"} <= names
+    assert len(names) > 66
 
 
 def test_fresh_interpreter_imports_every_module_without_jax_ssp_cv2():

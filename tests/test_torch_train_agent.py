@@ -21,8 +21,9 @@ bf16 convolutions are slow on a CPU, and the bf16 forward has its own test in
   evaluation forwards agree at the fp32 bars (2e-4 on semi and desc, 2e-3
   on sem); a full resume continues a run exactly;
 * the options once refused (exact accumulation, the dense loss,
-  ``--max-restarts``) now build and dispatch; multi-host runs
-  (``SSP_DISTRIBUTED``) are still refused with their ROADMAP.md item.
+  ``--max-restarts``) now build and dispatch; with ``SSP_DISTRIBUTED`` the
+  CLI joins the process group (``tests/test_torch_parallel.py`` runs the
+  ranks).
 """
 
 import copy
@@ -309,8 +310,10 @@ def test_unported_options_are_refused(tmp_path, change, match):
 
 def test_cli_refuses_restarts_and_multi_host(monkeypatch, capsys):
     """``--max-restarts`` hands the run to the supervisor with the device
-    (``tests/test_torch_train_telemetry.py`` runs it); multi-host runs are
-    refused."""
+    (``tests/test_torch_train_telemetry.py`` runs it); with ``SSP_DISTRIBUTED``
+    the CLI joins the process group (``init_distributed``, here a stand-in)
+    with its ``--device`` and trains on the device that returns, and refuses
+    ``--max-restarts`` beside it (torchrun restarts the ranks)."""
     calls = []
     monkeypatch.setattr(cli, "run_supervised", lambda *a, **k: calls.append((a, k)) or 0)
     with pytest.raises(SystemExit) as e:
@@ -318,6 +321,17 @@ def test_cli_refuses_restarts_and_multi_host(monkeypatch, capsys):
     assert e.value.code == 0
     assert calls == [(("train_joint", "cfg.yaml", "exp", 2), {"debug": False, "device": "cpu"})]
     monkeypatch.setenv("SSP_DISTRIBUTED", "1")
+    joined, trained, left = [], [], []
+    monkeypatch.setattr(cli.mesh, "init_distributed", lambda device: joined.append(device)
+                        or "rank-device")
+    monkeypatch.setattr(cli.mesh, "shutdown", lambda: left.append(True))
+    monkeypatch.setattr(cli, "load_config", lambda path: {"path": path})
+    monkeypatch.setattr(cli, "train_joint", lambda *a, **k: trained.append((a, k)) or "agent")
+    assert cli.main(["train_joint", "cfg.yaml", "exp", "--device", "cpu"]) == "agent"
+    assert joined == ["cpu"] and left == [True]
+    assert trained == [(({"path": "cfg.yaml"}, "exp"),
+                        {"debug": False, "eval_only": False, "device": "rank-device"})]
     with pytest.raises(SystemExit):
-        cli.main(["train_joint", "cfg.yaml", "exp"])
-    assert "SyncBatchNorm" in capsys.readouterr().err
+        cli.main(["train_joint", "cfg.yaml", "exp", "--max-restarts", "2"])
+    assert "--max-restarts with SSP_DISTRIBUTED" in capsys.readouterr().err
+    assert len(calls) == 1 and joined == ["cpu"]
