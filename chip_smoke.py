@@ -9,8 +9,9 @@ failure (nothing is caught):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. builds every CUDA kernel from ``ssp_torch/csrc`` (one ``nvcc`` per
-   source) and the host image decoder (``imageio_host.cpp``, ``g++``), all
-   started together, and prints the build seconds of each;
+   source) and the host libraries (the image decoder, the rasteriser, the
+   host ops, SIFT and ORB: ``*_host.cpp``, ``g++``), all started together,
+   and prints the build seconds of each;
 3. the main path: the trained weights of ``evidence/wsem_weights.npz``
    loaded as ``SuperPointNet_gauss2``, detect+describe at 480×640, B=16,
    K=1000 through ``ssp_torch.bench.build_pipeline``.  Every kernel's
@@ -210,6 +211,23 @@ failure (nothing is caught):
     once, the points within HA_MULTI_MAX, every rank launching the stem,
     down1, NMS and ``vresample_coef``, img/s.
 
+21. ``[classical]``, the classical SIFT/ORB baselines: (a) the port's SIFT
+    and ORB (C++ ``features_host.cpp``, built by g++ in phase 2) on the four
+    fixture images of ``tests/data/torch_classical``: every keypoint and
+    descriptor byte equal to OpenCV's portable-path SIFT and its ORB,
+    host ms per image; (b) the cross-checked matcher kernel
+    (``csrc/bfmatch.cu``) against its plain version, exactly, on the
+    fixtures' descriptors and on 1000×1000 SIFT (128 B) and ORB (32 B) rows
+    with shared and duplicate rows (ties), an empty side; its ms beside the
+    plain version's and its bound; (c) ``export_classical`` for ``sift`` and
+    ``orb`` (``configs/classical_descriptors.yaml``) over phase 12's corpus:
+    the launch counts set to 0 before each export and read after (the
+    matcher once per pair with keypoints on both sides, the six kernels of
+    the TPU package never), a second call writes nothing, the files equal
+    those of the same export on the CPU, the port's ``evaluate`` of each,
+    pairs/s by the host clock split into decode and resize, detection,
+    match and npz write.
+
 Prints a ``{"kernels": [...]}`` line (each row also with the launches of
 phase 12's export, ``launches_export``, of phase 13's sweep,
 ``launches_sweep``, of phases 15, 16, 17 and 18, ``launches_sequence``,
@@ -218,7 +236,8 @@ phase 18's reload, ``launches_synth_reload``, of phase 19's four runs,
 ``launches_dense``, ``launches_accum``, ``launches_subpixel`` and
 ``launches_val_agent``, and of phase 20, ``launches_rest``: (b)'s export,
 (d)'s timed steps and train CLI on every rank and (e)'s export on every
-rank; for the stem, down1 and NMS
+rank, and of phase 21, ``launches_classical``, all 0; then the matcher's
+entry, which replaces no TPU kernel; for the stem, down1 and NMS
 their times at 1×240×320, ``export_1x240x320``, and at 1×384×1248,
 ``sequence_1x384x1248``; for ``vresample_coef`` its time at the training
 shapes, ``train_16x320x320``), then the ``nvidia-smi`` line, and last
@@ -268,6 +287,7 @@ from ssp_torch.export.descriptors_export import (make_detect_describe_fn, run_de
                                                  run_sequence_export)
 from ssp_torch.export.homography_adaptation import DEFAULT_HA, make_ha_fn, run_ha_export
 from ssp_torch.kernels import _build
+from ssp_torch.kernels import bfmatch as bfmatch_mod
 from ssp_torch.losses.descriptor_sparse import SparseDraws, cell_matches, sample_draws
 from ssp_torch.kernels import down1 as down1_mod
 from ssp_torch.kernels import nms as nms_mod
@@ -336,6 +356,10 @@ KITTI_RAW = (375, 1242)  # a KITTI color frame
 SEQ_DRIVES, SEQ_FRAMES = 2, 16  # the sequence corpus: 2 drives of 16 frames
 HA_CLI_IMAGES = 16  # the stage-2 corpus: the JPEG fixtures under 16 COCO names  # the corpus: 32 pairs at HPatches' size
 SLAM_HW = (384, 1248)  # the SLAM sequence export's shape (configs/kitti384_sequence_r5.yaml)
+# phase 21: OpenCV's SIFT and ORB on four images, written by
+# scripts/make_classical_fixtures.py; the matcher's rows at the config's top_k
+CLASSICAL_FIXTURES = ROOT / "tests" / "data" / "torch_classical"
+CLASSICAL_ROWS = 1000
 
 # phase 17: the flagship training configuration, run for TRAIN_RUN's schedule,
 # then TRAIN_TIMED steady-state steps
@@ -384,10 +408,11 @@ TRAIN_LABEL_FLIPS = 1e-3
 TRAIN_REL = 5e-3
 
 # published H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores,
-# fp32 outside the tensor cores, HBM3
+# fp32 outside the tensor cores, HBM3, int8 (the matcher's byte arithmetic)
 PEAK_BF16 = 989e12
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+PEAK_INT8 = 1979e12
 
 # main-path agreement with the plain path on the card: the kernels differ
 # from their plain versions only by flipped bf16 roundings (NMS is exact),
@@ -650,9 +675,12 @@ def conv_nms_times(model, img: torch.Tensor, dev: torch.device) -> dict:
 def reset_launches() -> None:
     stem_mod.launches = down1_mod.launches = nms_mod.launches = 0
     vres_mod.launches = vres_mod.coef_launches = 0
+    bfmatch_mod.launches = 0
 
 
 def read_launches() -> dict:
+    """The launches of the six kernels that replace the TPU kernels (phase
+    21 reads the matcher's beside them)."""
     return {"stem": stem_mod.launches, "down1": down1_mod.launches, "nms": nms_mod.launches,
             "vresample": vres_mod.launches, "vresample_coef": vres_mod.coef_launches}
 
@@ -678,7 +706,7 @@ def main() -> None:
     # ---- 2. build ----------------------------------------------------------
     seconds = _build.build_all()
     log(f"[build] {', '.join(_build.SOURCES)} built with nvcc in "
-        f"{max(seconds[n] for n in _build.SOURCES):.1f} s; the host image decoder "
+        f"{max(seconds[n] for n in _build.SOURCES):.1f} s; the host libraries "
         f"({', '.join(_build.HOST_SOURCES)}.cpp) with g++ in "
         f"{max(seconds[n] for n in _build.HOST_SOURCES):.1f} s, all started together")
 
@@ -1127,6 +1155,7 @@ def main() -> None:
         synth = synth_phase(dev, td, smi)
         train2 = train2_phase(dev, td, smi)
         rest = rest_phase(dev, td, smi, desc)
+        classical = classical_phase(dev, td, smi)
     for row in kernels:
         row["launches_export"] = export_launches.get(row["name"], 0)
         row["launches_sweep"] = sweep_launches.get(row["name"], 0)
@@ -1138,6 +1167,7 @@ def main() -> None:
         for path in ("dense", "accum", "subpixel", "val_agent"):
             row[f"launches_{path}"] = train2[path].get(row["name"], 0)
         row["launches_rest"] = rest.get(row["name"], 0)
+        row["launches_classical"] = classical["launches"].get(row["name"], 0)
         if row["name"] in export_times:
             row["export_1x240x320"] = export_times[row["name"]]
         if row["name"] in sequence_times:
@@ -1145,6 +1175,7 @@ def main() -> None:
         if row["name"] == "vresample_coef":
             row["train_16x320x320"] = train["coef"]
 
+    kernels.append(classical["row"])
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -2781,6 +2812,180 @@ def rest_phase(dev: torch.device, td: Path, smi: str, main_desc: torch.Tensor) -
     if diff > HA_MULTI_MAX or len(audit) != 2:
         raise AssertionError(f"[rest] HA on {REST_WORLD} ranks: diff {diff}, audit {audit}")
     return total
+
+
+def classical_phase(dev: torch.device, td: Path, smi: str) -> dict:
+    """Phase 21 [classical]: the classical SIFT/ORB baselines.  (a) the
+    port's SIFT and ORB (C++ on the host) on the committed fixtures; (b) the
+    cross-checked matcher kernel against its plain version, exactly, and
+    its times; (c) ``export_classical`` for both methods over phase 12's
+    corpus under ``td``, the card's files against the CPU's, the port's
+    evaluation of both.  Returns {"launches": per kernel of (c)'s two
+    exports, "row": the matcher's entry of the kernels line}."""
+    from ssp_torch.cli.export_classical import export_classical
+    from ssp_torch.export import features
+    from ssp_torch.kernels import bfmatch
+    from ssp_torch.utils.config import load_config
+
+    # ---- (a) the fixtures: OpenCV's portable SIFT and its ORB, exactly
+    manifest = json.loads((CLASSICAL_FIXTURES / "manifest.json").read_text())
+    n_kp, host_ms, envelope = {}, {"sift": [], "orb": []}, []
+    for name in sorted(manifest["keypoints"]):
+        with np.load(CLASSICAL_FIXTURES / f"{name}.npz") as z:
+            fx = {k: z[k] for k in z.files}
+        for run, method in (("sift_plain", "sift"), ("orb", "orb")):
+            detect = features.sift if method == "sift" else features.orb
+            t0 = time.perf_counter()
+            kps, d = detect(fx["image"], manifest["nfeatures"])
+            host_ms[method].append((time.perf_counter() - t0) * 1e3)
+            kp = np.concatenate([kps.pt, kps.size[:, None], kps.angle[:, None],
+                                 kps.response[:, None]], axis=1)
+            if not (np.array_equal(kp, fx[f"{run}_kp"]) and
+                    np.array_equal(kps.octave, fx[f"{run}_octave"]) and
+                    np.array_equal(d, fx[f"{run}_desc"])):
+                raise AssertionError(f"[classical] (a) {method} on {name} differs from OpenCV's "
+                                     f"{run}: {len(kp)} vs {len(fx[f'{run}_kp'])} keypoints")
+            n_kp[f"{name}/{method}"] = len(kp)
+            if method == "sift":  # OpenCV's default path, measured where the fixtures were made
+                ref = fx["sift_default_kp"][:, :2]
+                if len(ref) and len(kp):
+                    dist = np.linalg.norm(ref[:, None] - kp[None, :, :2], axis=-1)
+                    envelope.append(float((dist.min(1) < 0.1).mean()))
+    log(f"[classical] (a) SIFT and ORB on the {len(manifest['keypoints'])} fixtures "
+        f"(OpenCV {manifest['opencv']}, nfeatures {manifest['nfeatures']}): equal to OpenCV's "
+        f"portable SIFT and its ORB, every keypoint and descriptor byte ({n_kp}); against "
+        f"OpenCV's default-path SIFT, share of its keypoints within 0.1 px: "
+        f"{min(envelope):.4f} at worst; host ms per 240x320 image on the host CPU (one thread): "
+        f"SIFT {np.mean(host_ms['sift']):.2f}, ORB {np.mean(host_ms['orb']):.2f}")
+
+    # ---- (b) the matcher kernel against its plain version, exactly
+    rng = np.random.default_rng(SEED + 21)
+    cases = {}
+    with np.load(CLASSICAL_FIXTURES / "noise.npz") as a, \
+            np.load(CLASSICAL_FIXTURES / "blobs.npz") as b:
+        cases["fixtures_sift"] = (a["sift_plain_desc"].astype(np.float32),
+                                  b["sift_plain_desc"].astype(np.float32))
+        cases["fixtures_orb"] = (a["orb_desc"], b["orb_desc"])
+    for tag, dim, dtype in (("sift", 128, np.float32), ("orb", 32, np.uint8)):
+        q = rng.integers(0, 256, (CLASSICAL_ROWS, dim)).astype(dtype)
+        t = rng.integers(0, 256, (CLASSICAL_ROWS, dim)).astype(dtype)
+        t[:50] = q[:50]        # shared rows: distance 0
+        t[100:110] = t[99]     # duplicate train rows: ties to the lowest index
+        q[200:210] = q[199]    # duplicate query rows
+        cases[f"{CLASSICAL_ROWS}x{CLASSICAL_ROWS}_{tag}"] = (q, t)
+    on_card = {k: (torch.from_numpy(q).to(dev), torch.from_numpy(t).to(dev))
+               for k, (q, t) in cases.items()}
+    matches, err = {}, 0.0
+    for k, (q, t) in on_card.items():
+        got = bfmatch.bfmatch(q, t)
+        want = bfmatch.bfmatch_plain(q, t)
+        want_cpu = bfmatch.bfmatch_plain(q.cpu(), t.cpu())
+        if got.shape != want.shape or got.shape != want_cpu.shape:
+            raise AssertionError(f"[classical] (b) the matcher on {k}: {len(got)} matches, its "
+                                 f"plain version {len(want)} (card) and {len(want_cpu)} (CPU)")
+        if got.numel():
+            err = max(err, float((got - want).abs().max()),
+                      float((got.cpu() - want_cpu).abs().max()))
+        if not torch.equal(got, want) or not torch.equal(got.cpu(), want_cpu):
+            raise AssertionError(f"[classical] (b) the matcher on {k} differs from its plain "
+                                 f"version by up to {err}")
+        matches[k] = len(got)
+    q0 = on_card[f"{CLASSICAL_ROWS}x{CLASSICAL_ROWS}_sift"][0]
+    if bfmatch.bfmatch(q0[:0], q0).shape != (0, 3) or bfmatch.bfmatch(q0, q0[:0]).shape != (0, 3):
+        raise AssertionError("[classical] (b) an empty side gives matches")
+    times = {}
+    for k in (f"{CLASSICAL_ROWS}x{CLASSICAL_ROWS}_sift", f"{CLASSICAL_ROWS}x{CLASSICAL_ROWS}_orb",
+              "fixtures_sift"):
+        q, t = on_card[k]
+        hamming = q.dtype == torch.uint8
+        qb = q if hamming else q.to(torch.uint8)
+        tb = t if hamming else t.to(torch.uint8)
+        # the least int8 tensor-core work for the same function: L2 as
+        # |a|^2 + |b|^2 - 2 a.b, a u8 x u8 product summed exactly in int32 (2
+        # operations per byte pair; the norms are O(N D)); Hamming as
+        # |a| + |b| - 2 a.b over the 8 D bits as 0/1 int8 values (2 per bit
+        # pair).  The kernel's byte rows read once, its key per query row
+        # written once
+        ops = 2.0 * q.shape[0] * t.shape[0] * q.shape[1] * (8 if hamming else 1)
+        times[k] = {"ms": time_ms(lambda: bfmatch.launch(qb, tb, hamming), iters=50),
+                    "wrapper_ms": time_ms(lambda: bfmatch.bfmatch(q, t), iters=20),
+                    "plain_ms": time_ms(lambda: bfmatch.bfmatch_plain(q, t), iters=5),
+                    "bound": bound(ops, PEAK_INT8, qb.numel() + tb.numel() + q.shape[0] * 8)}
+    torch.cuda.synchronize()
+    for k, v in times.items():
+        log(f"[classical] (b) matcher {k}: kernel {v['ms']:.4f} ms (bound {v['bound'][0]:.5f} ms "
+            f"by {v['bound'][1]}), with the wrapper's checks and compaction "
+            f"{v['wrapper_ms']:.4f} ms, plain {v['plain_ms']:.4f} ms")
+    log(f"[classical] (b) matcher equal to its plain version (on the card and on the CPU) on "
+        f"{matches} cross-checked matches, max abs err {err}; an empty side gives none")
+
+    # ---- (c) export_classical on the card over phase 12's corpus
+    config = load_config(ROOT / "configs" / "classical_descriptors.yaml")
+    n_pairs = HP_SEQ * len(HP_VIEWS)
+    launches, result = {}, {}
+    for method in ("sift", "orb"):
+        cfg = copy.deepcopy(config)
+        cfg["model"]["name"] = method
+        exper = f"classical_{method}"
+        reset_launches()
+        seconds = {}
+        t0 = time.perf_counter()
+        written = export_classical(cfg, exper, device=dev, seconds=seconds)
+        wall = time.perf_counter() - t0
+        counts = {**read_launches(), "bfmatch": bfmatch.launches}
+        out = td / "logs" / exper / "predictions"
+        with_matches = 0
+        for i in range(n_pairs):
+            with np.load(out / f"{i}.npz") as z:
+                with_matches += int(len(z["prob"]) > 0 and len(z["warped_prob"]) > 0)
+        if written != n_pairs or counts["bfmatch"] != with_matches or with_matches == 0 or \
+                any(counts[k] for k in counts if k != "bfmatch"):
+            raise AssertionError(f"[classical] (c) {method}: {written} pairs, launches {counts}, "
+                                 f"{with_matches} pairs with keypoints on both sides")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        mtimes = {f.name: f.stat().st_mtime_ns for f in out.glob("*.npz")}
+        again = export_classical(cfg, exper, device=dev)
+        if again != n_pairs or mtimes != {f.name: f.stat().st_mtime_ns for f in out.glob("*.npz")}:
+            raise AssertionError(f"[classical] (c) {method}: a second call wrote files")
+        # the same export with the matcher's plain version on the CPU: the same files
+        export_classical(cfg, f"{exper}_cpu", device="cpu")
+        cpu_out = td / "logs" / f"{exper}_cpu" / "predictions"
+        for i in range(n_pairs):
+            with np.load(out / f"{i}.npz") as a, np.load(cpu_out / f"{i}.npz") as b:
+                if sorted(a.files) == sorted(b.files) and a["matches"].shape == b["matches"].shape:
+                    err = max(err, float(np.abs(a["matches"] - b["matches"]).max(initial=0.0)))
+                if sorted(a.files) != sorted(b.files) or \
+                        not all(np.array_equal(a[k], b[k]) for k in a.files):
+                    raise AssertionError(f"[classical] (c) {method} pair {i}: the card's file "
+                                         f"differs from the CPU's")
+        shares = {k: v / sum(seconds.values()) for k, v in seconds.items()}
+        summary = evaluate(out)
+        result[method] = {"pairs_per_s": n_pairs / wall, "seconds": seconds, "summary": summary}
+        log(f"[classical] (c) export_classical {method}: {written} pairs, matcher launched "
+            f"{counts['bfmatch']} times (once per pair with keypoints on both sides), a second "
+            f"call wrote nothing, equal to the CPU export; {n_pairs / wall:.2f} pairs/s by the "
+            f"host clock, ms per pair: " +
+            ", ".join(f"{k} {v / n_pairs * 1e3:.2f} ({shares[k]:.3f})" for k, v in seconds.items())
+            + f" ({smi})")
+        log(f"[classical] (c) evaluate {method}: " +
+            ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                      for k, v in summary.items()))
+
+    k = f"{CLASSICAL_ROWS}x{CLASSICAL_ROWS}_sift"
+    row = {"name": "bfmatch", "route": "cuda", "source": "ssp_torch/csrc/bfmatch.cu",
+           "replaces": "no TPU kernel: ssp/export/classical.py:44 cv2.BFMatcher on the host",
+           "tpu_counterpart": False, "launches": launches["bfmatch"],
+           "launches_classical": launches["bfmatch"], "max_abs_err": err,
+           "ms": times[k]["ms"], "plain_ms": times[k]["plain_ms"],
+           "bound_ms": times[k]["bound"][0], "bound_by": times[k]["bound"][1],
+           "library_ms": None, "shape": k,
+           "orb_ms": times[f"{CLASSICAL_ROWS}x{CLASSICAL_ROWS}_orb"]["ms"],
+           "orb_plain_ms": times[f"{CLASSICAL_ROWS}x{CLASSICAL_ROWS}_orb"]["plain_ms"],
+           "orb_bound_ms": times[f"{CLASSICAL_ROWS}x{CLASSICAL_ROWS}_orb"]["bound"][0],
+           "sift_pairs_per_s": result["sift"]["pairs_per_s"],
+           "orb_pairs_per_s": result["orb"]["pairs_per_s"]}
+    return {"launches": launches, "row": row}
 
 
 if __name__ == "__main__":

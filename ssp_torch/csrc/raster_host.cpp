@@ -47,6 +47,8 @@
 #include <cstring>
 #include <vector>
 
+#include "cv_common.h"
+
 namespace {
 
 constexpr int XY_SHIFT = 16;
@@ -62,8 +64,9 @@ struct P {
   int64_t x, y;
 };
 
-// cvRound: to nearest, ties to even (the default rounding mode).
-inline int64_t round_even(double v) { return static_cast<int64_t>(std::nearbyint(v)); }
+using sspcv::reflect101;
+using sspcv::round_even;
+using sspcv::sat_u8;
 
 inline void hline(const Canvas& c, int y, int x1, int x2, uint8_t color) {
   if (x2 >= x1) std::memset(c.row(y) + x1, color, static_cast<size_t>(x2 - x1 + 1));
@@ -699,16 +702,6 @@ void ellipse_filled(const Canvas& c, int cx, int cy, int ax, int ay, double angl
   fill_convex(c, v.data(), static_cast<int>(v.size()), color, XY_SHIFT);
 }
 
-// BORDER_REFLECT_101 index.
-inline int reflect101(int p, int n) {
-  if (n == 1) return 0;
-  while (p < 0 || p >= n) {
-    if (p < 0) p = -p;
-    if (p >= n) p = 2 * n - 2 - p;
-  }
-  return p;
-}
-
 void box_blur(const uint8_t* src, uint8_t* dst, int h, int w, int k) {
   const int r = k / 2;
   // horizontal running sums
@@ -756,7 +749,7 @@ void box_blur(const uint8_t* src, uint8_t* dst, int h, int w, int k) {
       } else {
         v = static_cast<int64_t>(std::nearbyint(static_cast<float>(acc[x]) * fscale));
       }
-      o[x] = static_cast<uint8_t>(std::min<int64_t>(std::max<int64_t>(v, 0), 255));
+      o[x] = sat_u8(v);
     }
     if (y + 1 < h) {
       const int32_t* add = rows.data() + static_cast<int64_t>(yidx[y + k]) * w;

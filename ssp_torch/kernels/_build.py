@@ -5,7 +5,8 @@ host ops) with the system ``g++``.
 Each ``ssp_torch/csrc/<name>.cu`` (and the host source ``<name>.cpp``)
 compiles on its own into ``ssp_torch/_build/lib<name>-<hash>.so``: a plain
 C interface, no PyTorch headers, so a build takes seconds.  The hash covers
-the source, the headers beside it and the flags, so an edited source is
+the source, the headers beside it (``*.cuh`` for a kernel, ``*.h`` for a
+host library) and the flags, so an edited source is
 never served by a stale library.  A build writes a file of its own process
 and is put in place with ``os.replace``, so processes that build at once do
 not race.  Building happens at first use (or up front through
@@ -28,8 +29,8 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("down1", "nms", "stem", "vresample")
-HOST_SOURCES = ("imageio_host", "ops_host", "raster_host")  # csrc/<name>.cpp, built with g++
+SOURCES = ("bfmatch", "down1", "nms", "stem", "vresample")
+HOST_SOURCES = ("features_host", "imageio_host", "ops_host", "raster_host")  # csrc/<name>.cpp, g++
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -69,9 +70,8 @@ def _lib_path(name: str, flags=None) -> Path:
     src = _source(name)
     h = hashlib.sha256(" ".join(flags or _default_flags(name)).encode())
     h.update(src.read_bytes())
-    if src.suffix == ".cu":
-        for header in sorted(CSRC.glob("*.cuh")):
-            h.update(header.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh" if src.suffix == ".cu" else "*.h")):
+        h.update(header.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 

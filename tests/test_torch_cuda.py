@@ -12,7 +12,7 @@ Bars: stem and down1 within ``ssp_torch.kernels.stem.assert_bf16_close``
 kernels within 1e-6·max|img| of their plain versions and of an fp64 hat sum
 (fp32 blends of two taps; the kernel may contract the blend to an FMA);
 the folded convs' accumulators within 2⁻¹⁴·max|want| of an fp32 conv with
-TF32 off.
+TF32 off; the cross-checked matcher (SIFT and ORB rows) exact.
 """
 
 import numpy as np
@@ -688,3 +688,63 @@ def test_val_agent_launches_the_kernels_once_per_image(cuda):
         d, dp = agent.desc_to_sparse_desc(), plain.desc_to_sparse_desc()
         cos = [float(d[got[k]] @ dp[want[k]]) for k in shared]
         assert min(cos) >= 0.999
+
+
+def _match_inputs(rng, nq, nt, hamming, levels):
+    """Descriptor rows with ties: few distinct values per entry (SIFT) or
+    masked bits (ORB), planted duplicate rows on both sides and rows shared
+    by the two sides."""
+    if hamming:
+        q = rng.integers(0, 256, (nq, 32), dtype=np.uint8) & np.uint8(levels)
+        t = rng.integers(0, 256, (nt, 32), dtype=np.uint8) & np.uint8(levels)
+    else:
+        step = 255 // (levels - 1)
+        q = (rng.integers(0, levels, (nq, 128)) * step).astype(np.float32)
+        t = (rng.integers(0, levels, (nt, 128)) * step).astype(np.float32)
+    n = min(nq, nt, 7)
+    t[:n] = q[:n]
+    if nt > 12:
+        t[8:11] = t[7]
+    if nq > 12:
+        q[8:11] = q[7]
+    return torch.from_numpy(q), torch.from_numpy(t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hamming", [False, True])
+def test_bfmatch_kernel_equals_plain_version(cuda, hamming):
+    """The cross-checked matcher, exactly: ties to the lowest index, odd row
+    counts (partial tiles), one row, 1000 x 1000 rows of 0..255."""
+    from ssp_torch.kernels import bfmatch
+
+    rng = np.random.default_rng(int(hamming))
+    cases = [_match_inputs(rng, nq, nt, hamming, lv)
+             for nq, nt, lv in ((1, 1, 3), (1, 70, 2), (65, 1, 4), (131, 97, 3), (300, 257, 8),
+                                (64, 64, 255 if hamming else 2))]
+    full = rng.integers(0, 256, (2, 1000, 32 if hamming else 128))
+    dtype = np.uint8 if hamming else np.float32
+    cases.append((torch.from_numpy(full[0].astype(dtype)), torch.from_numpy(full[1].astype(dtype))))
+    for q, t in cases:
+        before = bfmatch.launches
+        got = bfmatch.bfmatch(q.to(cuda), t.to(cuda))
+        assert bfmatch.launches == before + 1
+        want = bfmatch.bfmatch_plain(q.to(cuda), t.to(cuda))
+        assert torch.equal(got, want), (q.shape, t.shape)
+        assert torch.equal(got.cpu(), bfmatch.bfmatch_plain(q, t)), (q.shape, t.shape)
+        assert len(got) > 0
+
+
+@pytest.mark.cuda
+def test_bfmatch_kernel_edges(cuda):
+    from ssp_torch.kernels import bfmatch
+
+    q = torch.full((3, 128), 7.0, device=cuda)
+    before = bfmatch.launches
+    assert bfmatch.bfmatch(q[:0], q).shape == (0, 3) and bfmatch.bfmatch(q, q[:0]).shape == (0, 3)
+    assert bfmatch.launches == before  # nothing to match: no launch
+    bad = q.clone()
+    bad[1, 3] = 0.5
+    with pytest.raises(ValueError, match="integers in"):
+        bfmatch.bfmatch(q, bad)
+    # three equal rows on each side: query 0 takes train 0, the others none
+    np.testing.assert_array_equal(bfmatch.bfmatch(q, q).cpu().numpy(), [[0.0, 0.0, 0.0]])

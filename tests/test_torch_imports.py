@@ -61,7 +61,9 @@ def test_port_files_found():
     assert {"ssp_torch/native/__init__.py", "ssp_torch/cli/import_torch.py",
             "ssp_torch/cli/convert2script.py", "ssp_torch/parallel/__init__.py",
             "ssp_torch/parallel/mesh.py"} <= names
-    assert len(names) > 66
+    assert {"ssp_torch/export/classical.py", "ssp_torch/export/features.py",
+            "ssp_torch/kernels/bfmatch.py", "ssp_torch/cli/export_classical.py"} <= names
+    assert len(names) > 70
 
 
 def test_fresh_interpreter_imports_every_module_without_jax_ssp_cv2():
@@ -89,7 +91,7 @@ def test_fresh_interpreter_imports_every_module_without_jax_ssp_cv2():
 
 def test_package_data_ships_the_kernel_sources():
     text = (ROOT / "pyproject.toml").read_text()
-    assert 'ssp_torch = ["csrc/*.cu", "csrc/*.cuh", "csrc/*.cpp"]' in text
+    assert 'ssp_torch = ["csrc/*.cu", "csrc/*.cuh", "csrc/*.cpp", "csrc/*.h"]' in text
     from ssp_torch.kernels import _build
 
     assert set(_build.SOURCES) == {p.stem for p in (ROOT / "ssp_torch" / "csrc").glob("*.cu")}
