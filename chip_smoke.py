@@ -228,6 +228,28 @@ failure (nothing is caught):
     pairs/s by the host clock split into decode and resize, detection,
     match and npz write.
 
+22. ``[dispatch]``, the JAX package's single-program dispatches as CUDA
+    graphs (``ssp_torch.graphs``), on the trained weights: (a) bench_ha's
+    group (8×240×320, 100 warps, ``configs/magicpoint_coco_export.yaml``'s
+    settings) through ``make_ha_fn(..., one_dispatch=True)``, one graph per
+    group, against the staged group on the same homographies (valid flags
+    equal, points within HA_ONE_DISPATCH_MAX), two replays and the same
+    chain run eagerly equal bit for bit; ms per group both ways by CUDA
+    events and the host clock, in the order staged, graph, graph, staged,
+    the host's queueing and its prologue alone, the capture's ms and the
+    graph pool; (b) ``export_detector_homoAdapt`` with ``one_dispatch`` over
+    phase 16's images: the same files; (c) the flagship on phase 17's tree
+    and (d) stage 1 on phase 18's corpus, each with the device corpus and
+    DISPATCH_SPD steps per dispatch, the graphed loop against the eager one
+    (``eager=True``) from the same state and seeds: one untimed turn, then
+    DISPATCH_TIMED timed steps and one profiled turn, ms/step, the idle
+    share and peak memory of each; equal (largest absolute difference 0) in
+    every turn's metrics, the parameters, the BatchNorm statistics and the
+    ηs under ``torch.use_deterministic_algorithms``, and the difference as
+    they run printed beside it.  The kernel wrappers' counters do not see a
+    replay: the graphs' launches are those counted at the capture times the
+    replays.
+
 Prints a ``{"kernels": [...]}`` line (each row also with the launches of
 phase 12's export, ``launches_export``, of phase 13's sweep,
 ``launches_sweep``, of phases 15, 16, 17 and 18, ``launches_sequence``,
@@ -236,7 +258,9 @@ phase 18's reload, ``launches_synth_reload``, of phase 19's four runs,
 ``launches_dense``, ``launches_accum``, ``launches_subpixel`` and
 ``launches_val_agent``, and of phase 20, ``launches_rest``: (b)'s export,
 (d)'s timed steps and train CLI on every rank and (e)'s export on every
-rank, and of phase 21, ``launches_classical``, all 0; then the matcher's
+rank, and of phase 21, ``launches_classical``, all 0, and of phase 22,
+``launches_dispatch_ha``, ``launches_dispatch_ha_cli``,
+``launches_dispatch_train`` and ``launches_dispatch_synth``; then the matcher's
 entry, which replaces no TPU kernel; for the stem, down1 and NMS
 their times at 1×240×320, ``export_1x240x320``, and at 1×384×1248,
 ``sequence_1x384x1248``; for ``vresample_coef`` its time at the training
@@ -249,6 +273,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import csv
+import gc
 import hashlib
 import json
 import os
@@ -298,6 +323,7 @@ from ssp_torch.models.fast_infer import (accumulator_errors, best_apply_fn, fold
                                          make_fast_apply)
 from ssp_torch.models.superpoint import build_model
 from ssp_torch.models.weights import load_flax_npz, load_weights, read_state_dict
+from ssp_torch import graphs, registry
 from ssp_torch.train import train_step
 from ssp_torch.train.subpixel_agent import SubpixelValAgent, subpixel_losses
 from ssp_torch.train.val_agent import ValAgent
@@ -465,6 +491,16 @@ ART_ATOL = 2e-4
 # (e) the points of the multi-rank HA export against the one-process export:
 # the bar of the JAX package's multi-process test (tests/test_multiproc.py)
 HA_MULTI_MAX = 1e-5
+# phase 22 [dispatch]: the HA group as one CUDA graph against the staged
+# group on the same homographies, valid flags equal and points within the bar
+# of the JAX package's own one_dispatch test (tests/test_export_eval.py: the
+# chunks are summed in another order); the training loops with
+# DISPATCH_SPD steps per dispatch, one untimed turn (its first WARMUP steps
+# eager, then the capture), DISPATCH_TIMED timed steps and one profiled turn,
+# the graphed loop against the eager one
+HA_ONE_DISPATCH_MAX = 1e-4
+DISPATCH_SPD = 10
+DISPATCH_TIMED = 20
 
 
 def log(msg: str) -> None:
@@ -695,6 +731,9 @@ def cudnn_weights(w, s, b):
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; torch.cuda.is_available() is False")
+    # cuBLAS reads this when it starts: phase 22 runs its comparisons under
+    # torch.use_deterministic_algorithms, which refuses cuBLAS without it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
     # ---- 1. the card -------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -938,7 +977,8 @@ def main() -> None:
         canvas, Hres, bounds, _ = warp_twopass._canvas_and_residual(imgs, Hm)
         S = canvas.shape[-1]
         rows, cols = warp_twopass._twopass_grids(Hres.to(dev), S,
-                                                 *warp_twopass._keep_masks(bounds, S, dev))
+                                                 *warp_twopass._keep_masks(torch.stack(bounds),
+                                                                           S, dev))
         vals = torch.tensor([S - 1.0 if v is None else v for v in planted], device=dev)
         rows[0, 1, :8] = vals
         cols[0, 1, :8] = vals
@@ -1156,6 +1196,7 @@ def main() -> None:
         train2 = train2_phase(dev, td, smi)
         rest = rest_phase(dev, td, smi, desc)
         classical = classical_phase(dev, td, smi)
+        dispatch = dispatch_phase(dev, td, smi)
     for row in kernels:
         row["launches_export"] = export_launches.get(row["name"], 0)
         row["launches_sweep"] = sweep_launches.get(row["name"], 0)
@@ -1168,6 +1209,8 @@ def main() -> None:
             row[f"launches_{path}"] = train2[path].get(row["name"], 0)
         row["launches_rest"] = rest.get(row["name"], 0)
         row["launches_classical"] = classical["launches"].get(row["name"], 0)
+        for path, counts in dispatch.items():
+            row[f"launches_dispatch_{path}"] = counts.get(row["name"], 0)
         if row["name"] in export_times:
             row["export_1x240x320"] = export_times[row["name"]]
         if row["name"] in sequence_times:
@@ -2987,6 +3030,268 @@ def classical_phase(dev: torch.device, td: Path, smi: str) -> dict:
            "orb_pairs_per_s": result["orb"]["pairs_per_s"]}
     return {"launches": launches, "row": row}
 
+
+def dispatch_ha_group(dev: torch.device, smi: str) -> dict:
+    """Phase 22 (a): bench_ha's group (8x240x320, 100 warps, the export
+    settings of configs/magicpoint_coco_export.yaml, trained weights) as one
+    CUDA graph against the staged group on the same homographies; the times
+    of both, by CUDA events and by the host clock, the host's queueing, the
+    capture's time and the graph pool's memory.  Returns the graph's
+    launches: those of one replay, counted at the capture (the wrappers'
+    counters see no replay), times the replays."""
+    G, HH, HW = bench_ha.GROUP, bench_ha.H, bench_ha.W
+    staged = bench_ha.build_ha(NPZ, device=dev)
+    graphed = bench_ha.build_ha(NPZ, device=dev, one_dispatch=True)
+    images = torch.from_numpy(structured_images(G, HH, HW, SEED + 22)[..., 0]).to(dev)
+
+    def gens():
+        return [torch.Generator().manual_seed(SEED + 22 + i) for i in range(G)]
+
+    want_pts, want_valid = staged(images, generator=gens())
+    got_pts, got_valid = graphed(images, generator=gens())
+    again_pts, again_valid = graphed(images, generator=gens())
+    torch.cuda.synchronize()
+    region = graphed.regions[(G, HH, HW)]
+    per_replay = dict(region.launches_per_replay)
+    diff = float((got_pts - want_pts).abs().max())
+    log(f"[dispatch] (a) HA group {G}x{HH}x{HW}, {bench_ha.NUM_H} warps, one CUDA graph against "
+        f"the staged group, same homographies: valid equal {torch.equal(got_valid, want_valid)} "
+        f"({int(got_valid.sum())} points), points max abs diff {diff:.3g} (bar "
+        f"{HA_ONE_DISPATCH_MAX}); a second replay equal to the first "
+        f"{torch.equal(again_pts, got_pts) and torch.equal(again_valid, got_valid)}")
+    if not torch.equal(got_valid, want_valid) or diff > HA_ONE_DISPATCH_MAX:
+        raise AssertionError(f"HA one_dispatch against staged: valid equal "
+                             f"{torch.equal(got_valid, want_valid)}, points diff {diff}")
+    if not (torch.equal(again_pts, got_pts) and torch.equal(again_valid, got_valid)):
+        raise AssertionError("two replays of the HA graph on the same inputs differ")
+    with torch.inference_mode():
+        eager_pts, eager_valid = region.eager()  # the same chain, eagerly, on the same inputs
+    if not (torch.equal(eager_pts, got_pts) and torch.equal(eager_valid, got_valid)):
+        raise AssertionError("the HA graph's replay differs from the same chain run eagerly")
+    log("[dispatch] (a) the replay equal bit for bit to the same chain run eagerly on the "
+        "same inputs (CapturedRegion.eager)")
+    idle = [k for k in ("stem", "down1", "nms", "vresample_coef") if per_replay[k] == 0]
+    if idle or per_replay["vresample"]:
+        raise AssertionError(f"HA graph launches per replay {per_replay}")
+    gen = torch.Generator().manual_seed(SEED + 23)
+    runs = {"staged": [], "graph": []}
+    for name in ("staged", "graph", "graph", "staged"):
+        fn = staged if name == "staged" else graphed
+        runs[name].append([t / bench_ha.ITERS * 1e3 for t in bench_ha.time_groups(fn, images, gen)])
+    launches = {k: v * region.replays for k, v in per_replay.items()}
+    # the host's own work per group before the replay: the homographies and
+    # both warps' plans (make_ha_fn's prologue, done here the same way)
+    params = DEFAULT_HA["homographies"]["params"]
+    t0 = time.perf_counter()
+    for _ in range(bench_ha.ITERS):
+        Hs = torch.cat([torch.eye(3).expand(G, 1, 3, 3), torch.stack([
+            sample_homographies(bench_ha.NUM_H - 1, generator=g, shift=-1.0, **params)
+            for g in gens()])], dim=1).reshape(-1, 3, 3)
+        warp_twopass.twopass_plan(Hs, HH, HW)
+        warp_twopass.twopass_plan(inv3(Hs), HH, HW)
+    prologue_ms = (time.perf_counter() - t0) * 1e3 / bench_ha.ITERS
+    log(f"[dispatch] (a) ms per group ({smi}), runs in the order staged, graph, graph, staged, "
+        f"{bench_ha.ITERS} groups each: " + "; ".join(
+            f"{k}: CUDA events {' / '.join(f'{r[0]:.3f}' for r in v)}, host clock "
+            f"{' / '.join(f'{r[1]:.3f}' for r in v)}, host queueing "
+            f"{' / '.join(f'{r[2]:.3f}' for r in v)}" for k, v in runs.items()) +
+        f"; the graph's host prologue alone {prologue_ms:.3f} ms per group (the host queues "
+        f"ahead of the card by at most {graphs.SLOTS} groups: the pinned slots); capture "
+        f"{region.capture_s * 1e3:.1f} ms, graph pool "
+        f"{region.pool_bytes / 2 ** 20:.1f} MiB; launches per replay {per_replay} (counted at "
+        f"the capture) x {region.replays} replays = {launches}")
+    return launches
+
+
+def dispatch_ha_cli(dev: torch.device, td: Path) -> dict:
+    """Phase 22 (b): export_detector_homoAdapt with one_dispatch over phase
+    16's images: the same files as phase 16's staged export, byte for byte
+    in their points.  Returns the launches (the eager warm-up calls by the
+    wrappers' counters, the replays as the capture's count per replay times
+    the region's replays)."""
+    config = copy.deepcopy(HA_CLI_CONFIG)
+    config["pretrained"] = str(ROOT / HA_CLI_CONFIG["pretrained"])
+    config["data"]["homography_adaptation"]["one_dispatch"] = True
+    n = HA_CLI_IMAGES
+    per_image = {"stem": 1, "down1": 1, "nms": 1, "vresample": 0, "vresample_coef": 4}
+    regions: dict = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    written = export_detector_homoAdapt(config, "ha_cli_graph", device=dev, regions=regions)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    counted = read_launches()
+    # the first image: WARMUP eager calls and the capture, each counted once;
+    # then one replay per image
+    if written != n or counted != {k: v * (graphs.WARMUP + 1) for k, v in per_image.items()}:
+        raise AssertionError(f"HA CLI one_dispatch: {written} images, counted {counted}")
+    if len(regions) != 1:
+        raise AssertionError(f"HA CLI one_dispatch: regions {list(regions)}")
+    region = next(iter(regions.values()))
+    per_replay = region.launches_per_replay
+    if per_replay != per_image:
+        raise AssertionError(f"HA CLI one_dispatch: {per_replay} launches per replay")
+    # the wrappers counted the warm-up calls and the capture (which ran nothing)
+    launches = {k: counted[k] - v + v * region.replays for k, v in per_replay.items()}
+    ours = td / "logs" / "ha_cli_graph" / "predictions" / "train2017"
+    theirs = td / "logs" / "ha_cli" / "predictions" / "train2017"
+    names = sorted(p.name for p in ours.glob("*.npz"))
+    if names != sorted(p.name for p in theirs.glob("*.npz")):
+        raise AssertionError(f"HA CLI one_dispatch files {names}")
+    for name in names:
+        with np.load(ours / name) as a, np.load(theirs / name) as b:
+            if not np.array_equal(a["pts"], b["pts"]):
+                raise AssertionError(f"HA CLI one_dispatch: {name} differs from phase 16's")
+    log(f"[dispatch] (b) export_detector_homoAdapt with one_dispatch: {written} files equal to "
+        f"phase 16's; {n / cli_s:.2f} img/s by the host clock with the model load, the warm-up "
+        f"and the capture; launches {launches} ({graphs.WARMUP} eager calls and "
+        f"{region.replays} replays of {per_replay}, the replays counted at the capture)")
+    return launches
+
+
+def _dispatch_run(cfg: dict, name: str, mode: str, dev: torch.device, attach,
+                  deterministic: bool) -> dict:
+    """One run of phase 22's training loop (``dispatch_train``): a fresh agent,
+    graphed or eager, with its corpus from ``attach``; one untimed turn, the
+    timed turns, one profiled turn.  ``deterministic``: under
+    ``torch.use_deterministic_algorithms`` (no atomics whose order changes
+    from run to run)."""
+    from ssp_torch.utils.experiment import ExperimentPaths
+
+    turns = DISPATCH_TIMED // DISPATCH_SPD
+    gc.collect()  # an earlier run's agent and graph (a reference cycle) leave the card
+    torch.use_deterministic_algorithms(deterministic, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.empty_cache()
+            held = torch.cuda.memory_allocated()  # by earlier phases, not this run
+            agent = registry.get("agent", cfg["front_end_model"])(
+                cfg, save_path=ExperimentPaths(name), device=dev, eager=mode == "eager")
+            attach(agent)
+            if agent.graphed() != (mode == "graph"):
+                raise AssertionError(f"{name}: graphed() is {agent.graphed()}")
+            metrics = [{k: float(v) for k, v in agent.dispatch().items()}]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            e0.record()
+            out = [agent.dispatch() for _ in range(turns)]
+            e1.record()
+            queued_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            host_s = time.perf_counter() - t0
+            peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+            metrics += [{k: float(v) for k, v in m.items()} for m in out]
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                metrics.append({k: float(v) for k, v in agent.dispatch().items()})
+                torch.cuda.synchronize()
+                prof_s = time.perf_counter() - t1
+    finally:
+        torch.use_deterministic_algorithms(False)
+    on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith("Optimizer.")]
+    busy_ms = sum(e.device_time_total for e in on_card) / 1e3
+    steps = turns * DISPATCH_SPD
+    region = agent.region
+    state = {k: v.detach().clone() for k, v in agent.state.model.state_dict().items()}
+    etas, count = agent.state.etas.detach().clone(), agent.state.step
+    # the host's own work per step: the prologue (homographies and warp plans)
+    t1 = time.perf_counter()
+    for _ in range(10):
+        agent._prologue()
+    prologue_ms = (time.perf_counter() - t1) * 1e2
+    return {
+        "ms_per_step": e0.elapsed_time(e1) / steps, "host_ms_per_step": host_s * 1e3 / steps,
+        "queue_ms_per_step": queued_s * 1e3 / steps, "prologue_ms": prologue_ms,
+        "idle": max(0.0, 1 - busy_ms / (prof_s * 1e3)) if on_card else None,
+        "device_ops_per_step": len(on_card) / DISPATCH_SPD, "peak_gib": peak,
+        "metrics": metrics, "step": count, "state": state, "etas": etas,
+        "capture_ms": region.capture_s * 1e3 if region else None,
+        "pool_mib": region.pool_bytes / 2 ** 20 if region else None,
+        "per_replay": dict(region.launches_per_replay) if region else None,
+        "replays": region.replays if region else 0,
+        "nondeterministic": sorted({str(w.message).split(".")[0][:120] for w in caught
+                                    if "deterministic" in str(w.message)}),
+    }
+
+
+def _largest_diff(a: dict, b: dict) -> float:
+    """The largest absolute difference between two runs' metrics of every
+    turn, module states (parameters and BatchNorm statistics) and ηs."""
+    return max([abs(x[k] - y[k]) for x, y in zip(a["metrics"], b["metrics"]) for k in x] +
+               [float((a["state"][k].double() - b["state"][k].double()).abs().max())
+                for k in a["state"]] + [float((a["etas"] - b["etas"]).abs().max())])
+
+
+def dispatch_train(cfg: dict, tag: str, dev: torch.device, smi: str, attach) -> dict:
+    """Phase 22 (c)/(d): the trainer's device-corpus loop with DISPATCH_SPD
+    steps per dispatch, graphed and eager (the agent's ``eager`` keyword),
+    from the same state and seeds, ``attach(agent)`` giving each its corpus:
+    one untimed turn (WARMUP eager steps, the capture, the replays), then
+    DISPATCH_TIMED steps timed by CUDA events and the host clock with the
+    peak memory, then one turn under ``torch.profiler`` for the idle share.
+    The two loops run once as they are (timed) and once under
+    ``torch.use_deterministic_algorithms``, where the metrics of every turn,
+    the parameters, the BatchNorm statistics and the ηs must be equal.
+    Returns the graphed run's launches."""
+    cfg = dict(copy.deepcopy(cfg), steps_per_dispatch=DISPATCH_SPD)
+    res = {(mode, det): _dispatch_run(cfg, f"dispatch_{tag[1]}_{mode}_{int(det)}", mode, dev,
+                                      attach, det)
+           for det in (False, True) for mode in ("graph", "eager")}
+    g, e = res[("graph", False)], res[("eager", False)]
+    gd, ed = res[("graph", True)], res[("eager", True)]
+    diff, diff_det = _largest_diff(g, e), _largest_diff(gd, ed)
+    B = cfg["model"].get("real_batch_size", cfg["model"]["batch_size"])
+    launches = {k: v * g["replays"] for k, v in g["per_replay"].items()}
+    log(f"[dispatch] {tag} {DISPATCH_SPD} steps per dispatch, {len(g['metrics'])} turns from "
+        f"the same state and seeds ({smi}), graphed against eager, the largest absolute "
+        f"difference over every turn's metrics, the parameters, the BatchNorm statistics and "
+        f"the etas: {diff_det:.3g} under torch.use_deterministic_algorithms (loss "
+        f"{gd['metrics'][-1]['loss']:.6f} / {ed['metrics'][-1]['loss']:.6f}; ops it flagged: "
+        f"{gd['nondeterministic'] or 'none'}), {diff:.3g} as they run (loss "
+        f"{g['metrics'][-1]['loss']:.6f} / {e['metrics'][-1]['loss']:.6f}: the order of atomic "
+        f"sums changes from run to run); step counts {g['step']} / {e['step']}")
+    for mode, r in (("graph", g), ("eager", e)):
+        idle = "not measured" if r["idle"] is None else f"{r['idle']:.3f}"
+        log(f"[dispatch] {tag} {mode}: {r['ms_per_step']:.3f} ms/step by CUDA events over "
+            f"{DISPATCH_TIMED} steps ({B * 1e3 / r['ms_per_step']:.2f} img/s), "
+            f"{r['host_ms_per_step']:.3f} ms/step by the host clock, the host queued a step in "
+            f"{r['queue_ms_per_step']:.3f} ms (its prologue alone {r['prologue_ms']:.3f} ms); "
+            f"idle share {idle} ({r['device_ops_per_step']:.0f} device operations per step "
+            f"under torch.profiler); peak memory of the timed steps {r['peak_gib']:.2f} GiB "
+            f"above what earlier phases hold" +
+            ("" if r["capture_ms"] is None else f", the graph's pool {r['pool_mib']:.1f} MiB "
+                                                f"besides; capture {r['capture_ms']:.1f} ms"))
+    log(f"[dispatch] {tag} graph launches: {g['per_replay']} per replay (counted at the "
+        f"capture) x {g['replays']} replays = {launches}")
+    if gd["step"] != ed["step"] or diff_det != 0.0:
+        raise AssertionError(f"{tag}: the graphed loop differs from the eager loop by "
+                             f"{diff_det} (steps {gd['step']} / {ed['step']})")
+    if not all(np.isfinite(v) for m in g["metrics"] for v in m.values()):
+        raise AssertionError(f"{tag}: a non-finite metric")
+    if g["per_replay"]["vresample_coef"] == 0:
+        raise AssertionError(f"{tag}: no vresample_coef launch in the captured step")
+    return launches
+
+
+def dispatch_phase(dev: torch.device, td: Path, smi: str) -> dict:
+    """Phase 22 [dispatch]: the JAX package's single-program dispatches as
+    CUDA graphs, on the trained weights.  (a) the HA group as one graph
+    against the staged group; (b) the HA CLI with ``one_dispatch`` against
+    phase 16's files; (c) the flagship on phase 17's tree and (d) stage 1 on
+    phase 18's corpus, each with the device corpus and DISPATCH_SPD steps
+    per dispatch, graphed against eager.  Returns the launches per path."""
+    out = {"ha": dispatch_ha_group(dev, smi), "ha_cli": dispatch_ha_cli(dev, td)}
+    for tag, name, exper in (("(c) flagship", "train", "train"), ("(d) stage 1", "synth", "synth")):
+        cfg = yaml.safe_load((td / f"{name}_cfg.yaml").read_text())
+        cfg.update(pretrained=str(NPZ), reset_iter=True, auto_resume=False)
+        train_set = train_cli.make_dataset(cfg, "train")
+        out[name] = dispatch_train(cfg, tag, dev, smi,
+                                   lambda a: a.attach_device_corpus(train_set))
+    return out
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rest-rank"]:

@@ -7,7 +7,7 @@ subpixel on: ``configs/magicpoint_coco_export.yaml``), a group of 8 images
 per call, ``SuperPointNet_gauss2`` with trained weights.
 
     python -m ssp_torch.bench_ha [--weights evidence/wsem_weights.npz]
-                                 [--sustained] [--profile] [--routes]
+                                 [--sustained] [--profile] [--routes] [--one-dispatch]
 
 Prints ONE JSON line: ``metric``, ``value`` (images/s), ``unit``,
 ``vs_baseline``, ``ms_per_group``, ``host_queueing_ms_per_group`` (how long
@@ -22,8 +22,12 @@ of the window in which the card ran no kernel.  ``--routes`` times the
 kernel-level loop on both routes of the two-pass warp in one process, in the
 order default, other, other, default (coordinates rebuilt in the resample
 kernel from coefficients, or read from grids built with tensor ops:
-``warp_twopass.COEF_GRIDS``), and prints each run's ms per group.  It needs a
-CUDA card.
+``warp_twopass.COEF_GRIDS``), and prints each run's ms per group.
+``--one-dispatch`` times the staged group beside the group as one CUDA
+graph (``make_ha_fn(..., one_dispatch=True)``), in the order staged, graph,
+graph, staged, and prints each run's ms per group by CUDA events and by the
+host clock and the host's queueing ms, with the capture's ms, the graph
+pool's MB and the kernels' launches per replay.  It needs a CUDA card.
 
 Baseline: the published SuperPoint rate is 70 FPS at 480×640 on a Titan X
 (arXiv:1712.07629).  One HA image costs 100 forwards at 240×320 = 25
@@ -77,6 +81,8 @@ def main(argv=None) -> None:
                     help="print the device time per kernel of two groups to stderr")
     ap.add_argument("--routes", action="store_true",
                     help="time a group on the coef and on the rows route of the warp")
+    ap.add_argument("--one-dispatch", action="store_true",
+                    help="time the staged group beside the group as one CUDA graph")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("ssp_torch.bench_ha needs a CUDA card")
@@ -87,39 +93,38 @@ def main(argv=None) -> None:
     images = torch.from_numpy(structured_images(GROUP, H, W, 0)[..., 0]).cuda()
     gen = torch.Generator().manual_seed(1)
 
-    def timed_loop():
-        """(seconds by CUDA events, seconds by the host clock, seconds the host
-        took to queue the work) of ITERS groups after a warm-up group (kernel
-        build, cuDNN autotuning).  Where the third is close to the second, the
-        card waits for the host's launches."""
-        ha(images, generator=gen)
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        start.record()
-        for _ in range(ITERS):
-            ha(images, generator=gen)
-        end.record()
-        queued_s = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / 1e3, time.perf_counter() - t0, queued_s
-
+    if args.one_dispatch:
+        fns = {"staged": ha, "one_dispatch": build_ha(args.weights, one_dispatch=True)}
+        runs = {name: [] for name in fns}
+        for name in ("staged", "one_dispatch", "one_dispatch", "staged"):
+            device_s, host_s, queued_s = time_groups(fns[name], images, gen)
+            runs[name].append({"ms_per_group": device_s / ITERS * 1e3,
+                               "host_clock_ms_per_group": host_s / ITERS * 1e3,
+                               "host_queueing_ms_per_group": queued_s / ITERS * 1e3})
+        region = next(iter(fns["one_dispatch"].regions.values()))
+        print(json.dumps({"metric": "HA group ms, staged launches against one CUDA graph "
+                                    "(8 images, num=100, 240x320)",
+                          "runs": runs, "capture_ms": region.capture_s * 1e3,
+                          "graph_pool_mb": region.pool_bytes / 2 ** 20,
+                          "launches_per_replay": region.launches_per_replay,
+                          "device": _card()}))
+        return
     if args.routes:
         default = warp_twopass.COEF_GRIDS
         ms = {"coef": [], "rows": []}
         for coef in (default, not default):  # both routes warm before either is timed
             warp_twopass.COEF_GRIDS = coef
-            timed_loop()
+            time_groups(ha, images, gen)
         for coef in (default, not default, not default, default):
             warp_twopass.COEF_GRIDS = coef
-            ms["coef" if coef else "rows"].append(timed_loop()[0] / ITERS * 1e3)
+            ms["coef" if coef else "rows"].append(time_groups(ha, images, gen)[0] / ITERS * 1e3)
         warp_twopass.COEF_GRIDS = default
         print(json.dumps({"metric": "HA group ms by route of the two-pass warp (8 images, "
                                     "num=100, 240x320)",
                           "default_route": "coef" if default else "rows",
                           "ms_per_group": ms, "device": _card()}))
         return
-    device_s, host_s, queued_s = timed_loop()
+    device_s, host_s, queued_s = time_groups(ha, images, gen)
     img_per_s = GROUP * ITERS / device_s
     if args.profile:
         _profile(lambda x: ha(x, generator=gen), images, batches=2)
@@ -133,6 +138,24 @@ def main(argv=None) -> None:
         "host_queueing_ms_per_group": queued_s / ITERS * 1e3,
         "device": _card(),
     }))
+
+
+def time_groups(ha, images, gen):
+    """(seconds by CUDA events, seconds by the host clock, seconds the host
+    took to queue the work) of ITERS groups after a warm-up group (kernel
+    build, cuDNN autotuning, a graph's capture).  Where the third is close
+    to the second, the card waits for the host's launches."""
+    ha(images, generator=gen)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(ITERS):
+        ha(images, generator=gen)
+    end.record()
+    queued_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / 1e3, time.perf_counter() - t0, queued_s
 
 
 def sustained(ha) -> None:

@@ -38,7 +38,7 @@ from __future__ import annotations
 import argparse
 import logging
 import os
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -108,21 +108,23 @@ def _dataset(config: Dict[str, Any]):
     return registry.get("dataset", name)(task=split, **data_cfg), split
 
 
-def export_detector_homoAdapt(config: Dict[str, Any], exper_name: str, *, device="cuda") -> int:
+def export_detector_homoAdapt(config: Dict[str, Any], exper_name: str, *, device="cuda",
+                              regions: Optional[dict] = None) -> int:
     """Stage-2 homography-adaptation pseudo-labels from ``config`` (see
     ``configs/magicpoint_coco_export.yaml``); returns the number of npz
     files this process wrote.  One image per call (``group=1``), as the JAX
     CLI runs on one device; in a process group (``ssp_torch.parallel``) each
     rank exports its share of the images (``run_ha_export``'s ``rank`` and
-    ``world``) and rank 0 writes ``export.txt``.  The JAX CLI's
-    ``one_dispatch`` mode is not carried over and raises."""
+    ``world``) and rank 0 writes ``export.txt``.
+    ``homography_adaptation.one_dispatch`` runs each image as one CUDA graph
+    (``make_ha_fn``'s ``one_dispatch``), with the same points: with one image
+    per call its chunk holds all of the image's warps.  A ``regions`` dict
+    receives the HA function's captured regions (``ha.regions``: their
+    launches per replay and replay counts)."""
     from ssp_torch.export.homography_adaptation import make_ha_fn, run_ha_export
     from ssp_torch.models.fast_infer import best_apply_fn
 
     ha_cfg = config["data"].get("homography_adaptation", {})
-    if ha_cfg.get("one_dispatch"):
-        raise ValueError("homography_adaptation.one_dispatch is not supported by the port: "
-                         "the export runs its stages as separate launches")
     dataset, split = _dataset(config)
     size = config["data"].get("preprocessing", {}).get("resize", [240, 320])
     model = _load_model(config, device=device)
@@ -142,6 +144,7 @@ def export_detector_homoAdapt(config: Dict[str, Any], exper_name: str, *, device
         nms_radius=int(m.get("nms", 4)),
         subpixel=bool(sub.get("enable", False)),
         patch_size=int(sub.get("patch_size", 5)),
+        one_dispatch=bool(ha_cfg.get("one_dispatch", False)),
     )
     exper = ExperimentPaths(exper_name)
     out_dir = exper.predictions / type(dataset).split_dir(split)
@@ -153,6 +156,8 @@ def export_detector_homoAdapt(config: Dict[str, Any], exper_name: str, *, device
     n = run_ha_export(ha_fn, dataset.images(), out_dir, seed=int(config.get("seed", 0)),
                       group=1, rank=mesh.rank(), world=mesh.world())
     log.info("exported %d predictions to %s", n, out_dir)
+    if regions is not None:
+        regions.update(ha_fn.regions)
     return n
 
 

@@ -27,7 +27,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ssp_torch._device import to_device
+from ssp_torch._device import constant
 
 
 def adjugate3(M: torch.Tensor) -> torch.Tensor:
@@ -79,8 +79,8 @@ def scale_homography(H: torch.Tensor, shape: Tuple[int, int],
     mapping pixel (x, y) → normalised ([shift, shift+2]²), returns
     ``T⁻¹ H T``.  ``shape`` is (H, W)."""
     height, width = shape
-    T = to_device(torch.tensor([[2.0 / width, 0.0, shift[0]], [0.0, 2.0 / height, shift[1]],
-                                [0.0, 0.0, 1.0]], dtype=H.dtype), H.device)
+    T = constant(torch.tensor([[2.0 / width, 0.0, shift[0]], [0.0, 2.0 / height, shift[1]],
+                               [0.0, 0.0, 1.0]], dtype=H.dtype), H.device)
     return inv3(T) @ H @ T
 
 

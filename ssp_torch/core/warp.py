@@ -20,7 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ssp_torch._device import to_device
+from ssp_torch._device import constant
 from ssp_torch.core.homography import warp_points
 
 
@@ -135,7 +135,7 @@ def erode_mask(mask: torch.Tensor, radius: int) -> torch.Tensor:
     if radius <= 0:
         return mask
     H, W = mask.shape[-2:]
-    k = to_device(torch.from_numpy(_ellipse_element(radius)).to(mask.dtype), mask.device)
+    k = constant(torch.from_numpy(_ellipse_element(radius)).to(mask.dtype), mask.device)
     # the anchor sits at (radius, radius) of a 2·radius element: offsets run
     # from −radius to radius − 1
     holes = F.pad((1.0 - mask).reshape(-1, 1, H, W), (radius, radius - 1, radius, radius - 1))

@@ -22,7 +22,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from ssp_torch._device import to_device
+from ssp_torch._device import constant
 
 ALL_PRIMITIVES = (
     "random_brightness",
@@ -101,7 +101,7 @@ def draw_additive_shade(shape, generator=None, device="cpu", transparency_range=
     return {
         "t": _uniform((B, 1, 1), transparency_range[0], transparency_range[1], generator, device),
         "centers": torch.rand((B, n, 2), generator=generator, device=device)
-        * to_device(torch.tensor([W, H], dtype=torch.float32), torch.device(device)),
+        * constant(torch.tensor([W, H], dtype=torch.float32), torch.device(device)),
         "radii": _uniform((B, n, 2), min_dim / 12.0, min_dim / 3.0, generator, device),
         "theta": _uniform((B, n), 0.0, math.pi, generator, device),
         "ks": _uniform((B, 1), kernel_size_range[0], kernel_size_range[1], generator, device),

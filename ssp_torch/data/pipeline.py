@@ -27,6 +27,13 @@ the two-pass warp on the kernels' plain versions.
 drawn.  Homographies come from ``host_generator`` on the CPU: the two-pass
 warp then needs no copy back from the card to choose its rotation buckets.
 Photometric values come from ``generator`` on the images' device.
+
+**Two halves.**  :func:`prepare_batch` is :func:`prepare_prologue`, the
+host's part (the homographies and the two-pass warp's plans, as CPU
+tensors), followed by :func:`prepare_body`, the device's part, which reads
+the prologue's tensors wherever they lie and nothing else from the host: a
+CUDA graph captures the body and takes each step's prologue through its
+static buffers (``ssp_torch.train.trainer``).
 """
 
 from __future__ import annotations
@@ -36,11 +43,11 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ssp_torch._device import to_device
+from ssp_torch._device import constant, to_device
 from ssp_torch.core.homography import inv3, sample_homographies, warp_points
 from ssp_torch.core.warp import compute_valid_mask, inv_warp_image
 from ssp_torch.data.photometric import gaussian_blur, photometric_augment
-from ssp_torch.kernels.warp_twopass import inv_warp_image_twopass
+from ssp_torch.kernels.warp_twopass import twopass_apply, twopass_plan
 
 
 def pad_points(pts_list, k: Optional[int] = None):
@@ -90,26 +97,27 @@ def splat_residuals(pts: torch.Tensor, valid: torch.Tensor,
 
 
 def _norm_scale(H: int, W: int, device) -> torch.Tensor:
-    return to_device(torch.tensor([(W - 1) / 2.0, (H - 1) / 2.0], dtype=torch.float32), device)
+    return constant(torch.tensor([(W - 1) / 2.0, (H - 1) / 2.0], dtype=torch.float32), device)
 
 
 def _warp_sample(images: torch.Tensor, points: torch.Tensor, points_valid: torch.Tensor,
-                 sem: Optional[torch.Tensor], H_inv: torch.Tensor, erosion: int,
-                 ignore_class: int, sem_warp_mode: str, warp: str, reference: bool):
-    """Warp (images, points, sem) by ``H_inv [B, 3, 3]`` (output → input).
+                 sem: Optional[torch.Tensor], H_inv: torch.Tensor,
+                 plan: Optional[Dict[str, torch.Tensor]], erosion: int, ignore_class: int,
+                 sem_warp_mode: str, reference: bool):
+    """Warp (images, points, sem) by ``H_inv [B, 3, 3]`` (output → input),
+    through the two-pass warp with ``plan`` (:func:`twopass_plan` of
+    ``H_inv``) or, without one, the gather warp.
 
     Returns (H_fwd, H_inv, warped images, warped points, points valid, valid
-    mask, warped sem), all on the images' device.  ``H_inv`` may lie on the
-    CPU: the two-pass warp reads it there."""
+    mask, warped sem), all on the images' device."""
     B, H_px, W_px = images.shape
     dev = images.device
-    H_inv = H_inv.float()
-    H_dev = to_device(H_inv, dev)
+    H_dev = to_device(H_inv.float(), dev)
     H_fwd = inv3(H_dev)
 
     def resample(x):
-        if warp == "twopass":
-            return inv_warp_image_twopass(x, H_inv, reference=reference)
+        if plan is not None:
+            return twopass_apply(x, plan, reference)
         return inv_warp_image(x[..., None], H_dev)[..., 0]
 
     warped = resample(images)
@@ -145,6 +153,124 @@ def _labels_for(points, valid, shape, sigma):
     return labels[..., None], res
 
 
+def _route(warp: Optional[str], device: torch.device) -> str:
+    warp = warp or ("twopass" if device.type == "cuda" else "gather")
+    if warp not in ("twopass", "gather"):
+        raise ValueError(f"warp route {warp!r}: expected 'twopass' or 'gather'")
+    return warp
+
+
+def prepare_prologue(
+    batch_size: int,
+    shape: Tuple[int, int],
+    device,
+    *,
+    homographic: Optional[Dict[str, Any]] = None,
+    warped_pair: Optional[Dict[str, Any]] = None,
+    host_generator: Optional[torch.Generator] = None,
+    draws: Optional[Dict[str, Any]] = None,
+    warp: Optional[str] = None,
+) -> Dict[str, torch.Tensor]:
+    """The host's part of :func:`prepare_batch` for ``batch_size`` images of
+    ``shape`` (H, W) on ``device``: the enabled homographies (``draws``'
+    ``"homographic"`` and ``"pair"``, else drawn from ``host_generator``),
+    each ``H_inv [B, 3, 3]`` under its name, and on the two-pass route its
+    warp plan under ``<name>.<key>`` (:func:`twopass_plan`).  CPU tensors of
+    fixed shapes."""
+    draws = draws or {}
+    twopass = _route(warp, torch.device(device)) == "twopass"
+    out: Dict[str, torch.Tensor] = {}
+    for name, cfg in (("homographic", homographic), ("pair", warped_pair)):
+        if not (cfg and cfg.get("enable")):
+            continue
+        if name in draws:
+            H_inv = torch.as_tensor(draws[name]).float()
+        else:
+            params = {k: v for k, v in (cfg.get("params") or {}).items()
+                      if k != "valid_border_margin"}
+            H_inv = sample_homographies(batch_size, generator=host_generator, **params)
+        out[name] = H_inv
+        if twopass:
+            out.update({f"{name}.{k}": v for k, v in twopass_plan(H_inv, *shape).items()})
+    return out
+
+
+def prepare_body(
+    images: torch.Tensor,
+    points: torch.Tensor,
+    points_valid: torch.Tensor,
+    prologue: Dict[str, torch.Tensor],
+    *,
+    sem: Optional[torch.Tensor] = None,
+    photometric: Optional[Dict[str, Any]] = None,
+    homographic: Optional[Dict[str, Any]] = None,
+    warped_pair: Optional[Dict[str, Any]] = None,
+    gaussian_label_sigma: Optional[float] = None,
+    ignore_class: int = 133,
+    sem_warp_mode: str = "bilinear",
+    generator: Optional[torch.Generator] = None,
+    draws: Optional[Dict[str, Any]] = None,
+    reference: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """The device's part of :func:`prepare_batch`: the batch from the
+    prologue's homographies and plans (on the host or on the images'
+    device; the warp route is the one the prologue chose), the photometric
+    values from ``draws``' ``"photo"`` and ``"photo_warped"`` or from
+    ``generator``."""
+    draws = draws or {}
+    B, H_px, W_px = images.shape
+    dev = images.device
+    shape = (H_px, W_px)
+
+    def photo(name, imgs):
+        if not (photometric and photometric.get("enable")):
+            return imgs
+        return photometric_augment(imgs, photometric.get("primitives"),
+                                   photometric.get("params"), generator=generator,
+                                   draws=draws.get(name))
+
+    def warp_args(name, cfg):
+        plan = {k[len(name) + 1:]: v for k, v in prologue.items() if k.startswith(name + ".")}
+        return (prologue[name], plan or None, int(cfg.get("valid_border_margin", 0)))
+
+    common = dict(ignore_class=ignore_class, sem_warp_mode=sem_warp_mode, reference=reference)
+    clean = images
+    valid_mask = torch.ones((B, H_px, W_px), device=dev)
+    cur_sem = sem
+    if homographic and homographic.get("enable"):
+        _, _, clean, points, points_valid, valid_mask, cur_sem = _warp_sample(
+            clean, points, points_valid, sem, *warp_args("homographic", homographic), **common)
+
+    base = photo("photo", clean)
+    labels_2d, labels_res = _labels_for(points, points_valid, shape, gaussian_label_sigma)
+    batch: Dict[str, torch.Tensor] = {
+        "image": base[..., None],
+        "labels_2d": labels_2d,
+        "labels_res": labels_res,
+        "valid_mask": valid_mask,
+        "points": points,
+        "points_valid": points_valid,
+    }
+    if cur_sem is not None:
+        batch["sem"] = cur_sem
+
+    if warped_pair and warped_pair.get("enable"):
+        H_fwd, H_inv, wclean, wpts, _, wmask, wsem = _warp_sample(
+            clean, points, points_valid, cur_sem, *warp_args("pair", warped_pair), **common)
+        wlabels, wres = _labels_for(wpts, points_valid, shape, gaussian_label_sigma)
+        batch.update(
+            warped_image=photo("photo_warped", wclean)[..., None],
+            warped_labels_2d=wlabels,
+            warped_res=wres,
+            warped_valid_mask=wmask,
+            H_pair=H_fwd,
+            H_pair_inv=H_inv,
+        )
+        if wsem is not None:
+            batch["warped_sem"] = wsem
+    return batch
+
+
 def prepare_batch(
     images: torch.Tensor,
     points: torch.Tensor,
@@ -172,66 +298,14 @@ def prepare_batch(
     move together); (2) the base view is the clean content with its own
     photometric draw; (3) the warped pair resamples the clean content with a
     fresh homography and its own photometric draw.  The output keys are the
-    JAX package's.
+    JAX package's.  :func:`prepare_prologue` then :func:`prepare_body`.
     """
-    draws = dict(draws or {})
     B, H_px, W_px = images.shape
-    dev = images.device
-    shape = (H_px, W_px)
-    warp = warp or ("twopass" if dev.type == "cuda" else "gather")
-    if warp not in ("twopass", "gather"):
-        raise ValueError(f"warp route {warp!r}: expected 'twopass' or 'gather'")
-
-    def homographies(name, cfg):
-        if name in draws:
-            return draws[name]
-        params = {k: v for k, v in (cfg.get("params") or {}).items()
-                  if k != "valid_border_margin"}
-        return sample_homographies(B, generator=host_generator, **params)
-
-    def photo(name, imgs):
-        if not (photometric and photometric.get("enable")):
-            return imgs
-        return photometric_augment(imgs, photometric.get("primitives"),
-                                   photometric.get("params"), generator=generator,
-                                   draws=draws.get(name))
-
-    common = dict(ignore_class=ignore_class, sem_warp_mode=sem_warp_mode, warp=warp,
-                  reference=reference)
-    clean = images
-    valid_mask = torch.ones((B, H_px, W_px), device=dev)
-    cur_sem = sem
-    if homographic and homographic.get("enable"):
-        _, _, clean, points, points_valid, valid_mask, cur_sem = _warp_sample(
-            clean, points, points_valid, sem, homographies("homographic", homographic),
-            int(homographic.get("valid_border_margin", 0)), **common)
-
-    base = photo("photo", clean)
-    labels_2d, labels_res = _labels_for(points, points_valid, shape, gaussian_label_sigma)
-    batch: Dict[str, torch.Tensor] = {
-        "image": base[..., None],
-        "labels_2d": labels_2d,
-        "labels_res": labels_res,
-        "valid_mask": valid_mask,
-        "points": points,
-        "points_valid": points_valid,
-    }
-    if cur_sem is not None:
-        batch["sem"] = cur_sem
-
-    if warped_pair and warped_pair.get("enable"):
-        H_fwd, H_inv, wclean, wpts, _, wmask, wsem = _warp_sample(
-            clean, points, points_valid, cur_sem, homographies("pair", warped_pair),
-            int(warped_pair.get("valid_border_margin", 0)), **common)
-        wlabels, wres = _labels_for(wpts, points_valid, shape, gaussian_label_sigma)
-        batch.update(
-            warped_image=photo("photo_warped", wclean)[..., None],
-            warped_labels_2d=wlabels,
-            warped_res=wres,
-            warped_valid_mask=wmask,
-            H_pair=H_fwd,
-            H_pair_inv=H_inv,
-        )
-        if wsem is not None:
-            batch["warped_sem"] = wsem
-    return batch
+    prologue = prepare_prologue(B, (H_px, W_px), images.device, homographic=homographic,
+                                warped_pair=warped_pair, host_generator=host_generator,
+                                draws=draws, warp=warp)
+    return prepare_body(images, points, points_valid, prologue, sem=sem, photometric=photometric,
+                        homographic=homographic, warped_pair=warped_pair,
+                        gaussian_label_sigma=gaussian_label_sigma, ignore_class=ignore_class,
+                        sem_warp_mode=sem_warp_mode, generator=generator, draws=draws,
+                        reference=reference)

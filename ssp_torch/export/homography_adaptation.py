@@ -10,13 +10,17 @@ device; the host decodes images and writes the files.
 
 The three stages are plain functions under ``torch.inference_mode()``:
 (1) the warp stack of a whole group of images, (2) forward + back-warp +
-masked accumulation per chunk of warps, (3) aggregate + NMS + top-k.  The
-JAX package's ``one_dispatch`` mode (the same chain as one program with a
-``lax.scan`` over the chunks) has no eager counterpart and is not carried
-over.  The JAX package's ``mesh`` splits each group over the devices and its
-processes each write their rows; here :func:`run_ha_export` takes a
-``rank`` and a ``world``, and each rank (one per card) exports its share of
-the image list and writes only its own files.
+masked accumulation per chunk of warps, (3) aggregate + NMS + top-k.  With
+``one_dispatch`` the JAX package compiles the same chain into one program,
+a ``lax.scan`` over chunks that tile every image's warps alike; here that
+chain is one CUDA graph per group shape (``ssp_torch.graphs``), fed by a
+host prologue that draws the group's homographies and makes the warp plans
+of both warps, so a group costs one graph launch instead of thousands of
+eager ones.  On the CPU the same chain runs eagerly.  The JAX package's
+``mesh`` splits each group over the devices and its processes each write
+their rows; here :func:`run_ha_export` takes a ``rank`` and a ``world``, and
+each rank (one per card) exports its share of the image list and writes
+only its own files.
 
 Homographies are sampled on the host, from per-image CPU generators (a few
 hundred 3×3 matrices per group): the same seed gives the same homographies
@@ -40,8 +44,9 @@ from ssp_torch._device import resolve_device, to_device
 from ssp_torch.core.grid import flatten_detection
 from ssp_torch.core.homography import inv3, sample_homographies
 from ssp_torch.core.warp import compute_valid_mask, inv_warp_image
+from ssp_torch.graphs import CapturedRegion
 from ssp_torch.kernels.nms import nms_plain
-from ssp_torch.kernels.warp_twopass import inv_warp_image_twopass
+from ssp_torch.kernels.warp_twopass import inv_warp_image_twopass, twopass_apply, twopass_plan
 from ssp_torch.postprocess.nms import batched_nms
 from ssp_torch.postprocess.points import extract_keypoints, soft_argmax_refine
 
@@ -91,6 +96,7 @@ def make_ha_fn(
     patch_size: int = 5,
     chunk: int = 100,
     use_twopass: bool = True,
+    one_dispatch: bool = False,
     reference: bool = False,
 ):
     """Build the per-image-group HA callable.
@@ -107,10 +113,18 @@ def make_ha_fn(
       identity is prepended here), so that two implementations can be fed
       the same warps.
 
-    All of the JAX package's parameters are kept except ``one_dispatch``
-    (module docstring).  ``reference=True`` runs the plain PyTorch versions
-    of the resample and NMS kernels instead of the kernels (the card-side
-    check of the kernels; give it an ``apply_fn`` built the same way).
+    The JAX package's parameters.  ``one_dispatch=True`` runs a group as one
+    CUDA graph on a card (module docstring; captured at the first group of
+    each shape, after its eager warm-up calls), eagerly on the CPU: the
+    warps of each image tiled into ``num_h / chunk_n`` chunks of ``chunk_n``,
+    the largest divisor of ``num_h`` with ``G·chunk_n ≤ chunk``, and the
+    chunks summed in order, as the JAX package's ``one_dispatch``; the
+    results agree with the staged chain's to fp32 accumulation order (the
+    same bits where a chunk holds all of one image's warps, as with one
+    image per group).  ``ha.regions`` holds the captured regions by ``(G, H,
+    W)``.  ``reference=True`` runs the plain PyTorch versions of the
+    resample and NMS kernels instead of the kernels (the card-side check of
+    the kernels; give it an ``apply_fn`` built the same way).
     """
     if aggregation not in ("sum", "max"):
         raise ValueError(f"aggregation must be 'sum' or 'max', got {aggregation!r}")
@@ -134,20 +148,26 @@ def make_ha_fn(
         """[G, H, W], [G, N, 3, 3] → the flat warp stack [G·N, H, W]."""
         return warp(images, Hs.reshape(-1, 3, 3))
 
-    def forward_stage(total, counts, maxs, imgs, Hs_inv, segments) -> None:
-        """One chunk of the flat stack: forward, back-warp, and accumulation
-        into the per-image ``total``/``counts``/``maxs`` in place.
+    def chunk_heat(imgs, Hs_inv, back_warp):
+        """One chunk of warped images [n, H, W] with their inverse
+        homographies (on the device): the forward, and the back-warped heat
+        (``back_warp(heat)``) times the valid mask; returns both [n, H, W].
 
         Heat and counts are masked by the *same* closed-form back-warped
         valid mask (half-plane test, no resampling), so the mean heat's
         numerator and denominator always agree.  With ``erosion_radius`` ≥ 1
         the bilinear back-warp's 1-px blend ring at the un-eroded boundary
         lies outside the eroded mask, so no padding survives the multiply.
-        ``segments`` lists (image, start, end) of the chunk's slices.
         """
         heat = flatten_detection(apply_fn(imgs[..., None])["semi"])[..., 0].contiguous()
-        mask = compute_valid_mask(heat.shape[-2:], to_device(Hs_inv, dev), erosion_radius)
-        back = warp(heat, Hs_inv) * mask
+        mask = compute_valid_mask(heat.shape[-2:], Hs_inv, erosion_radius)
+        return back_warp(heat) * mask, mask
+
+    def forward_stage(total, counts, maxs, imgs, Hs_inv, segments) -> None:
+        """One chunk of the flat stack (:func:`chunk_heat`), accumulated into
+        the per-image ``total``/``counts``/``maxs`` in place.  ``segments``
+        lists (image, start, end) of the chunk's slices."""
+        back, mask = chunk_heat(imgs, to_device(Hs_inv, dev), lambda h: warp(h, Hs_inv))
         for g, a, b in segments:
             total[g] += back[a:b].sum(dim=0)
             counts[g] += mask[a:b].sum(dim=0)
@@ -168,9 +188,67 @@ def make_ha_fn(
             pts = soft_argmax_refine(agg, pts, patch_size)
         return pts, valid
 
+    def one_dispatch_chain(buf: Dict[str, torch.Tensor]):
+        """The whole group from the prologue's tensors (on the group's
+        device): warp stack, per chunk :func:`chunk_heat` and the masked
+        sums, aggregate + NMS + top-k.  Reads nothing back to the
+        host, so a card captures it as one graph."""
+        images = buf["images"]
+        G, H_img, W_img = images.shape
+        cn = next(c for c in range(min(num_h, max(1, chunk // G)), 0, -1) if num_h % c == 0)
+        if use_twopass:
+            stack = twopass_apply(images, _sub(buf, "fwd."), reference)
+            back_plan = {k: v.reshape(G, num_h, *v.shape[1:])
+                         for k, v in _sub(buf, "back.").items()}
+        else:
+            stack = _gather_warp(images, buf["Hs"])
+        stack = stack.reshape(G, num_h, H_img, W_img)
+        Hs_inv = buf["Hs_inv"].reshape(G, num_h, 3, 3)
+        total = torch.zeros(G, H_img, W_img, device=images.device)
+        counts, maxs = torch.zeros_like(total), torch.zeros_like(total)
+        for c in range(0, num_h, cn):
+            imgs = stack[:, c:c + cn].reshape(G * cn, H_img, W_img)
+            hinv = Hs_inv[:, c:c + cn].reshape(G * cn, 3, 3)
+            if use_twopass:
+                plan = {k: v[:, c:c + cn].reshape(G * cn, *v.shape[2:])
+                        for k, v in back_plan.items()}
+                back_warp = lambda h: twopass_apply(h, plan, reference)  # noqa: E731
+            else:
+                back_warp = lambda h: _gather_warp(h, hinv)  # noqa: E731
+            back, mask = chunk_heat(imgs, hinv, back_warp)
+            back = back.reshape(G, cn, H_img, W_img)
+            total = total + back.sum(dim=1)
+            counts = counts + mask.reshape(G, cn, H_img, W_img).sum(dim=1)
+            if aggregation == "max":
+                maxs = torch.maximum(maxs, back.amax(dim=1))
+        return finish_stage(total, counts, maxs)
+
+    regions: Dict[Tuple[int, int, int], CapturedRegion] = {}
+
+    def run_one_dispatch(images: torch.Tensor, Hs: torch.Tensor, Hs_inv: torch.Tensor):
+        """The host prologue (the warp plans of both warps) and the chain:
+        one graph replay on a card, eagerly on the CPU."""
+        G, H_img, W_img = images.shape
+        buf = {"images": images, "Hs_inv": Hs_inv}
+        if use_twopass:
+            buf.update({f"fwd.{k}": v for k, v in twopass_plan(Hs, H_img, W_img).items()})
+            buf.update({f"back.{k}": v for k, v in twopass_plan(Hs_inv, H_img, W_img).items()})
+        else:
+            buf["Hs"] = Hs
+        if dev.type != "cuda":
+            return one_dispatch_chain({k: v.to(dev) for k, v in buf.items()})
+        region = regions.get((G, H_img, W_img))
+        if region is None:
+            region = regions[(G, H_img, W_img)] = CapturedRegion(one_dispatch_chain, buf,
+                                                                 device=dev)
+        pts, valid = region(buf)
+        return pts.clone(), valid.clone()  # the next replay overwrites the outputs
+
     @torch.inference_mode()
     def ha(images, generator: Generators = None, homographies: Optional[torch.Tensor] = None):
-        images = to_device(torch.as_tensor(images, dtype=torch.float32), dev)
+        images = torch.as_tensor(images, dtype=torch.float32)
+        if not one_dispatch:  # the graph's prologue copies host images itself
+            images = to_device(images, dev)
         squeeze = images.dim() == 2
         if squeeze:
             images = images[None]
@@ -187,6 +265,9 @@ def make_ha_fn(
         # identity in slot 0, as the reference sets H[0] = I
         Hs = torch.cat([torch.eye(3).expand(G, 1, 3, 3), Hs], dim=1)
         Hs_inv = inv3(Hs).reshape(-1, 3, 3)
+        if one_dispatch:
+            pts, valid = run_one_dispatch(images, Hs.reshape(-1, 3, 3), Hs_inv)
+            return (pts[0], valid[0]) if squeeze else (pts, valid)
         stack = warp_stage(images, Hs)
 
         total = torch.zeros(G, H_img, W_img, device=dev)
@@ -201,7 +282,13 @@ def make_ha_fn(
         pts, valid = finish_stage(total, counts, maxs)
         return (pts[0], valid[0]) if squeeze else (pts, valid)
 
+    ha.regions = regions
     return ha
+
+
+def _sub(buf: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
+    """The entries of ``buf`` under ``prefix``, with the prefix cut."""
+    return {k[len(prefix):]: v for k, v in buf.items() if k.startswith(prefix)}
 
 
 def _image_generator(seed: int, position: int) -> torch.Generator:

@@ -14,11 +14,14 @@ shape, and crop-aware keep bounds kill the canvas pixels that the final
 crop discards.
 
 What ``vmap`` did in the JAX package is a leading batch dimension here.
-The 3×3 algebra and the bucket choice run on the homographies' device.  The
-bucket ``k`` is data-dependent and decides which warps are rotated how, so
-the host must know it: homographies that live on the CPU (as the export
-samples them) cost nothing; homographies on the card cost one small copy to
-the host per call, never one per warp.
+The warp is split in two: :func:`twopass_plan` does the 3×3 algebra, the
+bucket choice and the passes' coefficients on the host (homographies that
+live on the CPU, as the export and the training pipeline sample them, cost
+nothing; homographies on the card cost one small copy to the host per
+call), and :func:`twopass_apply` runs the two resample launches and turns
+each warp by its own bucket in one gather with indices computed on the
+device.  The apply never reads back from the card, so a CUDA graph can
+replay it with the next plan copied in.
 
 Accuracy: bilinear in each pass ≈ direct bilinear; the differences are
 sub-pixel interpolation details, held against the gather warp in the tests.
@@ -29,12 +32,12 @@ einsum; its TPU kernels, which this follows, are fp32).
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from ssp_torch._device import to_device
+from ssp_torch._device import constant, to_device
 from ssp_torch.core.homography import inv3
 from ssp_torch.kernels.vresample import (KILL, vresample, vresample_coef, vresample_coef_plain,
                                           vresample_plain)
@@ -167,17 +170,6 @@ def _pass_coefs(Hm: torch.Tensor, rlo, rhi, clo, chi, S: int) -> Tuple[torch.Ten
     return coef1.float(), coef2.float()
 
 
-def _twopass_square_coef(img: torch.Tensor, Hm: torch.Tensor, rlo, rhi, clo, chi,
-                         reference: bool = False) -> torch.Tensor:
-    """:func:`_twopass_square` with the coordinates rebuilt inside the
-    resample kernel: no ``[N, S, S]`` coordinate array exists.  ``Hm`` and
-    the bounds may live on another device than ``img``."""
-    resample = vresample_coef_plain if reference else vresample_coef
-    coef1, coef2 = _pass_coefs(Hm, rlo, rhi, clo, chi, img.shape[-1])
-    tmp = resample(img, to_device(coef1, img.device), axis=0)
-    return resample(tmp, to_device(coef2, img.device), axis=1)
-
-
 def _mean_rotation_bucket(Hm: torch.Tensor) -> torch.Tensor:
     """Nearest multiple of 90° of each homography's mean rotation, [N] in
     0..3."""
@@ -186,12 +178,11 @@ def _mean_rotation_bucket(Hm: torch.Tensor) -> torch.Tensor:
     return torch.remainder(torch.round(theta / (math.pi / 2)).long(), 4)
 
 
-def _canvas_and_residual(img: torch.Tensor, Hm: torch.Tensor):
-    """The set-up of the two passes: img ``[H, W]`` or ``[M, H, W]``, Hm
-    ``[N, 3, 3]`` → (square canvas, residual homographies ``Hres [N, 3, 3]``
-    after the 90° bucketing, keep bounds ``(rlo, rhi, clo, chi)`` each
-    ``[N]``, buckets ``k [N]``); the last three on Hm's device."""
-    H_px, W_px = img.shape[-2:]
+def _residual(Hm: torch.Tensor, H_px: int, W_px: int):
+    """Hm ``[N, 3, 3]`` for an ``[H_px, W_px]`` image → (residual homographies
+    ``Hres [N, 3, 3]`` on the square canvas after the 90° bucketing, keep
+    bounds ``(rlo, rhi, clo, chi)`` each ``[N]``, buckets ``k [N]``), all on
+    Hm's device."""
     S = max(H_px, W_px)
     Hm = Hm.float()
 
@@ -203,7 +194,6 @@ def _canvas_and_residual(img: torch.Tensor, Hm: torch.Tensor):
     T = torch.tensor([[sx, 0.0, sx - 1.0], [0.0, sy, sy - 1.0], [0.0, 0.0, 1.0]],
                      device=Hm.device)
     Hc = inv3(T) @ Hm @ T
-    canvas = F.pad(img, (0, S - W_px, 0, S - H_px)).contiguous()
 
     # Hres = Hc ∘ Rk⁻¹ by table lookup
     k = _mean_rotation_bucket(Hc)
@@ -217,22 +207,93 @@ def _canvas_and_residual(img: torch.Tensor, Hm: torch.Tensor):
     table = torch.tensor([[0, 0, S - H_px, S - W_px], [H_px, W_px, S, S],
                           [0, S - H_px, S - W_px, 0], [W_px, S, S, H_px]],
                          dtype=torch.float32, device=Hm.device)
-    return canvas, Hres, tuple(row[k] for row in table), k
+    return Hres, tuple(row[k] for row in table), k
 
 
-def _keep_masks(bounds, S: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Keep bounds ``[N]`` → (keep1 ``[N, S]``, keep2 ``[N, S, S]``) on
-    ``device``."""
+def _canvas(img: torch.Tensor) -> torch.Tensor:
+    """img ``[H, W]`` or ``[M, H, W]`` zero-padded bottom-right to the square
+    ``[S, S]`` canvas, S = max(H, W)."""
+    H_px, W_px = img.shape[-2:]
+    S = max(H_px, W_px)
+    return F.pad(img, (0, S - W_px, 0, S - H_px)).contiguous()
+
+
+def _canvas_and_residual(img: torch.Tensor, Hm: torch.Tensor):
+    """The set-up of the two passes: img ``[H, W]`` or ``[M, H, W]``, Hm
+    ``[N, 3, 3]`` → (square canvas, residual homographies ``Hres [N, 3, 3]``
+    after the 90° bucketing, keep bounds ``(rlo, rhi, clo, chi)`` each
+    ``[N]``, buckets ``k [N]``); the last three on Hm's device."""
+    return (_canvas(img), *_residual(Hm, *img.shape[-2:]))
+
+
+def _keep_masks(bounds: torch.Tensor, S: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Keep bounds ``[4, N]`` (rlo, rhi, clo, chi) → (keep1 ``[N, S]``, keep2
+    ``[N, S, S]``) on ``device``."""
     ar = torch.arange(S, device=device, dtype=torch.float32)
-    rlo, rhi, clo, chi = to_device(torch.stack(bounds), device)[:, :, None]
+    rlo, rhi, clo, chi = to_device(bounds, device)[:, :, None]
     keep1 = (ar >= rlo) & (ar < rhi)
     return keep1, keep1[:, :, None] & ((ar >= clo) & (ar < chi))[:, None, :]
+
+
+def _rotate_crop(mid: torch.Tensor, k: torch.Tensor, H_px: int, W_px: int) -> torch.Tensor:
+    """``rot90(mid[n], k[n], (0, 1))[:H_px, :W_px]`` for every warp ``n`` of
+    ``mid [N, S, S]``, as one gather whose indices are computed on mid's
+    device from ``k [N]`` (on that device too): the host needs no bucket, and the result is a
+    copy of mid's values, bit for bit.
+
+    The rotation by k·90° reads output pixel (i, j) from mid's (row, col) =
+    (i, j), (j, S−1−i), (S−1−i, S−1−j), (S−1−j, i) for k = 0..3: the flat
+    offset α·i + β·j + γ with (α, β, γ) from a table by k."""
+    N, S = mid.shape[0], mid.shape[-1]
+    dev = mid.device
+    table = constant(torch.tensor([[S, 1, 0], [-1, S, S - 1], [-S, -1, S * S - 1],
+                                   [1, -S, S * (S - 1)]]), dev)
+    a, b, c = (t[:, None, None] for t in table[k].unbind(-1))
+    base = torch.arange(N, device=dev)[:, None, None] * (S * S) + c
+    idx = (base + a * torch.arange(H_px, device=dev)[:, None]
+           + b * torch.arange(W_px, device=dev)[None, :])
+    return torch.take(mid, idx)
+
+
+def twopass_plan(Hm: torch.Tensor, H_px: int, W_px: int) -> Dict[str, torch.Tensor]:
+    """The host half of the warp of ``[H_px, W_px]`` images by ``Hm [N, 3,
+    3]`` (on any device; taken to the host): the 3×3 algebra, the rotation
+    buckets and the keep bounds, as CPU tensors of fixed shapes.  On the coef
+    route ``{"coef1", "coef2"}`` (``[N, 20]`` each, the two passes'
+    coefficients), on the rows route ``{"Hres" [N, 3, 3], "bounds" [4,
+    N]}``; both with ``"k" [N]``, the buckets.  A plan may be made while the
+    card is busy and copied over with the next launch (``ssp_torch.graphs``)."""
+    Hres, bounds, k = _residual(Hm.detach().cpu(), H_px, W_px)
+    if COEF_GRIDS:
+        coef1, coef2 = _pass_coefs(Hres, *bounds, max(H_px, W_px))
+        return {"coef1": coef1, "coef2": coef2, "k": k}
+    return {"Hres": Hres, "bounds": torch.stack(bounds), "k": k}
+
+
+def twopass_apply(img: torch.Tensor, plan: Dict[str, torch.Tensor],
+                  reference: bool = False) -> torch.Tensor:
+    """The device half: img ``[H, W]`` or ``[M, H, W]`` warped by
+    :func:`twopass_plan`'s ``plan`` (its tensors on the host or already on
+    img's device) → ``[N, H, W]``.  Two launches of the resample kernel
+    (their plain versions with ``reference``) and one gather; nothing is read
+    back to the host, so the call can be captured in a CUDA graph."""
+    H_px, W_px = img.shape[-2:]
+    dev = img.device
+    canvas = _canvas(img)
+    if "coef1" in plan:
+        resample = vresample_coef_plain if reference else vresample_coef
+        tmp = resample(canvas, to_device(plan["coef1"], dev), axis=0)
+        mid = resample(tmp, to_device(plan["coef2"], dev), axis=1)
+    else:
+        keep1, keep2 = _keep_masks(plan["bounds"], canvas.shape[-1], dev)
+        mid = _twopass_square(canvas, to_device(plan["Hres"], dev), keep1, keep2, reference)
+    return _rotate_crop(mid, to_device(plan["k"], dev), H_px, W_px)
 
 
 def inv_warp_image_twopass(img: torch.Tensor, Hm: torch.Tensor,
                            reference: bool = False) -> torch.Tensor:
     """Twin of ``ssp_torch.core.warp.inv_warp_image`` (bilinear) for
-    single-channel images.
+    single-channel images: :func:`twopass_plan` then :func:`twopass_apply`.
 
     img ``[H, W]`` (shared by all warps) or ``[M, H, W]`` fp32; Hm
     ``[N, 3, 3]`` (or ``[3, 3]`` with a 2-D image) acting on [-1, 1]²
@@ -251,24 +312,5 @@ def inv_warp_image_twopass(img: torch.Tensor, Hm: torch.Tensor,
     if img.dim() not in (2, 3) or Hm.shape[1:] != (3, 3):
         raise ValueError(f"img {tuple(img.shape)}, Hm {tuple(Hm.shape)}: expected [H, W] or "
                          f"[M, H, W] and [N, 3, 3]")
-    H_px, W_px = img.shape[-2:]
-    dev = img.device
-    canvas, Hres, bounds, k = _canvas_and_residual(img, Hm)
-    if COEF_GRIDS:
-        mid = _twopass_square_coef(canvas, Hres, *bounds, reference=reference)
-    else:
-        keep1, keep2 = _keep_masks(bounds, canvas.shape[-1], dev)
-        mid = _twopass_square(canvas, to_device(Hres, dev), keep1, keep2, reference)
-
-    # out(p) = mid(Rk·p) is ``rot90(mid, k)`` on the array axes; the warps
-    # of one bucket are rotated together, as views, and cropped
-    k_host = k.tolist()
-    buckets = sorted(set(k_host))
-    if len(buckets) == 1:
-        out = torch.rot90(mid, buckets[0], (1, 2))[:, :H_px, :W_px].contiguous()
-    else:
-        out = mid.new_empty(mid.shape[0], H_px, W_px)
-        for kk in buckets:
-            idx = to_device(torch.tensor([n for n, v in enumerate(k_host) if v == kk]), dev)
-            out[idx] = torch.rot90(mid[idx], kk, (1, 2))[:, :H_px, :W_px]
+    out = twopass_apply(img, twopass_plan(Hm, *img.shape[-2:]), reference)
     return out[0] if single else out

@@ -27,7 +27,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ssp_torch._device import to_device
+from ssp_torch._device import constant
 from ssp_torch.core.homography import warp_points
 
 CELL = 8
@@ -52,7 +52,7 @@ def descriptor_loss_dense(
     pos_term, neg_term)``, the terms normalised as the loss is."""
     B, Hc, Wc, D = desc.shape
     dev, dt = desc.device, torch.promote_types(desc.dtype, torch.float32)
-    size = to_device(torch.tensor([Wc * CELL, Hc * CELL], dtype=dt), dev)
+    size = constant(torch.tensor([Wc * CELL, Hc * CELL], dtype=dt), dev)
     with torch.no_grad():
         cy, cx = torch.meshgrid(torch.arange(Hc, device=dev), torch.arange(Wc, device=dev),
                                 indexing="ij")

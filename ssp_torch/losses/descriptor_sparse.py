@@ -35,7 +35,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ssp_torch._device import to_device
+from ssp_torch._device import constant
 from ssp_torch.core.homography import scale_homography, warp_points
 from ssp_torch.core.warp import bilinear_sample
 
@@ -122,7 +122,7 @@ def descriptor_loss_sparse(
     flat_a = desc.reshape(B, Hc * Wc, D)
     flat_b = desc_warped.reshape(B, Hc * Wc, D)
     if method == "2d":
-        scale = to_device(torch.tensor([(Wc - 1) / Wc, (Hc - 1) / Hc]), desc.device)
+        scale = constant(torch.tensor([(Wc - 1) / Wc, (Hc - 1) / Hc]), desc.device)
         da = bilinear_sample(desc, m_a * scale)
         db = bilinear_sample(desc_warped, m_b * scale)
     else:

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ssp_torch._device import to_device
+from ssp_torch._device import constant
 
 
 def _picked(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -75,7 +75,7 @@ def semantic_loss_coarse(coarse: torch.Tensor, labels: torch.Tensor, ignore_clas
     logits ``[B, Hc, Wc, C]``; ``labels`` int ``[B, 8·Hc, 8·Wc]``."""
     B, Hc, Wc, C = coarse.shape
     scale = 8
-    P = to_device(torch.from_numpy(_phase_tap_matrix(scale)), coarse.device)  # [s², 9]
+    P = constant(torch.from_numpy(_phase_tap_matrix(scale)), coarse.device)  # [s², 9]
     P = P.to(coarse.dtype)  # an fp64 forward keeps fp64
     # 3×3 tap neighbourhood through an edge-clamped pad
     cpad = F.pad(coarse.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="replicate").permute(0, 2, 3, 1)

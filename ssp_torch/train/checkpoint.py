@@ -81,9 +81,8 @@ def load_checkpoint(path: Path, state: TrainState, *, mode: str = "full",
         if mode == "full" and "optimizer_state_dict" in payload:
             with torch.no_grad():
                 state.etas.copy_(payload["etas"])
-            state.optimizer.load_state_dict(payload["optimizer_state_dict"])
-            state.scheduler.load_state_dict(payload["scheduler_state_dict"])
-            state.step = int(payload["step"])
+            state.restore(payload["optimizer_state_dict"], payload["scheduler_state_dict"],
+                          payload["step"])
     if reset_iter:
         state.step = 0
     return state

@@ -5,12 +5,14 @@ power=2.0)``):
   lr(t) = (lr₀ − lr_end) · (1 − min(t, T)/T)^p + lr_end
 
 evaluated, as optax evaluates it, at the count of updates made before the
-one it scales: the first update takes lr(0).
+one it scales: the first update takes lr(0).  The values are Python floats;
+PyTorch's scheduler writes them into a group whose lr is a tensor with
+``fill_``, so the tensor stays the one a CUDA graph reads.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, List
 
 from torch.optim.lr_scheduler import LRScheduler
 
@@ -36,6 +38,10 @@ class PolynomialDecayLR(LRScheduler):
         self.max_steps, self.end_lr, self.power = int(max_steps), float(end_lr), float(power)
         super().__init__(optimizer, last_epoch)
 
-    def get_lr(self):
-        return [polynomial_decay(base, self.max_steps, self.end_lr, self.power)(self.last_epoch)
+    def lr_at(self, count: int) -> List[float]:
+        """Each group's lr at ``count`` updates made."""
+        return [polynomial_decay(base, self.max_steps, self.end_lr, self.power)(count)
                 for base in self.base_lrs]
+
+    def get_lr(self):
+        return self.lr_at(self.last_epoch)

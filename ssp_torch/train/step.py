@@ -174,8 +174,7 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], **kwargs) -> D
     loss.backward()
     metrics = reduce_step(state, metrics)
     state.optimizer.step()
-    state.scheduler.step()
-    state.step += 1
+    state.finish_update()
     return metrics
 
 
@@ -205,8 +204,7 @@ def accum_train_step(state: TrainState, batch: Dict[str, torch.Tensor], r: int,
     metrics = reduce_step(state, {k: torch.stack([m[k] for m in per_micro]).mean()
                                   for k in per_micro[0]})
     state.optimizer.step()
-    state.scheduler.step()
-    state.step += 1
+    state.finish_update()
     return metrics
 
 

@@ -75,8 +75,7 @@ def subpixel_train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     loss.backward()
     metrics = reduce_step(state, metrics)
     state.optimizer.step()
-    state.scheduler.step()
-    state.step += 1
+    state.finish_update()
     return metrics
 
 

@@ -25,11 +25,25 @@ card (:meth:`TrainAgent.attach_device_corpus`) and each step samples its
 batch there; validation keeps the host loader.  ``model.exact_accumulation``
 with ``r > 1`` runs :func:`~ssp_torch.train.step.accum_train_step` (the
 reference's summed micro-batch gradients) on the real batch;
-``model.dense_loss.enable`` the dense descriptor loss.  ``steps_per_dispatch``
-(a ``lax.scan`` of several steps per device program in the JAX trainer) is
-accepted: the port runs one step per loop turn, says so in the log, and
-aligns the intervals as the JAX trainer does, so boundaries and checkpoint
-names are the JAX trainer's.
+``model.dense_loss.enable`` the dense descriptor loss.
+
+``steps_per_dispatch`` k: each loop turn makes k steps, ``n_iter`` advances
+by r·k, the intervals are aligned to that stride and the metrics logged are
+the turn's last step's, as the JAX trainer's ``lax.scan`` of k steps per
+device program.  With the device corpus on one card and k > 1 the turn is
+its counterpart on Hopper: one step (corpus sample → :func:`prepare_body`
+→ the agent's ``step``) captured once as a CUDA graph
+(``ssp_torch.graphs``) and replayed k times, each replay after its own host
+prologue (:func:`prepare_prologue`: the homographies and warp plans, copied
+in through the graph's pinned slots) and followed by the schedule's step.
+The first :data:`ssp_torch.graphs.WARMUP` steps run eagerly and count, so a
+run equals the same run with ``eager=True`` (the constructor's keyword: the
+same loop, every step eager) bit for bit: both make the optimizer
+capturable (:meth:`~ssp_torch.train.state.TrainState.set_capturable`),
+which no other loop does.  The turn stays eager on the CPU,
+with several ranks (gloo's collectives cannot be captured, and NCCL across
+cards is untried without a machine of several cards) and on the host
+loader's path (its batches carry a per-batch count of points).
 
 Validation telemetry, as the JAX trainer's: ``val_residual_diagnostic: true``
 adds the soft-argmax residual error at the label points
@@ -75,7 +89,8 @@ import torch
 from ssp_torch._device import resolve_device, to_device
 from ssp_torch.core.grid import flatten_detection
 from ssp_torch.data.device_corpus import DeviceCorpus
-from ssp_torch.data.pipeline import prepare_batch
+from ssp_torch.data.pipeline import prepare_batch, prepare_body, prepare_prologue
+from ssp_torch.graphs import WARMUP, CapturedRegion
 from ssp_torch.losses.subpixel import subpixel_residual_loss
 from ssp_torch.models.superpoint import build_model
 from ssp_torch.parallel import mesh
@@ -147,9 +162,10 @@ def rss_mb() -> float:
           "Train_model_frontend_all")
 class TrainAgent:
     def __init__(self, config: Dict[str, Any], save_path: Optional[ExperimentPaths] = None,
-                 exper_name: str = "exp", *, device="cuda"):
+                 exper_name: str = "exp", *, device="cuda", eager: bool = False):
         self.config = dict_update(copy.deepcopy(DEFAULT_CONFIG), config)
         self.device = resolve_device(device)
+        self.eager = eager
         m = self.config["model"]
         self.batch_size = int(m["batch_size"])
         self.real_batch_size = int(m.get("real_batch_size", self.batch_size))
@@ -169,7 +185,7 @@ class TrainAgent:
                 raise ValueError(f"{self.local_batch} rows per rank ({self.world} ranks) do not "
                                  f"split into {self.r} micro-batches")
             log.info("exact gradient accumulation: r=%d micro-batches", self.r)
-        spd = max(int(self.config.get("steps_per_dispatch", 1)), 1)
+        self.steps_per_dispatch = spd = max(int(self.config.get("steps_per_dispatch", 1)), 1)
         if spd > 1:
             # the JAX trainer's alignment of the intervals to its stride, so
             # that events fall on the same boundaries
@@ -177,8 +193,8 @@ class TrainAgent:
             for k in ("validation_interval", "tensorboard_interval", "save_interval"):
                 v = int(self.config[k])
                 self.config[k] = max(((v + stride - 1) // stride) * stride, stride)
-            log.info("steps_per_dispatch %d: the port runs one step per loop turn "
-                     "(intervals aligned to %d as the JAX trainer aligns them)", spd, stride)
+            log.info("steps_per_dispatch %d: %d steps per loop turn, intervals aligned to %d",
+                     spd, spd, stride)
 
         self.exper = save_path or ExperimentPaths(exper_name)
         if self.rank == 0:
@@ -190,6 +206,10 @@ class TrainAgent:
         self.train_loader: Optional[Iterator] = None
         self.val_loader: Optional[Iterator] = None
         self.device_corpus: Optional[DeviceCorpus] = None
+        # the captured step of the device corpus's loop, and the eager steps
+        # made before its capture
+        self.region: Optional[CapturedRegion] = None
+        self._warm_steps = 0
 
     # -- construction -------------------------------------------------
     def _build(self) -> None:
@@ -314,6 +334,65 @@ class TrainAgent:
                              generator=self.generator, host_generator=self.host_generator,
                              **(self.prep_train if train else self.prep_val), **kwargs)
 
+    def _corpus_step(self, prologue: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """One step of the device corpus's loop after its host prologue: the
+        sample, :func:`prepare_body` and the agent's ``step``, all on the
+        device (the region a CUDA graph captures)."""
+        raw = self.device_corpus.sample(self.local_batch, self.generator)
+        sem = raw["sem"].to(torch.int32) if self.semantic else None
+        batch = prepare_body(raw["image"].float(), raw["points"].float(),
+                             raw["points_valid"].bool(), prologue, sem=sem,
+                             generator=self.generator, **self.prep_train)
+        return self.step(batch)
+
+    def _prologue(self) -> Dict[str, torch.Tensor]:
+        """The host's part of the next training batch of the device corpus."""
+        H, W = self.device_corpus.arrays["image"].shape[1:]
+        return prepare_prologue(self.local_batch, (H, W), self.device,
+                                homographic=self.prep_train["homographic"],
+                                warped_pair=self.prep_train["warped_pair"],
+                                host_generator=self.host_generator)
+
+    def graphable(self) -> bool:
+        """True where a loop turn can replay a captured step (module
+        docstring), with ``eager=True`` too."""
+        return (self.device_corpus is not None and self.device.type == "cuda"
+                and self.world == 1 and self.steps_per_dispatch > 1)
+
+    def graphed(self) -> bool:
+        """True where a loop turn replays a captured step."""
+        return self.graphable() and not self.eager
+
+    def dispatch(self) -> Dict[str, torch.Tensor]:
+        """One loop turn: ``steps_per_dispatch`` steps; the last one's
+        metrics."""
+        if self.device_corpus is None:
+            for _ in range(self.steps_per_dispatch):
+                metrics = self.step(self.prepare(self.next_batch(), train=True))
+            return metrics
+        self.state.set_capturable(self.graphable())
+        for _ in range(self.steps_per_dispatch):
+            prologue = self._prologue()
+            if not self.graphed():
+                metrics = self._corpus_step(prologue)
+                continue
+            if self.region is None:
+                self.region = CapturedRegion(self._corpus_step, prologue, device=self.device,
+                                             generators=[self.generator])
+                log.info("the device corpus's step runs as a CUDA graph, %d replays per loop "
+                         "turn, after %d eager steps", self.steps_per_dispatch, WARMUP)
+            self.region.load(prologue)
+            if self._warm_steps < WARMUP:
+                metrics = self.region.eager()
+                self._warm_steps += 1
+                continue
+            if self.region.graph is None:
+                self.region.capture()
+            metrics = self.region.replay()
+            self.state.finish_update()
+        # a replay's outputs are its static buffers: the next one overwrites them
+        return {k: v.clone() for k, v in metrics.items()}
+
     # -- steps ----------------------------------------------------------
     def step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """One update on a prepared batch: the accumulated step with
@@ -356,6 +435,12 @@ class TrainAgent:
         prof = None
         prof_done = not prof_cfg.get("enable") or not rank0
 
+        if self.steps_per_dispatch > 1 and self.device.type == "cuda" and not self.graphed():
+            why = ("eager=True" if self.eager else
+                   f"{self.world} ranks: collectives between ranks are not captured"
+                   if self.world > 1 else "the host loader's batches")
+            log.info("steps_per_dispatch %d: every step runs eagerly (%s)",
+                     self.steps_per_dispatch, why)
         t0 = time.time()
         n_last_log = self.n_iter
         try:
@@ -363,9 +448,8 @@ class TrainAgent:
                 n0 = self.n_iter
                 if not prof_done and prof is None and n0 >= 2 * self.r:
                     prof = self._start_profile()
-                batch = self.prepare(self.next_batch(), train=True)
-                metrics = self.step(batch)
-                self.n_iter = n0 + self.r
+                metrics = self.dispatch()
+                self.n_iter = n0 + self.r * self.steps_per_dispatch
                 if prof is not None and self.n_iter >= (2 + int(prof_cfg.get("steps", 5))) * self.r:
                     self._stop_profile(prof, Path(prof_cfg.get("logdir",
                                                                self.exper.root / "profile")))

@@ -12,19 +12,29 @@ Bars: stem and down1 within ``ssp_torch.kernels.stem.assert_bf16_close``
 kernels within 1e-6·max|img| of their plain versions and of an fp64 hat sum
 (fp32 blends of two taps; the kernel may contract the blend to an FMA);
 the folded convs' accumulators within 2⁻¹⁴·max|want| of an fp32 conv with
-TF32 off; the cross-checked matcher (SIFT and ORB rows) exact.
+TF32 off; the cross-checked matcher (SIFT and ORB rows) exact.  The CUDA
+graphs (``ssp_torch.graphs``): the HA group's replay equal to its eager call
+and within the JAX package's one_dispatch bar of the staged group; three
+replayed training steps (the flagship's, dense, accumulated and
+SubpixelNet's) equal to three eager ones under
+``torch.use_deterministic_algorithms`` (which needs cuBLAS's workspace
+setting below before cuBLAS starts).
 """
 
-import numpy as np
-import pytest
-import torch
-import torch.nn.functional as F
+import os
 
-from ssp_torch.kernels import down1 as down1_mod
-from ssp_torch.kernels import nms as nms_mod
-from ssp_torch.kernels import stem as stem_mod
-from ssp_torch.kernels import vresample as vres_mod
-from ssp_torch.kernels import warp_twopass
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+
+from ssp_torch.kernels import down1 as down1_mod  # noqa: E402
+from ssp_torch.kernels import nms as nms_mod  # noqa: E402
+from ssp_torch.kernels import stem as stem_mod  # noqa: E402
+from ssp_torch.kernels import vresample as vres_mod  # noqa: E402
+from ssp_torch.kernels import warp_twopass  # noqa: E402
 
 
 @pytest.fixture
@@ -748,3 +758,120 @@ def test_bfmatch_kernel_edges(cuda):
         bfmatch.bfmatch(q, bad)
     # three equal rows on each side: query 0 takes train 0, the others none
     np.testing.assert_array_equal(bfmatch.bfmatch(q, q).cpu().numpy(), [[0.0, 0.0, 0.0]])
+
+
+@pytest.mark.cuda
+def test_ha_one_dispatch_graph_on_the_card(cuda):
+    """The HA group (2×64×96, 20 warps, chunk 10: five warps of each image per
+    chunk) as one CUDA graph: its replay equal bit for bit to an eager call of
+    the same chain on the same inputs, and against the staged group on the
+    same homographies valid equal, points within 1e-4 (the JAX package's bar
+    for its two modes)."""
+    from pathlib import Path
+
+    from ssp_torch.bench import structured_images
+    from ssp_torch.export import make_ha_fn
+    from ssp_torch.models.fast_infer import best_apply_fn
+    from ssp_torch.models.weights import load_flax_npz
+
+    npz = Path(__file__).resolve().parents[1] / "evidence" / "wsem_weights.npz"
+    model = load_flax_npz(npz, "SuperPointNet_gauss2", device=cuda)
+    apply_fn = best_apply_fn(model, input_hw=(64, 96), device=cuda)
+    common = dict(device=cuda, num_h=20, chunk=10, top_k=100, subpixel=True)
+    images = torch.from_numpy(structured_images(2, 64, 96, 9)[..., 0]).to(cuda)
+
+    def gens():
+        return [torch.Generator().manual_seed(40 + g) for g in range(2)]
+
+    graphed = make_ha_fn(apply_fn, one_dispatch=True, **common)
+    pts, valid = graphed(images, generator=gens())
+    region = graphed.regions[(2, 64, 96)]
+    assert region.graph is not None and region.replays == 1
+    assert region.launches_per_replay["vresample_coef"] == 2 + 2 * 4
+    eager_pts, eager_valid = region.eager()
+    assert torch.equal(pts, eager_pts) and torch.equal(valid, eager_valid)
+    want_pts, want_valid = make_ha_fn(apply_fn, **common)(images, generator=gens())
+    assert valid.sum() >= 10 and torch.equal(valid, want_valid)
+    torch.testing.assert_close(pts, want_pts, atol=1e-4, rtol=0)
+
+
+def _variant_config(variant: str) -> dict:
+    """A training configuration at 2×64×96, fp32, 3 steps per dispatch: the
+    flagship (ssmall-133, warped pair, photometric, the sparse loss cut to
+    100×10, Kendall), the flagship with the dense loss or with exact
+    accumulation over r = 2, or stage 1 (gauss2, homographic) on SubpixelNet
+    through ``Train_model_subpixel``."""
+    from pathlib import Path
+
+    import yaml
+
+    root = Path(__file__).resolve().parents[1] / "configs"
+    name = "pipeline240_magicpoint.yaml" if variant == "subpixel" else "pipeline240_wsem_200k.yaml"
+    cfg = yaml.safe_load((root / name).read_text())
+    cfg["data"]["preprocessing"]["resize"] = [64, 96]
+    cfg["model"].update(batch_size=2, real_batch_size=2)
+    cfg["model"]["params"]["dtype"] = "float32"
+    cfg.update(steps_per_dispatch=3, pretrained=None)
+    if variant == "subpixel":
+        cfg["front_end_model"] = "Train_model_subpixel"
+        cfg["model"]["name"] = "SubpixelNet"
+        return cfg
+    cfg["model"]["sparse_loss"]["params"].update(num_matching_attempts=100,
+                                                 num_masked_non_matches_per_match=10)
+    if variant == "dense":
+        cfg["model"]["dense_loss"]["enable"] = True
+    elif variant == "accum":
+        cfg["model"].update(real_batch_size=4, exact_accumulation=True)
+    return cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["flagship", "dense", "accum", "subpixel"])
+def test_training_steps_graphed_equal_eager(cuda, variant):
+    """The trainer's device-corpus loop with 3 steps per dispatch on a seeded
+    corpus, for each step an agent installs (``_variant_config``): two
+    turns, the first the eager warm-up, the second the capture and three
+    replays, against the same loop with ``eager=True``, both under
+    ``torch.use_deterministic_algorithms``: metrics, parameters, BatchNorm
+    statistics and ηs equal."""
+    import tempfile
+    from pathlib import Path
+
+    from ssp_torch import registry
+    from ssp_torch.data.device_corpus import DeviceCorpus
+    from ssp_torch.train import subpixel_agent  # noqa: F401  (registers Train_model_subpixel)
+    from ssp_torch.train import trainer  # noqa: F401  (registers the joint agents)
+    from ssp_torch.utils.experiment import ExperimentPaths
+
+    cfg = _variant_config(variant)
+    rng = np.random.default_rng(0)
+    arrays = {"image": torch.from_numpy((rng.uniform(size=(8, 64, 96)) * 255).astype(np.uint8)),
+              "points": torch.from_numpy(rng.uniform([0, 0], [95, 63], (8, 40, 2))
+                                         .astype(np.float32)),
+              "points_valid": torch.from_numpy(rng.uniform(size=(8, 40)) < 0.7)}
+    if cfg["data"].get("semantic"):
+        arrays["sem"] = torch.from_numpy(rng.integers(0, 134, (8, 64, 96)).astype(np.int32))
+    runs = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with tempfile.TemporaryDirectory() as td:
+            for eager in (False, True):
+                agent = registry.get("agent", cfg["front_end_model"])(
+                    cfg, save_path=ExperimentPaths(f"e{int(eager)}", Path(td)), device=cuda,
+                    eager=eager)
+                agent.device_corpus = DeviceCorpus({k: v.to(cuda) for k, v in arrays.items()}, 8)
+                assert agent.graphed() != eager
+                metrics = [{k: float(v) for k, v in agent.dispatch().items()} for _ in range(2)]
+                if not eager:
+                    assert agent.region.graph is not None and agent.region.replays == 3
+                    assert agent.region.launches_per_replay["vresample_coef"] == \
+                        (2 if variant == "subpixel" else 4)
+                runs[eager] = (metrics, agent.state.step, agent.state.etas.detach().clone(),
+                               {k: v.clone() for k, v in agent.state.model.state_dict().items()})
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (m_g, n_g, e_g, s_g), (m_e, n_e, e_e, s_e) = runs[False], runs[True]
+    assert n_g == n_e == 6 and m_g == m_e and torch.equal(e_g, e_e)
+    assert all(np.isfinite(v) for m in m_g for v in m.values())
+    for k in s_g:
+        assert torch.equal(s_g[k], s_e[k]), k

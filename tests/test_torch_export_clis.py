@@ -202,10 +202,22 @@ def test_export_detector_homoadapt_is_run_ha_export(tmp_path, monkeypatch):
             np.testing.assert_array_equal(a["pts"], b["pts"])
 
 
-def test_export_detector_homoadapt_refuses_one_dispatch(tmp_path, monkeypatch):
+def test_export_detector_homoadapt_one_dispatch_writes_the_same_files(tmp_path, monkeypatch):
+    """``homography_adaptation.one_dispatch: true`` (the chain as one program;
+    eagerly on the CPU) writes the files the staged export writes, the same
+    points bit for bit: with one image per call its one chunk holds all of
+    the image's warps, as the staged export's does."""
+    _coco_tree(tmp_path)
+    monkeypatch.setenv("SSP_DATA_PATH", str(tmp_path))
     monkeypatch.setenv("SSP_EXPER_PATH", str(tmp_path / "logs"))
-    with pytest.raises(ValueError, match="one_dispatch"):
-        cli.export_detector_homoAdapt(_ha_config(one_dispatch=True), "ha", device="cpu")
+    assert cli.export_detector_homoAdapt(_ha_config(), "staged", device="cpu") == 3
+    assert cli.export_detector_homoAdapt(_ha_config(one_dispatch=True), "one", device="cpu") == 3
+    staged = tmp_path / "logs" / "staged" / "predictions"
+    one = tmp_path / "logs" / "one" / "predictions"
+    assert _files(one) == _files(staged) and len(_files(one)) == 3
+    for f in _files(one):
+        with np.load(one / f) as a, np.load(staged / f) as b:
+            np.testing.assert_array_equal(a["pts"], b["pts"])
 
 
 def test_cli_main_runs_both_subcommands(tmp_path, monkeypatch):
