@@ -129,7 +129,10 @@ failure (nothing is caught):
     ``TRAIN_RUN``'s schedule, the trained weights and one step per dispatch.
     Launch counts from 0: ``vresample_coef`` 4 per prepared batch (training
     and validation), NMS twice per validation (its heatmap images of the
-    base and the warped view), no other kernel.  Every logged loss finite, the rows
+    base and the warped view), the ordered scatter-add
+    (``csrc/ordered_scatter.cu``, the backward of the sparse loss's gathers)
+    SCATTER_PER_STEP times per training step, no other kernel; every other
+    phase counts the ordered scatter too.  Every logged loss finite, the rows
     and checkpoint names at their boundaries.  A step on the kernel against
     one on the plain versions from the same state, batch and draws (warped
     images within VRES_TOL, class ids within TRAIN_LABEL_FLIPS, metrics
@@ -139,7 +142,12 @@ failure (nothing is caught):
     under ``torch.profiler``, host syncs per step by call site, peak
     memory; ``vresample_coef`` against its plain version and timed at the
     training shapes; the last npz reloaded through ``load_weights`` and
-    detect+describe run on it.
+    detect+describe run on it.  Two eager steps from one state equal bit for bit with ``torch.use_deterministic_algorithms``
+    off (metrics, parameters, BatchNorm statistics, ηs, Adam's moments); the
+    ordered scatter on that step's own inputs (the descriptor taps, 16×4000×256
+    into 1200 cells, and the match rows, 16×1000×256) equal to its plain
+    version run on the host bit for bit, its ms beside the plain version's,
+    ``scatter_add``'s and its bound.
 18. ``[synth]``, stage 1, MagicPoint pretraining on Synthetic Shapes: the
     generator (``ssp_torch.data.synthetic_shapes``, drawn by the C++
     rasteriser) against the SHA-256 of ``SYNTH_MANIFEST``, which OpenCV's
@@ -245,10 +253,19 @@ failure (nothing is caught):
     DISPATCH_TIMED timed steps and one profiled turn, ms/step, the idle
     share and peak memory of each; equal (largest absolute difference 0) in
     every turn's metrics, the parameters, the BatchNorm statistics and the
-    ηs under ``torch.use_deterministic_algorithms``, and the difference as
-    they run printed beside it.  The kernel wrappers' counters do not see a
-    replay: the graphs' launches are those counted at the capture times the
-    replays.
+    ηs, both as they run (``torch.use_deterministic_algorithms`` off) and
+    under it.  The kernel wrappers' counters do not see a replay: the graphs'
+    launches are those counted at the capture times the replays.
+
+23. ``[tools]``, the port's evaluation tools, each with launch counts from
+    0: ``python -m ssp_torch.cli.eval_sequence --pred`` over phase 15's
+    export, ``eval_sequence --synthetic`` (TOOLS_SYNTH_FRAMES frames at
+    240×320 on the trained weights, the fp32 module: NMS once per frame),
+    ``eval_semantic`` over phase 17's val split with the weights it trained
+    (the folded bf16 forward: the stem and down1 once per batch), and
+    ``run_export`` (``export_descriptor`` then ``evaluate -r -homo``) over
+    phase 12's tree with the trained weights; each tool's metrics (finite,
+    the expected counts) and seconds.
 
 Prints a ``{"kernels": [...]}`` line (each row also with the launches of
 phase 12's export, ``launches_export``, of phase 13's sweep,
@@ -260,8 +277,11 @@ phase 18's reload, ``launches_synth_reload``, of phase 19's four runs,
 (d)'s timed steps and train CLI on every rank and (e)'s export on every
 rank, and of phase 21, ``launches_classical``, all 0, and of phase 22,
 ``launches_dispatch_ha``, ``launches_dispatch_ha_cli``,
-``launches_dispatch_train`` and ``launches_dispatch_synth``; then the matcher's
-entry, which replaces no TPU kernel; for the stem, down1 and NMS
+``launches_dispatch_train`` and ``launches_dispatch_synth``, and of phase 23,
+``launches_tools``; then the ordered scatter's entry (the same keys; its
+``launches`` those of phase 17's CLI run, its times at the descriptor taps'
+shape, every shape's beside them) and the matcher's, which replace no TPU
+kernel; for the stem, down1 and NMS
 their times at 1×240×320, ``export_1x240x320``, and at 1×384×1248,
 ``sequence_1x384x1248``; for ``vresample_coef`` its time at the training
 shapes, ``train_16x320x320``), then the ``nvidia-smi`` line, and last
@@ -316,6 +336,7 @@ from ssp_torch.kernels import bfmatch as bfmatch_mod
 from ssp_torch.losses.descriptor_sparse import SparseDraws, cell_matches, sample_draws
 from ssp_torch.kernels import down1 as down1_mod
 from ssp_torch.kernels import nms as nms_mod
+from ssp_torch.kernels import ordered_scatter as osc_mod
 from ssp_torch.kernels import stem as stem_mod
 from ssp_torch.kernels import vresample as vres_mod
 from ssp_torch.kernels import warp_twopass
@@ -329,6 +350,8 @@ from ssp_torch.train.subpixel_agent import SubpixelValAgent, subpixel_losses
 from ssp_torch.train.val_agent import ValAgent
 from ssp_torch.utils.draw import draw_keypoints, draw_matches
 from ssp_torch.cli.evaluate import evaluate
+from ssp_torch.cli import eval_semantic, eval_sequence
+from ssp_torch.cli import run_export as run_export_cli
 
 ROOT = Path(__file__).resolve().parent
 NPZ = ROOT / "evidence" / "wsem_weights.npz"
@@ -393,6 +416,10 @@ TRAIN_CONFIG = ROOT / "configs" / "pipeline240_wsem_200k.yaml"
 TRAIN_RUN = {"train_iter": 40, "validation_interval": 20, "save_interval": 20,
              "tensorboard_interval": 10}
 TRAIN_TIMED = 20
+# the ordered scatter (csrc/ordered_scatter.cu) per training step of the
+# sparse loss: the backward of its bilinear taps of each view and of its
+# match rows
+SCATTER_PER_STEP = 3
 # phase 18: stage 1 (configs/pipeline240_magicpoint.yaml) on a corpus cut to
 # SYNTH_SPLITS samples per primitive, SYNTH_RUN's schedule, then SYNTH_TIMED
 # steady-state steps; the generator against the manifest made with OpenCV
@@ -501,6 +528,8 @@ HA_MULTI_MAX = 1e-5
 HA_ONE_DISPATCH_MAX = 1e-4
 DISPATCH_SPD = 10
 DISPATCH_TIMED = 20
+# phase 23 [tools]: the frames of eval_sequence --synthetic (the JAX tool's default)
+TOOLS_SYNTH_FRAMES = 8
 
 
 def log(msg: str) -> None:
@@ -711,14 +740,15 @@ def conv_nms_times(model, img: torch.Tensor, dev: torch.device) -> dict:
 def reset_launches() -> None:
     stem_mod.launches = down1_mod.launches = nms_mod.launches = 0
     vres_mod.launches = vres_mod.coef_launches = 0
-    bfmatch_mod.launches = 0
+    bfmatch_mod.launches = osc_mod.launches = 0
 
 
 def read_launches() -> dict:
-    """The launches of the six kernels that replace the TPU kernels (phase
-    21 reads the matcher's beside them)."""
+    """The launches of the five kernels that replace the TPU kernels and of
+    the ordered scatter (phase 21 reads the matcher's beside them)."""
     return {"stem": stem_mod.launches, "down1": down1_mod.launches, "nms": nms_mod.launches,
-            "vresample": vres_mod.launches, "vresample_coef": vres_mod.coef_launches}
+            "vresample": vres_mod.launches, "vresample_coef": vres_mod.coef_launches,
+            "ordered_scatter": osc_mod.launches}
 
 
 def cudnn_weights(w, s, b):
@@ -1197,6 +1227,17 @@ def main() -> None:
         rest = rest_phase(dev, td, smi, desc)
         classical = classical_phase(dev, td, smi)
         dispatch = dispatch_phase(dev, td, smi)
+        tools = tools_phase(dev, td, smi)
+    sc = train["scatter"]
+    kernels.append({
+        "name": "ordered_scatter", "route": "cuda", "source": "ssp_torch/csrc/ordered_scatter.cu",
+        "replaces": "no TPU kernel: the backward of the sparse loss's gathers "
+                    "(ssp/losses/descriptor_sparse.py, one-hot products and XLA scatters)",
+        "tpu_counterpart": False, "launches": train["launches"]["ordered_scatter"],
+        "max_abs_err": max(r["max_abs_err"] for r in sc["shapes"].values()),
+        "ms": sc["ms"], "plain_ms": sc["plain_ms"], "bound_ms": sc["bound_ms"],
+        "bound_by": sc["bound_by"], "library_ms": sc["library_ms"], "shape": sc["shape"],
+        "shapes": sc["shapes"]})
     for row in kernels:
         row["launches_export"] = export_launches.get(row["name"], 0)
         row["launches_sweep"] = sweep_launches.get(row["name"], 0)
@@ -1211,6 +1252,7 @@ def main() -> None:
         row["launches_classical"] = classical["launches"].get(row["name"], 0)
         for path, counts in dispatch.items():
             row[f"launches_dispatch_{path}"] = counts.get(row["name"], 0)
+        row["launches_tools"] = tools.get(row["name"], 0)
         if row["name"] in export_times:
             row["export_1x240x320"] = export_times[row["name"]]
         if row["name"] in sequence_times:
@@ -1543,7 +1585,7 @@ def evaluate_phase(dev: torch.device, td: Path) -> dict:
     torch.cuda.synchronize()
     ml_launches = read_launches()
     if written != 4 or ml_launches != {"stem": 0, "down1": 0, "nms": 8, "vresample": 0,
-                                       "vresample_coef": 0}:
+                                       "vresample_coef": 0, "ordered_scatter": 0}:
         raise AssertionError(f"MagicLeap export: {written} pairs, launches {ml_launches}")
     m = HPATCHES_CONFIG["model"]
     ml_dd = make_detect_describe_fn(best_apply_fn(ml, input_hw=(hh, hw), device=dev), device=dev,
@@ -1736,7 +1778,8 @@ def ha_cli_phase(dev: torch.device, td: Path) -> dict:
     # from the code, per image (group 1, one chunk of 100 warps): two coef
     # passes for the warp stack and two for the heatmaps' back-warp, one
     # forward, one NMS
-    per_image = {"stem": 1, "down1": 1, "nms": 1, "vresample": 0, "vresample_coef": 4}
+    per_image = {"stem": 1, "down1": 1, "nms": 1, "vresample": 0, "vresample_coef": 4,
+                 "ordered_scatter": 0}
     log(f"[ha_cli] export_detector_homoAdapt: {written} images in {cli_s:.2f} s with the model "
         f"load; launches {launches}, per image {({k: v / n for k, v in launches.items()})}")
     if written != n or launches != {k: v * n for k, v in per_image.items()}:
@@ -1930,9 +1973,11 @@ def train_phase(dev: torch.device, td: Path, smi: str) -> dict:
     val_batches = n_val * (cfg["validation_size"] + 1)
     # per prepared batch: two coef passes for the images' warp, two for the
     # semantic maps'; the training forward is the module, no folded kernel;
-    # each validation's images run NMS on the base and the warped view
+    # each validation's images run NMS on the base and the warped view; the
+    # sparse loss's backward, the ordered scatter (none in validation)
     want = {"stem": 0, "down1": 0, "nms": 2 * n_val, "vresample": 0,
-            "vresample_coef": 4 * (steps + val_batches)}
+            "vresample_coef": 4 * (steps + val_batches),
+            "ordered_scatter": SCATTER_PER_STEP * steps}
     log(f"[train] train_joint {TRAIN_CONFIG.name} (ssmall-133, {B}x{hh}x{hw}, warped pair, "
         f"photometric, sparse 1000x100, fused CE, Kendall, Adam): {steps} steps and "
         f"{val_batches} validation batches in {cli_s:.2f} s with the model load ({smi}); "
@@ -1972,6 +2017,12 @@ def train_phase(dev: torch.device, td: Path, smi: str) -> dict:
         return train_step(st, batch, desc_draws=sd, **agent.step_kwargs)
 
     bk = kernel_vs_plain_step(agent, agent.next_batch(), draws, "[train]", sparse_step)
+
+    # ---- repeatable: two eager steps from one state, bit for bit, with
+    # torch.use_deterministic_algorithms off; the ordered scatter's inputs of
+    # that step held against its plain version and timed
+    calls = repeat_step(agent, bk, sparse_step, "[train]")
+    scatter = scatter_check(calls, dev, smi)
 
     # ---- steady state
     steady_state(agent, "[train]", TRAIN_TIMED, f"{B} images (each with its warped view) at "
@@ -2016,8 +2067,99 @@ def train_phase(dev: torch.device, td: Path, smi: str) -> dict:
         raise AssertionError("detect+describe on the trained checkpoint: non-finite output")
     log(f"[train] {npz.name} reloaded through load_weights; detect+describe on it: "
         f"{int(out[1].sum())} points")
-    return {"launches": launches, "coef": {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                                           "max_abs_err": err}}
+    return {"launches": launches, "scatter": scatter,
+            "coef": {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "max_abs_err": err}}
+
+
+def _state_of(st) -> dict:
+    """Parameters, BatchNorm statistics, ηs and Adam's moments, cloned."""
+    out = {f"model.{k}": v.detach().clone() for k, v in st.model.state_dict().items()}
+    out["etas"] = st.etas.detach().clone()
+    for i, s_ in enumerate(st.optimizer.state.values()):
+        for k, v in s_.items():
+            if torch.is_tensor(v):
+                out[f"adam.{i}.{k}"] = v.detach().clone()
+    return out
+
+
+def repeat_step(agent, batch: dict, step, tag: str) -> list:
+    """``step(batch)`` twice from the same saved state (the switch off): the
+    metrics, parameters, BatchNorm statistics, ηs and Adam's moments must be
+    equal bit for bit.  Returns the ordered scatter's inputs of the first
+    run, in call order (clones)."""
+    st = agent.state
+    saved = (copy.deepcopy(st.model.state_dict()), copy.deepcopy(st.optimizer.state_dict()),
+             st.scheduler.state_dict(), st.etas.detach().clone(), st.step)
+    calls, real = [], osc_mod.ordered_scatter
+
+    def record(src, idx, T):
+        calls.append((src.detach().clone(), idx.clone(), T))
+        return real(src, idx, T)
+
+    runs = []
+    for i in range(2):
+        st.model.load_state_dict(saved[0])
+        st.optimizer.load_state_dict(copy.deepcopy(saved[1]))
+        st.scheduler.load_state_dict(saved[2])
+        with torch.no_grad():
+            st.etas.copy_(saved[3])
+        st.step = saved[4]
+        osc_mod.ordered_scatter = record if i == 0 else real
+        try:
+            metrics = {k: float(v) for k, v in step(batch).items()}
+        finally:
+            osc_mod.ordered_scatter = real
+        torch.cuda.synchronize()
+        runs.append((metrics, _state_of(st)))
+    (m0, s0), (m1, s1) = runs
+    diff = max([abs(m0[k] - m1[k]) for k in m0] +
+               [float((s0[k].double() - s1[k].double()).abs().max()) for k in s0])
+    equal = m0 == m1 and all(torch.equal(s0[k], s1[k]) for k in s0)
+    log(f"{tag} two eager steps from one state, torch.use_deterministic_algorithms off: "
+        f"{'equal bit for bit' if equal else 'DIFFERENT'} over the metrics and {len(s0)} "
+        f"tensors of state (largest difference {diff:.3g}; loss {m0['loss']:.6f} / "
+        f"{m1['loss']:.6f}); the ordered scatter ran {len(calls)} times in the step")
+    if not equal:
+        raise AssertionError(f"{tag}: two steps from one state differ by {diff}")
+    return calls
+
+
+def scatter_check(calls: list, dev: torch.device, smi: str) -> dict:
+    """The ordered scatter at each shape a flagship step gave it (its own
+    inputs, ``calls``: the descriptor taps and the match rows) against the
+    plain version on the host bit for bit, then its ms beside the plain
+    version's on the card, ``scatter_add`` (the one PyTorch call for the same
+    sums) and its bound (src, idx and out once).  Returns the row of the
+    largest K on the path (the descriptor taps) with every shape's beside
+    it."""
+    cases = [(f"{s.shape[0]}x{s.shape[1]}x{s.shape[2]}->{t}", s, i, t) for s, i, t in calls]
+    main = max(cases, key=lambda c: c[1].shape[1])[0]
+    rows = {}
+    for name, src, idx, t in cases:
+        got = osc_mod.ordered_scatter(src, idx, t).cpu()
+        want = osc_mod.ordered_scatter_plain(src.cpu(), idx.cpu(), t)
+        err = float((got - want).abs().max())
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"ordered_scatter {name}: max abs err {err} against the plain "
+                                 f"version (or a signed zero)")
+        if name in rows:
+            continue
+        r, k, c = src.shape
+        zeros = torch.zeros(r, t, c, device=dev)
+        ex = idx[..., None].expand(r, k, c)
+        b_ms, b_by = bound(r * k * c, PEAK_FP32, 4.0 * src.numel() + 8.0 * idx.numel() +
+                           4.0 * zeros.numel())
+        rows[name] = {"ms": time_ms(lambda: osc_mod.ordered_scatter(src, idx, t), iters=50),
+                      "plain_ms": time_ms(lambda: osc_mod.ordered_scatter_plain(src, idx, t),
+                                          iters=50),
+                      "library_ms": time_ms(lambda: zeros.scatter_add(1, ex, src), iters=50),
+                      "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
+        t_ = rows[name]
+        log(f"[train] ordered_scatter at {name} ({smi}): {t_['ms']:.4f} ms (bound "
+            f"{b_ms:.4f} ms by {b_by}), plain {t_['plain_ms']:.4f} ms, scatter_add "
+            f"{t_['library_ms']:.4f} ms; max abs err {err} against the plain version on the "
+            f"host, bit for bit")
+    return {"shape": main, **rows[main], "shapes": rows}
 
 
 def coef_calls_per_batch(agent, host: dict) -> int:
@@ -2104,7 +2246,7 @@ def synth_phase(dev: torch.device, td: Path, smi: str) -> dict:
     # the module, no folded kernel; each validation's image runs NMS once
     n_val = len(range(0, steps, SYNTH_RUN["validation_interval"]))
     want = {"stem": 0, "down1": 0, "nms": n_val, "vresample": 0,
-            "vresample_coef": per_batch * steps}
+            "vresample_coef": per_batch * steps, "ordered_scatter": 0}
     log(f"[synth] train_base {SYNTH_CONFIG.name} (gauss2 from scratch, {B}x{hh}x{hw}, "
         f"homographic and photometric, detector loss alone, Adam, the corpus on the card as "
         f"uint8): {steps} steps in {cli_s:.2f} s with the model build ({smi}); launches "
@@ -2186,7 +2328,8 @@ def synth_phase(dev: torch.device, td: Path, smi: str) -> dict:
     out = dd(image)
     torch.cuda.synchronize()
     reload_launches = read_launches()
-    if reload_launches != {"stem": 1, "down1": 1, "nms": 1, "vresample": 0, "vresample_coef": 0}:
+    if reload_launches != {"stem": 1, "down1": 1, "nms": 1, "vresample": 0, "vresample_coef": 0,
+                           "ordered_scatter": 0}:
         raise AssertionError(f"detect+describe on the stage-1 checkpoint: {reload_launches}")
     if not all(bool(torch.isfinite(t.float()).all()) for t in out if torch.is_tensor(t)):
         raise AssertionError("detect+describe on the stage-1 checkpoint: non-finite output")
@@ -2213,12 +2356,15 @@ def synth_phase(dev: torch.device, td: Path, smi: str) -> dict:
             not all(np.isfinite(v) for r in jrows for v in r.values()):
         raise AssertionError(f"{SYNTH_JOINT_CONFIG.name}: rows {jrows}")
     # two coef passes per warped pair, training and validation; NMS on the
-    # validation's base and warped images; nothing else
+    # validation's base and warped images; the sparse loss's ordered scatters
+    # per training step; nothing else
     n_val = len(range(0, SYNTH_JOINT_RUN["train_iter"], SYNTH_JOINT_RUN["validation_interval"]))
     if after != before or joint_launches["vresample_coef"] % 2 or \
             joint_launches["vresample_coef"] < 2 * SYNTH_JOINT_RUN["train_iter"] or \
             joint_launches["nms"] != 2 * n_val or \
-            any(v for k, v in joint_launches.items() if k not in ("vresample_coef", "nms")):
+            joint_launches["ordered_scatter"] != SCATTER_PER_STEP * SYNTH_JOINT_RUN["train_iter"] or \
+            any(v for k, v in joint_launches.items()
+                if k not in ("vresample_coef", "nms", "ordered_scatter")):
         raise AssertionError(f"{SYNTH_JOINT_CONFIG.name}: launches {joint_launches}, cache "
                              f"{before} -> {after}")
     log(f"[synth] train_joint {SYNTH_JOINT_CONFIG.name} (gauss2, warped pair, sparse, Kendall) "
@@ -2323,7 +2469,7 @@ def train2_phase(dev: torch.device, td: Path, smi: str) -> dict:
     # images run NMS on the base and the warped view; the training forward is
     # the module, no folded kernel
     want = {"stem": 0, "down1": 0, "nms": 2 * n_val, "vresample": 0,
-            "vresample_coef": 4 * (steps + val_batches)}
+            "vresample_coef": 4 * (steps + val_batches), "ordered_scatter": 0}
     p = agent.step_kwargs["desc_params"]
     log(f"[train2] (a) train_joint {TRAIN_CONFIG.name} with the dense loss (lambda_d "
         f"{p['lambda_d']}, descriptor_dist {p['descriptor_dist']}; ssmall-133, {B}x{hh}x{hw}): "
@@ -2357,10 +2503,12 @@ def train2_phase(dev: torch.device, td: Path, smi: str) -> dict:
     steps = ACCUM_RUN["train_iter"]
     n_val = len(range(0, steps * agent.r, ACCUM_RUN["validation_interval"] * agent.r))
     # the real batch is prepared once per optimizer step (as the JAX trainer
-    # prepares it) and then split into the micro-batches: 4 coef passes
+    # prepares it) and then split into the micro-batches: 4 coef passes; the
+    # sparse loss's ordered scatters per micro-batch
     per_step = 4
     want = {"stem": 0, "down1": 0, "nms": 2 * n_val, "vresample": 0,
-            "vresample_coef": per_step * (steps + n_val * (ACCUM_RUN["validation_size"] + 1))}
+            "vresample_coef": per_step * (steps + n_val * (ACCUM_RUN["validation_size"] + 1)),
+            "ordered_scatter": SCATTER_PER_STEP * agent.r * steps}
     log(f"[train2] (b) train_joint with exact_accumulation, real batch {agent.real_batch_size} "
         f"in r = {agent.r} micro-batches of {B}: {steps} optimizer steps in {cli_s:.2f} s with "
         f"the model load ({smi}); launches {launches}: {per_step} vresample_coef per optimizer "
@@ -2390,7 +2538,8 @@ def train2_phase(dev: torch.device, td: Path, smi: str) -> dict:
     n_val = len(range(0, steps, SUBPIX_RUN["validation_interval"]))
     # 2 coef passes per training batch (the homographic warp), none per
     # validation batch; the validation image's NMS (no warped view)
-    want = {"stem": 0, "down1": 0, "nms": n_val, "vresample": 0, "vresample_coef": 2 * steps}
+    want = {"stem": 0, "down1": 0, "nms": n_val, "vresample": 0, "vresample_coef": 2 * steps,
+            "ordered_scatter": 0}
     rows = [json.loads(r) for r in (exper / "metrics_train.jsonl").read_text().splitlines()]
     sub = [r["loss_subpix"] for r in rows]
     log(f"[train2] (c) train_base {SYNTH_CONFIG.name} as Train_model_subpixel on SubpixelNet "
@@ -2458,7 +2607,7 @@ def train2_phase(dev: torch.device, td: Path, smi: str) -> dict:
     run_s = time.perf_counter() - t0
     launches = read_launches()
     want = {"stem": len(imgs), "down1": len(imgs), "nms": len(imgs), "vresample": 0,
-            "vresample_coef": 0}
+            "vresample_coef": 0, "ordered_scatter": 0}
     if launches != want:
         raise AssertionError(f"Val_model_heatmap launches {launches}, expected {want}")
     out["val_agent"] = launches
@@ -2804,12 +2953,17 @@ def rest_phase(dev: torch.device, td: Path, smi: str, main_desc: torch.Tensor) -
         raise AssertionError(f"[rest] the ranks' ηs differ: {[r['etas'] for r in ranks]}")
     if coef != [4.0] * REST_WORLD:
         raise AssertionError(f"[rest] vresample_coef per rank per step {coef}, expected 4")
+    scatters = [r["launches"]["ordered_scatter"] for r in ranks] + \
+        [one_launches["ordered_scatter"]]
+    if scatters != [SCATTER_PER_STEP * REST_TIMED] * (REST_WORLD + 1):
+        raise AssertionError(f"[rest] ordered_scatter over {REST_TIMED} steps per rank and in "
+                             f"one process {scatters}, expected {SCATTER_PER_STEP} per step")
     steps, n_val = REST_RUN["train_iter"], 1
     exper = td / "logs" / "rest_cli"
     rows = [json.loads(r) for r in (exper / "metrics_train.jsonl").read_text().splitlines()]
     for r, res in enumerate(ranks):
         want = {"stem": 0, "down1": 0, "nms": 2 * n_val if r == 0 else 0, "vresample": 0,
-                "vresample_coef": 4 * (steps + n_val)}
+                "vresample_coef": 4 * (steps + n_val), "ordered_scatter": SCATTER_PER_STEP * steps}
         if res["cli_launches"] != want:
             raise AssertionError(f"[rest] train CLI rank {r}: launches {res['cli_launches']}, "
                                  f"expected {want}")
@@ -2843,8 +2997,8 @@ def rest_phase(dev: torch.device, td: Path, smi: str, main_desc: torch.Tensor) -
             diff = max(diff, float(np.abs(a["pts"] - b["pts"]).max(initial=0.0)))
     for r, res in enumerate(ha):
         idle = [k for k in ("stem", "down1", "nms", "vresample_coef") if res["launches"][k] == 0]
-        if idle:
-            raise AssertionError(f"[rest] HA rank {r} launched no {idle}")
+        if idle or res["launches"]["ordered_scatter"]:
+            raise AssertionError(f"[rest] HA rank {r}: launches {res['launches']}")
         add(res["launches"])
     audit = (td / "logs" / "ha_rest" / "export.txt").read_text().splitlines()
     log(f"[rest] (e) export_detector_homoAdapt on {REST_WORLD} ranks of one card: "
@@ -3071,7 +3225,7 @@ def dispatch_ha_group(dev: torch.device, smi: str) -> dict:
     log("[dispatch] (a) the replay equal bit for bit to the same chain run eagerly on the "
         "same inputs (CapturedRegion.eager)")
     idle = [k for k in ("stem", "down1", "nms", "vresample_coef") if per_replay[k] == 0]
-    if idle or per_replay["vresample"]:
+    if idle or per_replay["vresample"] or per_replay["ordered_scatter"]:
         raise AssertionError(f"HA graph launches per replay {per_replay}")
     gen = torch.Generator().manual_seed(SEED + 23)
     runs = {"staged": [], "graph": []}
@@ -3113,7 +3267,8 @@ def dispatch_ha_cli(dev: torch.device, td: Path) -> dict:
     config["pretrained"] = str(ROOT / HA_CLI_CONFIG["pretrained"])
     config["data"]["homography_adaptation"]["one_dispatch"] = True
     n = HA_CLI_IMAGES
-    per_image = {"stem": 1, "down1": 1, "nms": 1, "vresample": 0, "vresample_coef": 4}
+    per_image = {"stem": 1, "down1": 1, "nms": 1, "vresample": 0, "vresample_coef": 4,
+                 "ordered_scatter": 0}
     regions: dict = {}
     reset_launches()
     t0 = time.perf_counter()
@@ -3226,7 +3381,8 @@ def _largest_diff(a: dict, b: dict) -> float:
                 for k in a["state"]] + [float((a["etas"] - b["etas"]).abs().max())])
 
 
-def dispatch_train(cfg: dict, tag: str, dev: torch.device, smi: str, attach) -> dict:
+def dispatch_train(cfg: dict, tag: str, dev: torch.device, smi: str, attach,
+                   scatters: int) -> dict:
     """Phase 22 (c)/(d): the trainer's device-corpus loop with DISPATCH_SPD
     steps per dispatch, graphed and eager (the agent's ``eager`` keyword),
     from the same state and seeds, ``attach(agent)`` giving each its corpus:
@@ -3236,6 +3392,7 @@ def dispatch_train(cfg: dict, tag: str, dev: torch.device, smi: str, attach) -> 
     The two loops run once as they are (timed) and once under
     ``torch.use_deterministic_algorithms``, where the metrics of every turn,
     the parameters, the BatchNorm statistics and the ηs must be equal.
+    The captured step launches the ordered scatter ``scatters`` times.
     Returns the graphed run's launches."""
     cfg = dict(copy.deepcopy(cfg), steps_per_dispatch=DISPATCH_SPD)
     res = {(mode, det): _dispatch_run(cfg, f"dispatch_{tag[1]}_{mode}_{int(det)}", mode, dev,
@@ -3249,11 +3406,11 @@ def dispatch_train(cfg: dict, tag: str, dev: torch.device, smi: str, attach) -> 
     log(f"[dispatch] {tag} {DISPATCH_SPD} steps per dispatch, {len(g['metrics'])} turns from "
         f"the same state and seeds ({smi}), graphed against eager, the largest absolute "
         f"difference over every turn's metrics, the parameters, the BatchNorm statistics and "
-        f"the etas: {diff_det:.3g} under torch.use_deterministic_algorithms (loss "
-        f"{gd['metrics'][-1]['loss']:.6f} / {ed['metrics'][-1]['loss']:.6f}; ops it flagged: "
-        f"{gd['nondeterministic'] or 'none'}), {diff:.3g} as they run (loss "
-        f"{g['metrics'][-1]['loss']:.6f} / {e['metrics'][-1]['loss']:.6f}: the order of atomic "
-        f"sums changes from run to run); step counts {g['step']} / {e['step']}")
+        f"the etas: {diff:.3g} as they run, switch off (loss {g['metrics'][-1]['loss']:.6f} / "
+        f"{e['metrics'][-1]['loss']:.6f}), {diff_det:.3g} under "
+        f"torch.use_deterministic_algorithms (loss {gd['metrics'][-1]['loss']:.6f} / "
+        f"{ed['metrics'][-1]['loss']:.6f}; ops it flagged: {gd['nondeterministic'] or 'none'}); "
+        f"step counts {g['step']} / {e['step']}")
     for mode, r in (("graph", g), ("eager", e)):
         idle = "not measured" if r["idle"] is None else f"{r['idle']:.3f}"
         log(f"[dispatch] {tag} {mode}: {r['ms_per_step']:.3f} ms/step by CUDA events over "
@@ -3267,13 +3424,15 @@ def dispatch_train(cfg: dict, tag: str, dev: torch.device, smi: str, attach) -> 
                                                 f"besides; capture {r['capture_ms']:.1f} ms"))
     log(f"[dispatch] {tag} graph launches: {g['per_replay']} per replay (counted at the "
         f"capture) x {g['replays']} replays = {launches}")
-    if gd["step"] != ed["step"] or diff_det != 0.0:
+    if gd["step"] != ed["step"] or g["step"] != e["step"] or diff != 0.0 or diff_det != 0.0:
         raise AssertionError(f"{tag}: the graphed loop differs from the eager loop by "
-                             f"{diff_det} (steps {gd['step']} / {ed['step']})")
+                             f"{diff} (switch off) and {diff_det} (on); steps "
+                             f"{g['step']} / {e['step']}")
     if not all(np.isfinite(v) for m in g["metrics"] for v in m.values()):
         raise AssertionError(f"{tag}: a non-finite metric")
-    if g["per_replay"]["vresample_coef"] == 0:
-        raise AssertionError(f"{tag}: no vresample_coef launch in the captured step")
+    if g["per_replay"]["vresample_coef"] == 0 or g["per_replay"]["ordered_scatter"] != scatters:
+        raise AssertionError(f"{tag}: the captured step launches {g['per_replay']}, "
+                             f"ordered_scatter expected {scatters}")
     return launches
 
 
@@ -3285,13 +3444,73 @@ def dispatch_phase(dev: torch.device, td: Path, smi: str) -> dict:
     phase 18's corpus, each with the device corpus and DISPATCH_SPD steps
     per dispatch, graphed against eager.  Returns the launches per path."""
     out = {"ha": dispatch_ha_group(dev, smi), "ha_cli": dispatch_ha_cli(dev, td)}
-    for tag, name, exper in (("(c) flagship", "train", "train"), ("(d) stage 1", "synth", "synth")):
+    for tag, name, scatters in (("(c) flagship", "train", SCATTER_PER_STEP),
+                                ("(d) stage 1", "synth", 0)):
         cfg = yaml.safe_load((td / f"{name}_cfg.yaml").read_text())
         cfg.update(pretrained=str(NPZ), reset_iter=True, auto_resume=False)
         train_set = train_cli.make_dataset(cfg, "train")
         out[name] = dispatch_train(cfg, tag, dev, smi,
-                                   lambda a: a.attach_device_corpus(train_set))
+                                   lambda a: a.attach_device_corpus(train_set), scatters)
     return out
+
+def tools_phase(dev: torch.device, td: Path, smi: str) -> dict:
+    """Phase 23 [tools]: the port's evaluation tools on the card, each from 0
+    launches: ``eval_sequence --pred`` over phase 15's export, ``eval_sequence
+    --synthetic`` (TOOLS_SYNTH_FRAMES frames at 240×320, the fp32 module as
+    the JAX tool's fp32 flax), ``eval_semantic`` over phase 17's ``Coco_sem``
+    val split with its trained weights, ``run_export`` over phase 12's
+    HPatches tree with the trained weights.  Prints each tool's metrics and
+    seconds; returns the launches summed over the four."""
+    total: dict = {}
+
+    def run(name, fn, check):
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):  # the tools print their results
+            out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        bad = check(out)
+        shown = {k: v for k, v in out.items() if not isinstance(v, dict)}
+        log(f"[tools] {name}: {secs:.2f} s ({smi}); launches {launches}; {json.dumps(shown)}")
+        if bad:
+            raise AssertionError(f"[tools] {name}: {bad}")
+        return out
+
+    def finite(*keys):
+        return lambda m: [k for k in keys if not np.isfinite(float(m[k]))]
+
+    run("eval_sequence --pred (phase 15's export_sequence, 2 drives x 16 frames)",
+        lambda: eval_sequence.main(["--pred", str(td / "logs" / "sequence" / "predictions"),
+                                    "--device", str(dev)]),
+        lambda m: ([] if m["n_sequences"] == SEQ_DRIVES and
+                   m["n_frames"] == SEQ_DRIVES * SEQ_FRAMES else ["sequences"]) +
+        finite("survival_mean", "mean_matches_per_pair")(m))
+    run(f"eval_sequence --synthetic ({TOOLS_SYNTH_FRAMES} frames at 240x320)",
+        lambda: eval_sequence.main(["--synthetic", "--ckpt", str(NPZ), "--n-frames",
+                                    str(TOOLS_SYNTH_FRAMES), "--device", str(dev)]),
+        lambda m: ([] if m["reproj_pairs"] > 0 else ["no pair matched"]) +
+        finite("reproj_median_px", "survival_mean", "reproj_inlier3_mean")(m))
+    npz = td / "logs" / "train" / "checkpoints" / f"superPointNet_{TRAIN_RUN['train_iter']}.npz"
+    run("eval_semantic (phase 17's val split, its trained weights)",
+        lambda: eval_semantic.main([str(npz), "--root", str(td / "COCO"), "--sem-labels",
+                                    str(td / "COCO" / "annotations"), "--device", str(dev)]),
+        lambda m: ([] if m["images"] == 8 else ["images"]) +
+        finite("pixel_accuracy", "mean_class_accuracy", "mean_iou")(m))
+    cfg = yaml.safe_load((ROOT / run_export_cli.DEFAULT_CONFIG).read_text())
+    cfg["data"]["root"] = str(td / "HPatches")
+    cfg["pretrained"] = str(NPZ)
+    cfg_path = td / "run_export.yaml"
+    cfg_path.write_text(yaml.safe_dump(cfg))
+    run("run_export (phase 12's 32 pairs, the trained weights)",
+        lambda: run_export_cli.main([str(cfg_path), "tools_hp", "--device", str(dev)]),
+        lambda m: ([] if m["n_files"] == HP_SEQ * len(HP_VIEWS) else ["n_files"]) +
+        finite("repeatability", "localization_err", "nn_map", "matching_score")(m))
+    return total
+
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rest-rank"]:

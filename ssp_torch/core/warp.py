@@ -22,18 +22,19 @@ import torch.nn.functional as F
 
 from ssp_torch._device import constant
 from ssp_torch.core.homography import warp_points
+from ssp_torch.kernels.ordered_scatter import gather_rows
 
 
 def _gather_hw(img: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor) -> torch.Tensor:
     """img [*L, H, W, C], integer index maps iy/ix [*L, ...] → [*L, ..., C]
-    (indices clipped into the image)."""
+    (indices clipped into the image).  The gradient sums in a fixed order
+    (:func:`~ssp_torch.kernels.ordered_scatter.gather_rows`)."""
     H, W, C = img.shape[-3:]
-    lead = img.shape[:-3]
+    R = math.prod(img.shape[:-3])
     iy = iy.clamp(0, H - 1)
     ix = ix.clamp(0, W - 1)
-    flat = img.reshape(*lead, H * W, C)
-    idx = (iy * W + ix).reshape(*lead, -1)
-    out = torch.gather(flat, -2, idx[..., None].expand(*idx.shape, C))
+    idx = (iy * W + ix).reshape(R, -1)
+    out = gather_rows(img.reshape(R, H * W, C), idx)
     return out.reshape(*iy.shape, C)
 
 
@@ -47,15 +48,13 @@ def bilinear_sample(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     wx = (x - x0)[..., None]
     wy = (y - y0)[..., None]
     x0i, y0i = x0.long(), y0.long()
-
-    def inb(iy, ix):
-        ok = (iy >= 0) & (iy < H) & (ix >= 0) & (ix < W)
-        return ok[..., None].to(img.dtype)
-
-    v00 = _gather_hw(img, y0i, x0i) * inb(y0i, x0i)
-    v01 = _gather_hw(img, y0i, x0i + 1) * inb(y0i, x0i + 1)
-    v10 = _gather_hw(img, y0i + 1, x0i) * inb(y0i + 1, x0i)
-    v11 = _gather_hw(img, y0i + 1, x0i + 1) * inb(y0i + 1, x0i + 1)
+    # the four taps in one gather, [*L, 4, ...]: one backward for all of them
+    lead = img.dim() - 3
+    iy = torch.stack([y0i, y0i, y0i + 1, y0i + 1], dim=lead)
+    ix = torch.stack([x0i, x0i + 1, x0i, x0i + 1], dim=lead)
+    ok = (iy >= 0) & (iy < H) & (ix >= 0) & (ix < W)
+    taps = _gather_hw(img, iy, ix) * ok[..., None].to(img.dtype)
+    v00, v01, v10, v11 = taps.unbind(lead)
 
     top = v00 * (1 - wx) + v01 * wx
     bot = v10 * (1 - wx) + v11 * wx

@@ -35,7 +35,18 @@
 //   bits, a vertical pass at 16, rounded half up;
 // * ``getAffineTransform`` and ``getPerspectiveTransform``: the 6x6 and 8x8
 //   systems as OpenCV sets them up (the perspective products in float),
-//   solved by OpenCV's LU with partial pivoting.
+//   solved by OpenCV's LU with partial pivoting;
+// * ``warpPerspective`` of a float32 image, INTER_LINEAR, BORDER_CONSTANT 0
+//   (the sequence evaluation's frames): the matrix inverted as OpenCV's
+//   ``invert`` inverts a 3x3 (cofactors over the determinant, in double) and
+//   rounded to float; each destination pixel's source point in float, the
+//   per-row terms M1*y + M2 rounded twice, the column term one fused
+//   multiply-add, one division by the homogeneous coordinate; the taps
+//   blended by three fused lerps (no 1/32 grid: OpenCV 5.0 computes linear
+//   warps in float).  OpenCV runs the first 16 * floor(W / 16) columns of a
+//   row in its vector loop and the rest in a scalar loop whose sums its
+//   compiler contracted otherwise (x*M0 + y*M1 as one FMA, then + M2); both
+//   are reproduced.
 //
 // Build without -ffast-math and without FMA contraction (kernels/_build.py):
 // the double arithmetic must round as OpenCV's does.  A plain C interface
@@ -873,9 +884,77 @@ bool lu_solve(double* a, double* b, int m) {
   return true;
 }
 
+// OpenCV's invert() of a 3x3 (DECOMP_LU takes this closed form for n = 3).
+bool invert3(const double* m, double* t) {
+  auto a = [m](int i, int j) { return m[i * 3 + j]; };
+  double d = a(0, 0) * (a(1, 1) * a(2, 2) - a(1, 2) * a(2, 1)) -
+             a(0, 1) * (a(1, 0) * a(2, 2) - a(1, 2) * a(2, 0)) +
+             a(0, 2) * (a(1, 0) * a(2, 1) - a(1, 1) * a(2, 0));
+  if (d == 0.0) return false;
+  d = 1.0 / d;
+  t[0] = (a(1, 1) * a(2, 2) - a(1, 2) * a(2, 1)) * d;
+  t[1] = (a(0, 2) * a(2, 1) - a(0, 1) * a(2, 2)) * d;
+  t[2] = (a(0, 1) * a(1, 2) - a(0, 2) * a(1, 1)) * d;
+  t[3] = (a(1, 2) * a(2, 0) - a(1, 0) * a(2, 2)) * d;
+  t[4] = (a(0, 0) * a(2, 2) - a(0, 2) * a(2, 0)) * d;
+  t[5] = (a(0, 2) * a(1, 0) - a(0, 0) * a(1, 2)) * d;
+  t[6] = (a(1, 0) * a(2, 1) - a(1, 1) * a(2, 0)) * d;
+  t[7] = (a(0, 1) * a(2, 0) - a(0, 0) * a(2, 1)) * d;
+  t[8] = (a(0, 0) * a(1, 1) - a(0, 1) * a(1, 0)) * d;
+  return true;
+}
+
+// The bilinear sample of a float image at (sx, sy), taps outside it 0.
+float linear_tap(const float* src, int h, int w, float sx, float sy) {
+  const float fx = std::floor(sx), fy = std::floor(sy);
+  // no tap inside (NaN too): the border value
+  if (!(fx >= -1.0f && fx <= float(w - 1) && fy >= -1.0f && fy <= float(h - 1))) return 0.0f;
+  const int x0 = static_cast<int>(fx), y0 = static_cast<int>(fy);
+  auto at = [&](int y, int x) {
+    return (x >= 0 && x < w && y >= 0 && y < h) ? src[static_cast<size_t>(y) * w + x] : 0.0f;
+  };
+  const float a = sx - fx, b = sy - fy;
+  const float p00 = at(y0, x0), p01 = at(y0, x0 + 1), p10 = at(y0 + 1, x0),
+              p11 = at(y0 + 1, x0 + 1);
+  const float top = std::fma(a, p01 - p00, p00), bot = std::fma(a, p11 - p10, p10);
+  return std::fma(b, bot - top, top);
+}
+
 }  // namespace
 
 extern "C" {
+
+// cv::warpPerspective(src, dst, H, (dw, dh), INTER_LINEAR) of a float32 [sh, sw]
+// image into dst [dh, dw]; H row-major, source to destination.  Returns -1
+// (dst untouched) for a singular H.
+int ssp_warp_perspective(const float* src, int sh, int sw, float* dst, int dh, int dw,
+                         const double* H) {
+  double inv[9];
+  if (!invert3(H, inv)) return -1;
+  float m[9];
+  for (int i = 0; i < 9; i++) m[i] = static_cast<float>(inv[i]);
+  const int vec_end = dw / 16 * 16;
+  for (int y = 0; y < dh; y++) {
+    const float yf = static_cast<float>(y);
+    const float rx = m[1] * yf + m[2], ry = m[4] * yf + m[5], rw = m[7] * yf + m[8];
+    float* row = dst + static_cast<size_t>(y) * dw;
+    for (int x = 0; x < dw; x++) {
+      const float xf = static_cast<float>(x);
+      float X, Y, Z;
+      if (x < vec_end) {
+        X = std::fma(m[0], xf, rx);
+        Y = std::fma(m[3], xf, ry);
+        Z = std::fma(m[6], xf, rw);
+      } else {
+        X = std::fma(xf, m[0], yf * m[1]) + m[2];
+        Y = std::fma(xf, m[3], yf * m[4]) + m[5];
+        Z = std::fma(xf, m[6], yf * m[7]) + m[8];
+      }
+      row[x] = linear_tap(src, sh, sw, X / Z, Y / Z);
+    }
+  }
+  return 0;
+}
 
 int ssp_line(uint8_t* img, int h, int w, int64_t x1, int64_t y1, int64_t x2, int64_t y2,
              int color, int thickness) {

@@ -6,7 +6,9 @@ Each function reproduces, byte for byte, the ``cv2`` call it is named after
 at the arguments ``ssp_torch.data.synthetic_shapes`` passes (8-bit
 single-channel canvases, 8-connected lines, integer coordinates) or, for
 :func:`line_aa` and :func:`circle_color`, those ``ssp_torch.utils.draw``
-passes (8-bit canvases of 1, 3 or 4 channels, a colour per channel).  The
+passes (8-bit canvases of 1, 3 or 4 channels, a colour per channel), or, for
+:func:`warp_perspective`, those of the sequence evaluation
+(``ssp_torch.cli.eval_sequence``: float32 images, bilinear).  The
 drawing functions paint into the uint8 array they are given, in place, as
 ``cv2`` does; the filters return a new array.  The library is built with
 the system ``g++`` at first use (``ssp_torch.kernels._build``); its calls go
@@ -37,6 +39,7 @@ def _lib() -> ctypes.CDLL:
         lib.ssp_gaussian_blur.argtypes = [ptr, ptr, i, i, i]
         lib.ssp_affine_transform.argtypes = [ptr, ptr, ptr]
         lib.ssp_perspective_transform.argtypes = [ptr, ptr, ptr]
+        lib.ssp_warp_perspective.argtypes = [ptr, i, i, ptr, i, i, ptr]
         lib._ssp_typed = True
     return lib
 
@@ -162,4 +165,20 @@ def perspective_transform(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
     d = np.ascontiguousarray(dst, np.float32).reshape(4, 2)
     out = np.empty((3, 3), np.float64)
     _lib().ssp_perspective_transform(s.ctypes.data, d.ctypes.data, out.ctypes.data)
+    return out
+
+
+def warp_perspective(img: np.ndarray, H: np.ndarray, dsize) -> np.ndarray:
+    """``cv2.warpPerspective(img, H, dsize, flags=cv2.INTER_LINEAR)`` of a
+    float32 ``[h, w]`` image (``BORDER_CONSTANT`` 0); ``H`` [3, 3] maps the
+    source to the destination, ``dsize`` is (width, height)."""
+    src = np.ascontiguousarray(img, np.float32)
+    if src.ndim != 2:
+        raise ValueError(f"a float32 [H, W] image, not {img.dtype} {img.shape}")
+    m = np.ascontiguousarray(H, np.float64).reshape(3, 3)
+    dw, dh = (int(v) for v in dsize)
+    out = np.empty((dh, dw), np.float32)
+    if _lib().ssp_warp_perspective(src.ctypes.data, src.shape[0], src.shape[1], out.ctypes.data,
+                                   dh, dw, m.ctypes.data) != 0:
+        raise ValueError("warp_perspective: the homography is singular")
     return out

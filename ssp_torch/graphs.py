@@ -46,10 +46,11 @@ def kernel_launches() -> Dict[str, int]:
     """The launch counters of the port's kernel wrappers.  They count the
     Python calls that reach the card, so a replay adds nothing to them: the
     difference across a capture is the launches of every replay."""
-    from ssp_torch.kernels import down1, nms, stem, vresample
+    from ssp_torch.kernels import down1, nms, ordered_scatter, stem, vresample
 
     return {"stem": stem.launches, "down1": down1.launches, "nms": nms.launches,
-            "vresample": vresample.launches, "vresample_coef": vresample.coef_launches}
+            "vresample": vresample.launches, "vresample_coef": vresample.coef_launches,
+            "ordered_scatter": ordered_scatter.launches}
 
 
 class CapturedRegion:

@@ -29,7 +29,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("bfmatch", "down1", "nms", "stem", "vresample")
+SOURCES = ("bfmatch", "down1", "nms", "ordered_scatter", "stem", "vresample")
 HOST_SOURCES = ("features_host", "imageio_host", "ops_host", "raster_host")  # csrc/<name>.cpp, g++
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

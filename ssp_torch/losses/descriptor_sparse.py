@@ -24,8 +24,11 @@ reproduced.
 What differs from the JAX package's arithmetic: its matmul and one-hot
 formulations (TPU gather workarounds) are indexes here.  The non-match dot
 products are read out of the per-sample Gram matrix ``D_a(match) · D_bᵀ``
-([M, Hc·Wc], one batched fp32 matmul) with ``gather``: indexing the
-[M, N, D] descriptor rows instead would move 100× the bytes.
+([M, Hc·Wc], one batched fp32 matmul) with a gather: indexing the
+[M, N, D] descriptor rows instead would move 100× the bytes.  The gathers
+of descriptor rows are :func:`~ssp_torch.kernels.ordered_scatter.gather_rows`,
+whose backward sums in a fixed order, so the loss's gradient is the same
+from run to run on the card, as the JAX package's is on its TPU.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ import torch
 from ssp_torch._device import constant
 from ssp_torch.core.homography import scale_homography, warp_points
 from ssp_torch.core.warp import bilinear_sample
+from ssp_torch.kernels.ordered_scatter import gather_rows
 
 
 MARGIN_POS, MARGIN_NEG = 1.0, 0.2  # the hinges' margins (reference defaults)
@@ -131,8 +135,8 @@ def descriptor_loss_sparse(
             iy = uv[..., 1].long().clamp(0, Hc - 1)
             return iy * Wc + ix
 
-        da = flat_a[bidx, cell(m_a)]
-        db = flat_b[bidx, cell(m_b)]
+        da = gather_rows(flat_a, cell(m_a))
+        db = gather_rows(flat_b, cell(m_b))
     match_loss = torch.relu(MARGIN_POS - (da * db).sum(dim=-1)).mean(dim=1)  # [B]
 
     # non-matches: random cells of the warped view, perturbed off collisions
@@ -151,7 +155,10 @@ def descriptor_loss_sparse(
     nm_v = wrap(nm_v + perturb, float(Hc - 1))
     idx_b = nm_u.long().clamp(0, Wc - 1) + nm_v.long().clamp(0, Hc - 1) * Wc  # [B, M, N]
     idx_a = m_a[..., 0].long() + m_a[..., 1].long() * Wc  # [B, M]
-    gram = flat_a[bidx, idx_a] @ flat_b.transpose(1, 2)  # [B, M, Hc·Wc]
+    gram = gather_rows(flat_a, idx_a) @ flat_b.transpose(1, 2)  # [B, M, Hc·Wc]
+    # a plain gather: the terms its backward sums where non-matches collide
+    # are equal (the hinge's slope is one value per sample), so no order of
+    # the adds changes the sum
     nm_dot = torch.gather(gram, 2, idx_b)
     nm_hinge = torch.relu(nm_dot - MARGIN_NEG)
     num_hard = (nm_hinge > 0.0).sum(dim=(1, 2))

@@ -23,7 +23,6 @@ from typing import Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ssp_torch._device import constant
 
@@ -69,6 +68,15 @@ def _phase_tap_matrix(scale: int) -> np.ndarray:
     return P
 
 
+def edge_pad(x: torch.Tensor) -> torch.Tensor:
+    """``[B, H, W, C]`` → ``[B, H + 2, W + 2, C]`` with the edge rows and
+    columns repeated (``F.pad(mode="replicate")``), by concatenation: the
+    gradient sums each edge cell's parts in a fixed order, where the CUDA
+    backward of the replicate pad adds them with atomics."""
+    x = torch.cat([x[:, :1], x, x[:, -1:]], dim=1)
+    return torch.cat([x[:, :, :1], x, x[:, :, -1:]], dim=2)
+
+
 def semantic_loss_coarse(coarse: torch.Tensor, labels: torch.Tensor, ignore_class: int = 133, *,
                          valid_total: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``semantic_loss(upsample(coarse, 8), labels)`` read from the coarse
@@ -78,7 +86,7 @@ def semantic_loss_coarse(coarse: torch.Tensor, labels: torch.Tensor, ignore_clas
     P = constant(torch.from_numpy(_phase_tap_matrix(scale)), coarse.device)  # [s², 9]
     P = P.to(coarse.dtype)  # an fp64 forward keeps fp64
     # 3×3 tap neighbourhood through an edge-clamped pad
-    cpad = F.pad(coarse.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="replicate").permute(0, 2, 3, 1)
+    cpad = edge_pad(coarse)
     V = torch.stack([cpad[:, r:r + Hc, c:c + Wc, :] for r in range(3) for c in range(3)],
                     dim=3)  # [B, Hc, Wc, 9, C]
     lab = labels.reshape(B, Hc, scale, Wc, scale).permute(0, 1, 3, 2, 4)

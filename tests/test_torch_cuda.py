@@ -18,7 +18,8 @@ and within the JAX package's one_dispatch bar of the staged group; three
 replayed training steps (the flagship's, dense, accumulated and
 SubpixelNet's) equal to three eager ones under
 ``torch.use_deterministic_algorithms`` (which needs cuBLAS's workspace
-setting below before cuBLAS starts).
+setting below before cuBLAS starts), and the flagship's without it.  The
+ordered scatter-add exact.
 """
 
 import os
@@ -825,15 +826,10 @@ def _variant_config(variant: str) -> dict:
     return cfg
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("variant", ["flagship", "dense", "accum", "subpixel"])
-def test_training_steps_graphed_equal_eager(cuda, variant):
-    """The trainer's device-corpus loop with 3 steps per dispatch on a seeded
-    corpus, for each step an agent installs (``_variant_config``): two
-    turns, the first the eager warm-up, the second the capture and three
-    replays, against the same loop with ``eager=True``, both under
-    ``torch.use_deterministic_algorithms``: metrics, parameters, BatchNorm
-    statistics and ηs equal."""
+def _corpus_loop(cuda, cfg: dict, runs: int = 2, eager: bool = False):
+    """``runs`` turns of the device-corpus loop of a fresh agent on a seeded
+    corpus of 8 samples at 64×96: (metrics of each turn, step count, ηs,
+    module state, the captured region or None)."""
     import tempfile
     from pathlib import Path
 
@@ -843,7 +839,6 @@ def test_training_steps_graphed_equal_eager(cuda, variant):
     from ssp_torch.train import trainer  # noqa: F401  (registers the joint agents)
     from ssp_torch.utils.experiment import ExperimentPaths
 
-    cfg = _variant_config(variant)
     rng = np.random.default_rng(0)
     arrays = {"image": torch.from_numpy((rng.uniform(size=(8, 64, 96)) * 255).astype(np.uint8)),
               "points": torch.from_numpy(rng.uniform([0, 0], [95, 63], (8, 40, 2))
@@ -851,27 +846,86 @@ def test_training_steps_graphed_equal_eager(cuda, variant):
               "points_valid": torch.from_numpy(rng.uniform(size=(8, 40)) < 0.7)}
     if cfg["data"].get("semantic"):
         arrays["sem"] = torch.from_numpy(rng.integers(0, 134, (8, 64, 96)).astype(np.int32))
-    runs = {}
+    with tempfile.TemporaryDirectory() as td:
+        agent = registry.get("agent", cfg["front_end_model"])(
+            cfg, save_path=ExperimentPaths(f"e{int(eager)}", Path(td)), device=cuda, eager=eager)
+        agent.device_corpus = DeviceCorpus({k: v.to(cuda) for k, v in arrays.items()}, 8)
+        assert agent.graphed() != eager
+        metrics = [{k: float(v) for k, v in agent.dispatch().items()} for _ in range(runs)]
+        return (metrics, agent.state.step, agent.state.etas.detach().clone(),
+                {k: v.clone() for k, v in agent.state.model.state_dict().items()}, agent.region)
+
+
+def _assert_same_runs(a, b):
+    (m_a, n_a, e_a, s_a, _), (m_b, n_b, e_b, s_b, _) = a, b
+    assert n_a == n_b and m_a == m_b and torch.equal(e_a, e_b)
+    assert all(np.isfinite(v) for m in m_a for v in m.values())
+    for k in s_a:
+        assert torch.equal(s_a[k], s_b[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 4000, 256, 1200), (16, 1000, 256, 1200),
+                                   (16000, 100, 1, 1200), (3, 70, 3, 5), (2, 33, 64, 1),
+                                   (4, 200, 2, 76800), (3, 300, 128, 40), (3, 300, 127, 40),
+                                   (2, 500, 300, 40), (2, 3000, 33, 50)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ordered_scatter_kernel_equals_plain(cuda, shape, dtype):
+    """The kernel against its plain version run on the host, bit for bit
+    (signed zeros included), at the flagship's shapes (descriptor taps, match
+    rows) and at edges (one channel over many rows, one output row, a T the
+    size of an image, C of 127 and 128, which do not fill the block's 256
+    threads evenly or do, two channel chunks)."""
+    from ssp_torch.kernels import ordered_scatter as osc
+
+    R, K, C, T = shape
+    g = torch.Generator(cuda).manual_seed(0)
+    src = torch.randn(R, K, C, device=cuda, generator=g, dtype=dtype)
+    src[:, ::7] = -0.0
+    idx = torch.randint(0, T, (R, K), device=cuda, generator=g)
+    before = osc.launches
+    got = osc.ordered_scatter(src, idx, T).cpu()
+    assert osc.launches == before + 1
+    want = osc.ordered_scatter_plain(src.cpu(), idx.cpu(), T)
+    bits = torch.int64 if dtype == torch.float64 else torch.int32
+    assert torch.equal(got.view(bits), want.view(bits))
+
+
+@pytest.mark.cuda
+def test_flagship_loop_repeats_without_the_deterministic_switch(cuda):
+    """The flagship at bf16 with its sparse loss at full size (1000×100 on
+    8×12 cells: many collisions) and 3 steps per dispatch, switch off: two
+    graphed loops from the same state and seeds (the warm-up turn, then the
+    capture and three replays) equal each other and the eager loop bit for
+    bit."""
+    cfg = _variant_config("flagship")
+    cfg["model"]["params"]["dtype"] = "bfloat16"
+    cfg["model"]["sparse_loss"]["params"].update(num_matching_attempts=1000,
+                                                 num_masked_non_matches_per_match=100)
+    first, second = _corpus_loop(cuda, cfg), _corpus_loop(cuda, cfg)
+    assert first[4].replays == 3
+    _assert_same_runs(first, second)
+    _assert_same_runs(first, _corpus_loop(cuda, cfg, eager=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["flagship", "dense", "accum", "subpixel"])
+def test_training_steps_graphed_equal_eager(cuda, variant):
+    """The trainer's device-corpus loop with 3 steps per dispatch on a seeded
+    corpus, for each step an agent installs (``_variant_config``): two
+    turns, the first the eager warm-up, the second the capture and three
+    replays, against the same loop with ``eager=True``, both under
+    ``torch.use_deterministic_algorithms``: metrics, parameters, BatchNorm
+    statistics and ηs equal."""
+    cfg = _variant_config(variant)
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        with tempfile.TemporaryDirectory() as td:
-            for eager in (False, True):
-                agent = registry.get("agent", cfg["front_end_model"])(
-                    cfg, save_path=ExperimentPaths(f"e{int(eager)}", Path(td)), device=cuda,
-                    eager=eager)
-                agent.device_corpus = DeviceCorpus({k: v.to(cuda) for k, v in arrays.items()}, 8)
-                assert agent.graphed() != eager
-                metrics = [{k: float(v) for k, v in agent.dispatch().items()} for _ in range(2)]
-                if not eager:
-                    assert agent.region.graph is not None and agent.region.replays == 3
-                    assert agent.region.launches_per_replay["vresample_coef"] == \
-                        (2 if variant == "subpixel" else 4)
-                runs[eager] = (metrics, agent.state.step, agent.state.etas.detach().clone(),
-                               {k: v.clone() for k, v in agent.state.model.state_dict().items()})
+        graphed = _corpus_loop(cuda, cfg)
+        eager = _corpus_loop(cuda, cfg, eager=True)
     finally:
         torch.use_deterministic_algorithms(False)
-    (m_g, n_g, e_g, s_g), (m_e, n_e, e_e, s_e) = runs[False], runs[True]
-    assert n_g == n_e == 6 and m_g == m_e and torch.equal(e_g, e_e)
-    assert all(np.isfinite(v) for m in m_g for v in m.values())
-    for k in s_g:
-        assert torch.equal(s_g[k], s_e[k]), k
+    region = graphed[4]
+    assert region.graph is not None and region.replays == 3
+    assert region.launches_per_replay["vresample_coef"] == (2 if variant == "subpixel" else 4)
+    assert graphed[1] == 6
+    _assert_same_runs(graphed, eager)

@@ -63,6 +63,8 @@ def test_port_files_found():
             "ssp_torch/parallel/mesh.py"} <= names
     assert {"ssp_torch/export/classical.py", "ssp_torch/export/features.py",
             "ssp_torch/kernels/bfmatch.py", "ssp_torch/cli/export_classical.py"} <= names
+    assert {"ssp_torch/kernels/ordered_scatter.py", "ssp_torch/cli/eval_sequence.py",
+            "ssp_torch/cli/eval_semantic.py", "ssp_torch/cli/run_export.py"} <= names
     assert len(names) > 70
 
 
