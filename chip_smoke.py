@@ -298,11 +298,13 @@ import hashlib
 import json
 import os
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
 import time
 import warnings
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -403,7 +405,7 @@ HP_SEQ, HP_VIEWS, HP_RAW = 16, (2, 3), (600, 800)
 FIXTURES = ROOT / "tests" / "data" / "torch_imageio"
 KITTI_RAW = (375, 1242)  # a KITTI color frame
 SEQ_DRIVES, SEQ_FRAMES = 2, 16  # the sequence corpus: 2 drives of 16 frames
-HA_CLI_IMAGES = 16  # the stage-2 corpus: the JPEG fixtures under 16 COCO names  # the corpus: 32 pairs at HPatches' size
+HA_CLI_IMAGES = 16  # the stage-2 corpus: the JPEG fixtures (each at least once) under 16 COCO names
 SLAM_HW = (384, 1248)  # the SLAM sequence export's shape (configs/kitti384_sequence_r5.yaml)
 # phase 21: OpenCV's SIFT and ORB on four images, written by
 # scripts/make_classical_fixtures.py; the matcher's rows at the config's top_k
@@ -683,11 +685,30 @@ def write_hpatches_tree(root: Path, dev: torch.device, seed: int) -> None:
             np.savetxt(seq / f"H_1_{i}", Hm)
 
 
-def write_png(path: Path, img: np.ndarray) -> None:
-    """uint8 [H, W] gray or [H, W, 3] RGB → an 8-bit PNG of those pixels,
-    through the port's writer (which takes BGR, as ``cv2.imwrite``), row y
-    filtered with type y % 5, so that reading it back takes every filter."""
-    imageio.write_png(path, img if img.ndim == 2 else img[..., ::-1])
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))  # (x0, y0, dx, dy) of each interlace pass
+
+
+def write_png(path: Path, img: np.ndarray, adam7: bool = False, srgb: bool = False) -> None:
+    """uint8 [H, W] gray or [H, W, 3] RGB → an 8-bit PNG of those pixels, row
+    y filtered with type y % 5, so that reading it back takes every filter:
+    through the port's writer (which takes BGR, as ``cv2.imwrite``), or with
+    ``adam7`` interlaced (each pass a sub-image filtered on its own) and with
+    ``srgb`` an sRGB chunk (libpng then converts color to gray through the
+    sRGB gamma)."""
+    if not (adam7 or srgb):
+        imageio.write_png(path, img if img.ndim == 2 else img[..., ::-1])
+        return
+    h, w = img.shape[:2]
+    ch = 1 if img.ndim == 2 else 3
+    passes = [img[y0::dy, x0::dx] for x0, y0, dx, dy in ADAM7] if adam7 else [img]
+    raw = b"".join(imageio.filter_rows(p.reshape(p.shape[0], -1), ch) for p in passes if p.size)
+    chunk = imageio.png_chunk
+    path.write_bytes(
+        imageio.PNG_MAGIC
+        + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0 if ch == 1 else 2, 0, 0, int(adam7)))
+        + (chunk(b"sRGB", b"\0") if srgb else b"")
+        + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
 
 
 def conv_nms_times(model, img: torch.Tensor, dev: torch.device) -> dict:
@@ -1603,10 +1624,13 @@ def evaluate_phase(dev: torch.device, td: Path) -> dict:
 
 def imageio_phase(td: Path) -> None:
     """Phase 14 [imageio]: the host decoder on the card's machine, which has
-    no OpenCV.  Every committed fixture decodes to the hash of OpenCV's
-    decode in its manifest; seeded RGB and gray frames written by
-    :func:`write_png` read back exactly (RGB as libpng's luma of them); ms
-    per image of decoding, by the host clock."""
+    no OpenCV.  Every committed fixture (progressive, CMYK and RGB-coded
+    JPEG, Adam7 and gamma-tagged PNG among them) decodes to the hash of
+    OpenCV's decode in its manifest; seeded RGB and gray frames written by
+    :func:`write_png` read back exactly (RGB as libpng's luma of them), and
+    the same RGB frame as Adam7 with an sRGB chunk decodes as the
+    non-interlaced sRGB file does and unlike the untagged one; ms per image
+    of decoding, by the host clock, each new form beside its baseline."""
     manifest = json.loads((FIXTURES / "manifest.json").read_text())
     for name, entry in sorted(manifest.items()):
         img = imageio.decode_gray(FIXTURES / name)
@@ -1628,13 +1652,48 @@ def imageio_phase(td: Path) -> None:
                                  f"{int((got != img).sum())} pixels differ")
     log(f"[imageio] seeded {KITTI_RAW[0]}x{KITTI_RAW[1]} RGB and 240x320 gray frames, "
         f"written with every row filter, read back exactly")
-    for name in ("ycc420_480x640_q90.jpg", "rgb_375x1242.png", "gray_240x320_q96.jpg"):
+    rgb = rng.integers(0, 256, (*KITTI_RAW, 3), dtype=np.uint8)
+    decoded, frame_ms = {}, {}
+    for adam7, srgb in ((True, True), (False, True), (False, False)):
+        path = td / f"tagged_{int(adam7)}{int(srgb)}.png"
+        write_png(path, rgb, adam7=adam7, srgb=srgb)
+        decoded[adam7, srgb] = imageio.decode_gray(path)
+        t0 = time.perf_counter()
+        for _ in range(10):
+            imageio.decode_gray(path)
+        frame_ms[adam7, srgb] = (time.perf_counter() - t0) / 10 * 1e3
+    if not np.array_equal(decoded[True, True], decoded[False, True]) or \
+            np.array_equal(decoded[False, True], decoded[False, False]):
+        raise AssertionError("an Adam7 sRGB frame does not decode as the non-interlaced sRGB "
+                             "one, or the sRGB gamma changed nothing")
+    log(f"[imageio] the seeded RGB frame as Adam7 with sRGB decodes as the non-interlaced sRGB "
+        f"file; {int((decoded[False, True] != decoded[False, False]).sum())} of its pixels "
+        f"differ from the untagged file's (the sRGB gamma); decode at {KITTI_RAW[0]}x"
+        f"{KITTI_RAW[1]}, ms per frame by the host clock: Adam7 with sRGB "
+        f"{frame_ms[True, True]:.3f}, sRGB {frame_ms[False, True]:.3f}, plain "
+        f"{frame_ms[False, False]:.3f}")
+    ms = {}
+    for name in ("ycc420_480x640_q90.jpg", "rgb_375x1242.png", "gray_240x320_q96.jpg",
+                 "ycc420_optimized_240x320_q85.jpg", "prog420_rst5_240x320_q85.jpg",
+                 "prog_gray_120x160_q90.jpg", "cmyk_120x160_q90.jpg", "rgbcoded_120x160_q90.jpg",
+                 "ycc444_rst4_120x160_q90.jpg", "rgba_120x160.png", "adam7_rgb_120x160.png",
+                 "srgb_rgb_120x160.png", "palette_120x160.png", "palette_gama45455_120x160.png"):
         imageio.decode_gray(FIXTURES / name)
         t0 = time.perf_counter()
         for _ in range(20):
             imageio.decode_gray(FIXTURES / name)
-        log(f"[imageio] decode {name}: {(time.perf_counter() - t0) / 20 * 1e3:.3f} ms per "
-            f"image by the host clock (one thread)")
+        ms[name] = (time.perf_counter() - t0) / 20 * 1e3
+        log(f"[imageio] decode {name}: {ms[name]:.3f} ms per image by the host clock "
+            f"(one thread)")
+    pairs = (("prog420_rst5_240x320_q85.jpg", "ycc420_optimized_240x320_q85.jpg"),
+             ("adam7_rgb_120x160.png", "rgba_120x160.png"),
+             ("srgb_rgb_120x160.png", "rgba_120x160.png"),
+             ("palette_gama45455_120x160.png", "palette_120x160.png"))
+    mpx = {name: np.prod(manifest[name]["shape"]) / 1e6 for name in ms}
+    rate = {name: mpx[name] / ms[name] * 1e3 for name in ms}  # Mpixel/s
+    log("[imageio] side by side, ms per image (Mpixel/s): " + "; ".join(
+        f"{a} {ms[a]:.3f} ({rate[a]:.1f}) vs {b} {ms[b]:.3f} ({rate[b]:.1f})" for a, b in pairs)
+        + f"; rgb_375x1242.png {rate['rgb_375x1242.png']:.1f} Mpixel/s")
     # the decoder's calls release the GIL (ctypes, zlib): threads scale it
     from concurrent.futures import ThreadPoolExecutor
 
@@ -1665,11 +1724,14 @@ def sequence_phase(dev: torch.device, td: Path):
         frames = structured_images(SEQ_FRAMES, *KITTI_RAW, SEED + 20 + d)[..., 0]
         for i, frame in enumerate(frames):
             gray = (frame * 255).astype(np.uint8)
+            # the second drive's frames: Adam7 with an sRGB chunk
             write_png(out / f"{i:010d}.png",
-                      np.stack([gray, np.roll(gray, 3, axis=1), gray // 2 + 64], axis=-1))
+                      np.stack([gray, np.roll(gray, 3, axis=1), gray // 2 + 64], axis=-1),
+                      adam7=d == 1, srgb=d == 1)
     (root / "train.txt").write_text("".join(f"{d}\n" for d in drives))
     log(f"[sequence] corpus: {SEQ_DRIVES} drives x {SEQ_FRAMES} frames, {KITTI_RAW[0]}x"
-        f"{KITTI_RAW[1]} RGB PNG, written in {time.perf_counter() - t0:.1f} s")
+        f"{KITTI_RAW[1]} RGB PNG (drive 2: Adam7 with sRGB), written in "
+        f"{time.perf_counter() - t0:.1f} s")
     config = copy.deepcopy(SEQUENCE_CONFIG)
     config["data"]["root"] = config["data"]["root_split_txt"] = str(root)
     config["pretrained"] = str(ROOT / config["pretrained"])
@@ -1761,6 +1823,8 @@ def ha_cli_phase(dev: torch.device, td: Path) -> dict:
     folder = td / "COCO" / "train2017"
     folder.mkdir(parents=True)
     jpegs = sorted(FIXTURES.glob("*.jpg"))
+    if HA_CLI_IMAGES < len(jpegs):
+        raise AssertionError(f"HA_CLI_IMAGES {HA_CLI_IMAGES} < {len(jpegs)} JPEG fixtures")
     stems = [f"{139 + 4099 * i:012d}" for i in range(HA_CLI_IMAGES)]
     for i, stem in enumerate(stems):
         shutil.copy(jpegs[i % len(jpegs)], folder / f"{stem}.jpg")

@@ -5,19 +5,25 @@ cv2.IMREAD_GRAYSCALE)``, which is how the JAX package reads images.
 Bar: exact, the same shape and every byte, on JPEGs that OpenCV writes
 (qualities, chroma samplings, gray, restart intervals, optimised Huffman
 tables, odd sizes down to 1×1, EXIF orientations 1-8 spliced in as APP1, a
-noisy quality-100 image whose inverse DCT saturates) and on PNGs, both those
+noisy quality-100 image whose inverse DCT saturates; progressive, from
+OpenCV's scan script and Pillow's, and cut short of its refinement scans),
+on JPEGs that Pillow writes (CMYK, RGB-coded, progressive) and on baseline
+JPEGs written here (:func:`_baseline_jpeg`: any sampling factors, CMYK,
+YCCK, RGB-coded, luma subsampled against chroma), and on PNGs, both those
 OpenCV writes (every compression level, so all five row filters appear)
 and those written here (gray at 1, 2, 4, 8 and 16 bits, gray+alpha, palette,
-RGB and RGBA at 8 and 16 bits, every filter in turn, an ``eXIf``
-orientation).  The forms the decoder refuses raise ``ValueError`` naming the
-form.  The committed fixtures of ``tests/data/torch_imageio`` (read on the
-card's machine by ``chip_smoke.py``, which has no OpenCV) decode to the
-hashes of their manifest through both OpenCV and the port;
-:func:`make_fixtures` wrote them.
+RGB and RGBA at 8 and 16 bits, every filter in turn, Adam7, ``gAMA``,
+``sRGB``, ``iCCP``, ``cHRM`` and ``sBIT``, an ``eXIf`` orientation).  The
+forms the decoder refuses raise ``ValueError`` naming the form.  The
+committed fixtures of ``tests/data/torch_imageio`` (read on the card's
+machine by ``chip_smoke.py``, which has no OpenCV) decode to the hashes of
+their manifest through both OpenCV and the port; :func:`make_fixtures`
+wrote them.
 """
 
 import hashlib
 import importlib.util
+import io
 import json
 import os
 import shutil
@@ -101,27 +107,40 @@ def _filter_rows(raw_rows, bpp, filters):
     return b"".join(out)
 
 
-def _png(samples, depth, ctype, palette=None, extra=b"", filters=(0, 1, 2, 3, 4), interlace=0):
-    """A PNG of ``samples`` [h, w, channels] (ints < 2**depth), written here."""
-    h, w, ch = samples.shape
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))  # (x0, y0, dx, dy) of each pass
+
+
+def _png_rows(samples, depth):
+    """Each row of ``samples`` [h, w, channels] as its bytes at ``depth``."""
+    h = samples.shape[0]
     if depth == 16:
-        rows = [samples[y].astype(">u2").tobytes() for y in range(h)]
-    elif depth == 8:
-        rows = [samples[y].astype(np.uint8).tobytes() for y in range(h)]
-    else:
-        per = 8 // depth
-        rows = []
-        for y in range(h):
-            v = samples[y, :, 0].astype(np.uint8)
-            v = np.concatenate([v, np.zeros((-len(v)) % per, np.uint8)]).reshape(-1, per)
-            shifts = (8 - depth * (np.arange(per) + 1)).astype(np.uint8)
-            rows.append((v << shifts).sum(1).astype(np.uint8).tobytes())
+        return [samples[y].astype(">u2").tobytes() for y in range(h)]
+    if depth == 8:
+        return [samples[y].astype(np.uint8).tobytes() for y in range(h)]
+    per = 8 // depth
+    rows = []
+    for y in range(h):
+        v = samples[y, :, 0].astype(np.uint8)
+        v = np.concatenate([v, np.zeros((-len(v)) % per, np.uint8)]).reshape(-1, per)
+        shifts = (8 - depth * (np.arange(per) + 1)).astype(np.uint8)
+        rows.append((v << shifts).sum(1).astype(np.uint8).tobytes())
+    return rows
+
+
+def _png(samples, depth, ctype, palette=None, extra=b"", filters=(0, 1, 2, 3, 4), interlace=0):
+    """A PNG of ``samples`` [h, w, channels] (ints < 2**depth), written here;
+    ``interlace=1``: Adam7, each pass a sub-image filtered on its own (empty
+    passes have no bytes)."""
+    h, w, ch = samples.shape
     bpp = max(1, ch * depth // 8)
     data = PNG_SIG + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, interlace))
     data += extra
     if palette is not None:
         data += _chunk(b"PLTE", palette.astype(np.uint8).tobytes())
-    data += _chunk(b"IDAT", zlib.compress(_filter_rows(rows, bpp, filters)))
+    passes = [samples[y0::dy, x0::dx] for x0, y0, dx, dy in ADAM7] if interlace else [samples]
+    raw = b"".join(_filter_rows(_png_rows(p, depth), bpp, filters) for p in passes if p.size)
+    data += _chunk(b"IDAT", zlib.compress(raw))
     return data + _chunk(b"IEND", b"")
 
 
@@ -152,6 +171,143 @@ def _check(tmp_path, data: bytes, name="img"):
     assert got.dtype == np.uint8 and got.shape == want.shape
     np.testing.assert_array_equal(got, want)
     return got
+
+
+def _std_huffman():
+    """The four Huffman tables of OpenCV's baseline writer, which are the
+    standard's (K.3 of the JPEG standard): [(class, id, counts, symbols)] for
+    DC 0, AC 0, DC 1, AC 1."""
+    data = _jpeg(np.zeros((8, 8, 3), np.uint8), 90)
+    out, pos = [], 2
+    while data[pos + 1] != 0xDA:
+        n = struct.unpack(">H", data[pos + 2:pos + 4])[0]
+        if data[pos + 1] == 0xC4:
+            seg, p = data[pos + 4:pos + 2 + n], 0
+            while p < len(seg):
+                counts = seg[p + 1:p + 17]
+                out.append((seg[p] >> 4, seg[p] & 15, counts, seg[p + 17:p + 17 + sum(counts)]))
+                p += 17 + sum(counts)
+        pos += 2 + n
+    return out
+
+
+def _huffman_codes(counts, symbols):
+    """symbol → (code, length) of a canonical Huffman table."""
+    code, k, table = 0, 0, {}
+    for length in range(1, 17):
+        for _ in range(counts[length - 1]):
+            table[symbols[k]] = (code, length)
+            k, code = k + 1, code + 1
+        code <<= 1
+    return table
+
+
+_ZIGZAG = np.array([0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40,
+                    48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29,
+                    22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47,
+                    55, 62, 63])
+
+
+def _segment(marker, body):
+    return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
+
+
+def _baseline_jpeg(planes, factors, hw, ids=None, adobe=None, jfif=True, quant=4):
+    """A baseline JPEG [hw] written here, for the forms neither OpenCV nor
+    Pillow writes: component i holds ``planes[i]`` (uint8, cropped to its
+    sampled size) at sampling factors ``factors[i]`` = (h, v), component ids
+    ``ids``; one interleaved scan, the standard Huffman tables, a flat
+    quantiser; an APP14 with transform ``adobe`` (None: none), a JFIF APP0
+    unless ``jfif`` is false or there is an APP14."""
+    H, W = hw
+    hmax, vmax = max(f[0] for f in factors), max(f[1] for f in factors)
+    mcux, mcuy = -(-W // (8 * hmax)), -(-H // (8 * vmax))
+    ids = ids or list(range(1, len(planes) + 1))
+    tables = _std_huffman()
+    dc, ac = _huffman_codes(*tables[0][2:]), _huffman_codes(*tables[1][2:])
+    k = np.arange(8)
+    basis = np.cos((2 * k[None, :] + 1) * k[:, None] * np.pi / 16) * \
+        np.where(k == 0, np.sqrt(0.125), 0.5)[:, None]
+    blocks = []
+    for plane, (h, v) in zip(planes, factors):
+        dw, dh = -(-W * h // hmax), -(-H * v // vmax)
+        p = np.asarray(plane, np.float64)[:dh, :dw]
+        p = np.pad(p, ((0, mcuy * v * 8 - dh), (0, mcux * h * 8 - dw)), mode="edge") - 128
+        tiles = p.reshape(mcuy * v, 8, mcux * h, 8).transpose(0, 2, 1, 3)
+        coef = np.einsum("ui,yxij,vj->yxuv", basis, tiles, basis) / quant
+        blocks.append(np.rint(coef).astype(int).reshape(mcuy * v, mcux * h, 64)[..., _ZIGZAG])
+    bits = []
+
+    def put(code, n):
+        bits.extend((code >> (n - 1 - i)) & 1 for i in range(n))
+
+    def put_value(table, run, value):
+        size = int(abs(value)).bit_length()
+        put(*table[(run << 4) | size])
+        if size:
+            put(value if value > 0 else value + (1 << size) - 1, size)
+
+    pred = [0] * len(planes)
+    for my in range(mcuy):
+        for mx in range(mcux):
+            for c, (h, v) in enumerate(factors):
+                for by in range(v):
+                    for bx in range(h):
+                        blk = blocks[c][my * v + by, mx * h + bx]
+                        put_value(dc, 0, blk[0] - pred[c])
+                        pred[c], run = blk[0], 0
+                        for x in blk[1:]:
+                            if x == 0:
+                                run += 1
+                                continue
+                            while run > 15:
+                                put(*ac[0xF0])
+                                run -= 16
+                            put_value(ac, run, x)
+                            run = 0
+                        if run:
+                            put(*ac[0x00])
+    bits.extend([1] * (-len(bits) % 8))
+    data = bytes(np.packbits(np.array(bits, np.uint8))).replace(b"\xff", b"\xff\x00")
+    out = b"\xff\xd8"
+    if adobe is not None:
+        out += _segment(0xEE, b"Adobe" + bytes([0, 100, 0, 0, 0, 0, adobe]))
+    elif jfif:
+        out += _segment(0xE0, b"JFIF\0\1\1\0\0\1\0\1\0\0")
+    out += _segment(0xDB, bytes([0]) + bytes([quant] * 64))
+    out += _segment(0xC0, struct.pack(">BHHB", 8, H, W, len(planes)) + b"".join(
+        bytes([i, (h << 4) | v, 0]) for i, (h, v) in zip(ids, factors)))
+    out += _segment(0xC4, b"".join(bytes([(tc << 4) | th]) + counts + syms
+                                   for tc, th, counts, syms in tables[:2]))
+    out += _segment(0xDA, bytes([len(planes)]) + b"".join(bytes([i, 0]) for i in ids) +
+                    bytes([0, 63, 0]))
+    return out + data + b"\xff\xd9"
+
+
+def _scan_units(data: bytes):
+    """A JPEG split at its scans: [head, scan 1, ..., scan n, EOI], each scan
+    with the table segments (DHT, DRI) just before it."""
+    pos, units, start = 2, [], 2
+    while True:
+        m = data[pos + 1]
+        if m == 0xD9:
+            return [data[:units[0][0]]] + [data[a:b] for a, b in units] + [data[pos:]]
+        end = pos + 2 + struct.unpack(">H", data[pos + 2:pos + 4])[0]
+        if m == 0xDA:
+            while not (data[end] == 0xFF and data[end + 1] not in (0, *range(0xD0, 0xD8))):
+                end += 1
+            units.append((start, end))
+            start = end
+        elif m not in (0xC4, 0xDD):
+            start = end
+        pos = end
+
+
+def _pillow_jpeg(img, mode, **kw):
+    pil = pytest.importorskip("PIL.Image")
+    buf = io.BytesIO()
+    pil.fromarray(img, mode).save(buf, "JPEG", **kw)
+    return buf.getvalue()
 
 
 # -- JPEG ----------------------------------------------------------------------
@@ -311,6 +467,260 @@ def test_png_rgb_at_kitti_size(tmp_path):
     assert (got != rgb_to_gray(rgb)).mean() > 0.1
 
 
+# -- progressive JPEG ---------------------------------------------------------------
+
+PROGRESSIVE = (cv2.IMWRITE_JPEG_PROGRESSIVE, 1)
+
+
+@pytest.mark.parametrize("restart", [0, 3])
+@pytest.mark.parametrize("sampling", ["gray", "420", "422", "444"])
+@pytest.mark.parametrize("quality", [50, 90, 100])
+def test_progressive_jpeg(tmp_path, quality, sampling, restart):
+    """OpenCV's progressive script (libjpeg's jpeg_simple_progression: DC
+    first and refinement, AC first and refinement with end-of-band runs,
+    interleaved and single-component scans), with and without restarts."""
+    img = _scene(40, 56, 1 if sampling == "gray" else 3, seed=quality + restart)
+    factor = None if sampling == "gray" else getattr(cv2, f"IMWRITE_JPEG_SAMPLING_FACTOR_{sampling}")
+    params = PROGRESSIVE + ((cv2.IMWRITE_JPEG_RST_INTERVAL, restart) if restart else ())
+    data = _jpeg(img, quality, factor, params)
+    assert b"\xff\xc2" in data and (b"\xff\xd0" in data) == bool(restart)
+    _check(tmp_path, data)
+
+
+@pytest.mark.parametrize("hw", [(1, 1), (17, 9), (239, 321)])
+def test_progressive_jpeg_sizes(tmp_path, hw):
+    _check(tmp_path, _jpeg(_scene(*hw, seed=hw[1]), 90, S420, PROGRESSIVE))
+
+
+@pytest.mark.parametrize("orientation", [1, 6, 8])
+def test_progressive_jpeg_exif_orientation(tmp_path, orientation):
+    data = _jpeg(_scene(37, 53, seed=5), 90, S420, PROGRESSIVE)
+    got = _check(tmp_path, _with_exif(data, orientation))
+    assert got.shape == ((53, 37) if orientation >= 5 else (37, 53))
+
+
+@pytest.mark.parametrize("kind", ["RGB", "L", "RGB-444-optimized"])
+def test_progressive_jpeg_written_by_pillow(tmp_path, kind):
+    """Pillow's progressive script (libjpeg-turbo's, with Huffman tables
+    optimised per scan)."""
+    img = _scene(45, 61, 1 if kind == "L" else 3, seed=22)
+    kw = {"subsampling": 0, "optimize": True} if kind.endswith("optimized") else {}
+    data = _pillow_jpeg(img, kind[:3].rstrip("-"), progressive=True, quality=85, **kw)
+    assert b"\xff\xc2" in data
+    _check(tmp_path, data)
+
+
+def test_progressive_jpeg_cut_refinement(tmp_path):
+    """OpenCV's progressive file with some refinement scans cut out, EOI
+    kept.  libjpeg smooths the blocks (jdcoefct.c) where one of the first
+    nine AC coefficients of a component is short of its last bit; the port
+    does not reproduce that estimate and refuses such a file where the
+    gray output depends on it (the luma's refinement cut), and reads the
+    others exactly (the chroma's or the DC's refinement cut)."""
+    data = _jpeg(_scene(45, 61, seed=23), 90, S420, PROGRESSIVE)
+    units = _scan_units(data)
+    assert len(units) == 12  # head, 10 scans, EOI
+    # scans 8 and 9: the chroma's last AC bit; 7: the DC's; 10: the luma's
+    for keep in (units[:8] + units[10:], units[:7] + units[8:]):
+        _check(tmp_path, b"".join(keep))
+    for keep in (units[:10] + units[11:], units[:6] + units[-1:]):
+        path = tmp_path / "cut.jpg"
+        path.write_bytes(b"".join(keep))
+        assert cv2.imread(str(path), 0) is not None
+        _refused(tmp_path, b"".join(keep), "block smoothing")
+
+
+# -- CMYK, YCCK, RGB-coded JPEG and the sampling factors ----------------------------
+
+
+@pytest.mark.parametrize("kw", [{}, {"subsampling": 1}, {"subsampling": 2},
+                                {"progressive": True}],
+                         ids=["444", "h2v1", "h2v2", "progressive"])
+def test_cmyk_jpeg_written_by_pillow(tmp_path, kw):
+    """Pillow's CMYK JPEG (Adobe transform 0, inverted ink): every component
+    through the inverse DCT, libjpeg's upsampling of the subsampled ones,
+    OpenCV's CMYK to gray."""
+    data = _pillow_jpeg(_scene(40, 56, 4, seed=24), "CMYK", quality=90, **kw)
+    assert b"Adobe" in data
+    _check(tmp_path, data)
+
+
+@pytest.mark.parametrize("progressive", [False, True])
+def test_rgb_coded_jpeg_written_by_pillow(tmp_path, progressive):
+    """Pillow's ``keep_rgb``: components R, G, B under an Adobe transform 0,
+    converted to gray by libjpeg-turbo's rgb_gray_convert."""
+    data = _pillow_jpeg(_scene(40, 56, seed=25), "RGB", keep_rgb=True, quality=90,
+                        progressive=progressive)
+    _check(tmp_path, data)
+
+
+SAMPLINGS = [  # three components' (h, v): each upsampling route of jdsample.c
+    [(2, 2), (1, 1), (1, 1)], [(1, 1), (2, 2), (1, 1)], [(1, 2), (2, 2), (1, 1)],
+    [(1, 1), (1, 2), (1, 1)], [(1, 1), (2, 1), (2, 1)], [(1, 1), (3, 1), (1, 1)],
+    [(1, 1), (4, 2), (1, 1)], [(4, 2), (1, 1), (1, 1)]]
+
+
+@pytest.mark.parametrize("colour", ["ycbcr", "adobe-rgb", "rgb-ids"])
+@pytest.mark.parametrize("factors", SAMPLINGS, ids=["".join(f"{h}{v}" for h, v in f)
+                                                    for f in SAMPLINGS])
+def test_sampling_factors(tmp_path, factors, colour):
+    """Luma subsampled against chroma (it goes through the upsampler), and
+    RGB-coded files (Adobe transform 0, or ids R, G, B with no marker) whose
+    components are subsampled: fancy h2v1, h1v2 and h2v2, replication for
+    the rest, at sizes down to 1×1."""
+    img = _scene(37, 45, seed=len(factors) + factors[0][0])
+    kw = {"ycbcr": {}, "adobe-rgb": {"adobe": 0},
+          "rgb-ids": {"ids": [82, 71, 66], "jfif": False}}[colour]
+    for hw in ((37, 45), (9, 17), (2, 3), (1, 1)):
+        _check(tmp_path, _baseline_jpeg([img[..., c] for c in range(3)], factors, hw, **kw))
+
+
+@pytest.mark.parametrize("adobe", [0, 2, None], ids=["cmyk", "ycck", "no-adobe"])
+@pytest.mark.parametrize("factors", [[(1, 1)] * 4, [(2, 2), (1, 1), (1, 1), (2, 2)],
+                                     [(1, 1), (2, 1), (1, 2), (1, 1)]],
+                         ids=["1111", "2112", "1221"])
+def test_four_component_jpeg(tmp_path, factors, adobe):
+    """Four components: CMYK (Adobe transform 0, or no marker), YCCK
+    (transform 2: libjpeg's YCC to RGB tables, inverted, then K)."""
+    img = _scene(33, 41, 4, seed=26)
+    _check(tmp_path, _baseline_jpeg([img[..., c] for c in range(4)], factors, (33, 41),
+                                    adobe=adobe, jfif=False))
+
+
+@pytest.mark.parametrize("factors,match", [([(2, 1), (3, 1), (1, 1)], "fractional"),
+                                           ([(1, 1), (3, 3), (1, 1)], "10 blocks")])
+def test_sampling_libjpeg_refuses(tmp_path, factors, match):
+    """Factors libjpeg refuses (OpenCV returns None): refused alike."""
+    img = _scene(16, 24, seed=27)
+    data = _baseline_jpeg([img[..., c] for c in range(3)], factors, (16, 24), adobe=0)
+    path = tmp_path / "f.jpg"
+    path.write_bytes(data)
+    assert cv2.imread(str(path), 0) is None
+    _refused(tmp_path, data, match)
+
+
+# -- Adam7 and gamma-tagged PNG --------------------------------------------------------
+
+
+def _samples(ctype, depth, channels, hw, seed):
+    """Seeded samples [h, w, channels] < 2**depth, the first rows gray
+    (r = g = b), and a palette for colour type 3 (gray entries first)."""
+    rng = np.random.default_rng(seed)
+    samples = rng.integers(0, 2 ** depth, (*hw, channels))
+    samples[:2] = samples[:2, :, :1]
+    palette = None
+    if ctype == 3:
+        palette = rng.integers(0, 256, (min(2 ** depth, 200), 3))
+        palette[:4] = palette[:4, :1]
+    return samples, palette
+
+
+@pytest.mark.parametrize("hw", [(5, 3), (33, 17)])
+@pytest.mark.parametrize("ctype,depth,channels", PNG_FORMS,
+                         ids=[f"type{c}-{d}bit" for c, d, _ in PNG_FORMS])
+def test_adam7_png_forms(tmp_path, ctype, depth, channels, hw):
+    """Each colour type and bit depth interlaced: seven passes of their own
+    row widths (some empty below 8×8), each filtered from a zero row."""
+    samples, palette = _samples(ctype, depth, channels, hw, depth * 10 + ctype)
+    _check(tmp_path, _png(samples, depth, ctype, palette, interlace=1))
+
+
+def _icc_profile():
+    cms = pytest.importorskip("PIL.ImageCms")
+    return cms.ImageCmsProfile(cms.createProfile("sRGB")).tobytes()
+
+
+GAMMA_TAGS = ["gAMA-45455", "gAMA-100000", "gAMA-220000", "sRGB", "iCCP", "cHRM"]
+GAMMA_FORMS = [(2, 8, 3), (2, 16, 3), (6, 8, 4), (6, 16, 4), (3, 8, 1), (3, 4, 1)]
+
+
+@pytest.mark.parametrize("ctype,depth,channels", GAMMA_FORMS,
+                         ids=[f"type{c}-{d}bit" for c, d, _ in GAMMA_FORMS])
+@pytest.mark.parametrize("tag", GAMMA_TAGS)
+def test_gamma_tagged_png(tmp_path, tag, ctype, depth, channels):
+    """libpng's rgb_to_gray through its gamma tables (8-bit tables; 16-bit
+    ones with a shift of 5, before the strip to 8 bits; palette entries
+    through the 8-bit ones), for a ``gAMA`` within 5% of 1 none; ``sRGB``
+    is gamma 45455; ``iCCP`` (an sRGB profile or not) and ``cHRM`` change
+    nothing (OpenCV sets the coefficients).  Interlaced too."""
+    if tag.startswith("gAMA"):
+        extra = _chunk(b"gAMA", struct.pack(">I", int(tag[5:])))
+    elif tag == "sRGB":
+        extra = _chunk(b"sRGB", b"\0")
+    elif tag == "iCCP":
+        extra = _chunk(b"iCCP", b"sRGB profile\0\0" + zlib.compress(_icc_profile()))
+    else:
+        extra = _chunk(b"cHRM", struct.pack(">8I", 31270, 32900, 64000, 33000, 30000, 60000,
+                                            15000, 6000))
+    samples, palette = _samples(ctype, depth, channels, (24, 32), depth + ctype)
+    for interlace in (0, 1):
+        _check(tmp_path, _png(samples, depth, ctype, palette, extra=extra, interlace=interlace))
+
+
+def _gama(value):
+    return _chunk(b"gAMA", struct.pack(">I", value))
+
+
+SRGB = _chunk(b"sRGB", b"\0")
+
+
+@pytest.mark.parametrize("case", [
+    "sRGB-then-gAMA", "gAMA-then-sRGB", "two-gAMA", "gAMA-after-PLTE", "gAMA-after-IDAT",
+    "gAMA-of-3-bytes", "sRGB-of-2-bytes", "sRGB-intent-7", "gAMA-0", "gAMA-2^31",
+    "gAMA-5", "gAMA-2^31-1", "sBIT-12", "sBIT-8", "sBIT-4-mixed", "sBIT-too-deep",
+    "iCCP-and-gAMA"])
+def test_gamma_chunk_rules(tmp_path, case):
+    """Which chunk sets the gamma, as libpng 1.6.58 has it: sRGB wins over
+    gAMA, the first gAMA over a later one; chunks after PLTE or IDAT, of the
+    wrong length or out of range are ignored; an ``iCCP`` leaves the gAMA
+    in force; a valid ``sBIT`` sets the 16-bit tables' shift."""
+    rgb, palette = _samples(2, 16 if case.startswith("sBIT") else 8, 3, (24, 32), 28)
+    extra, post = {
+        "sRGB-then-gAMA": (SRGB + _gama(220000), b""),
+        "gAMA-then-sRGB": (_gama(100000) + SRGB, b""),
+        "two-gAMA": (_gama(220000) + _gama(45455), b""),
+        "gAMA-after-PLTE": (b"", _gama(220000)),
+        "gAMA-after-IDAT": (b"", b""),
+        "gAMA-of-3-bytes": (_chunk(b"gAMA", b"\0\xb1\x8f"), b""),
+        "sRGB-of-2-bytes": (_chunk(b"sRGB", b"\0\0"), b""),
+        "sRGB-intent-7": (_chunk(b"sRGB", b"\7"), b""),
+        "gAMA-0": (_gama(0), b""),
+        "gAMA-2^31": (_gama(1 << 31), b""),
+        "gAMA-5": (_gama(5), b""),
+        "gAMA-2^31-1": (_gama((1 << 31) - 1), b""),
+        "sBIT-12": (_gama(45455) + _chunk(b"sBIT", bytes([12, 12, 12])), b""),
+        "sBIT-8": (_gama(220000) + _chunk(b"sBIT", bytes([8, 8, 8])), b""),
+        "sBIT-4-mixed": (_gama(45455) + _chunk(b"sBIT", bytes([4, 9, 6])), b""),
+        "sBIT-too-deep": (_gama(45455) + _chunk(b"sBIT", bytes([17, 8, 8])), b""),
+        "iCCP-and-gAMA": (_chunk(b"iCCP", b"p\0\0" + zlib.compress(_icc_profile())) +
+                          _gama(220000), b""),
+    }[case]
+    depth = 16 if case.startswith("sBIT") else 8
+    if case == "gAMA-after-PLTE":  # a suggested palette in an RGB file, then gAMA
+        extra = _chunk(b"PLTE", bytes(range(48))) + _gama(220000)
+    data = _png(rgb, depth, 2, extra=extra)
+    if case == "gAMA-after-IDAT":
+        data = data[:-12] + _gama(220000) + data[-12:]
+    _check(tmp_path, data)
+
+
+@pytest.mark.parametrize("gamma", [45455, 220000, 44517209, 471012991])
+def test_gamma_16bit_every_gray_value(tmp_path, gamma):
+    """Every 16-bit gray value (r = g = b) of a gAMA-tagged RGB file: libpng
+    takes it through its 16→8 table, whose boundaries sit on the rounding of
+    two reciprocals (these gammas separate that from png_product2's)."""
+    v = np.arange(1 << 16).reshape(256, 256)
+    _check(tmp_path, _png(np.repeat(v[..., None], 3, -1), 16, 2, extra=_gama(gamma)))
+
+
+def test_gamma_below_5_refused(tmp_path):
+    """A gAMA of 1-4: its reciprocal overflows libpng's fixed point, which
+    then falls back on other tables; not reproduced, refused (gray is read)."""
+    rgb, _ = _samples(2, 8, 3, (8, 8), 29)
+    _refused(tmp_path, _png(rgb, 8, 2, extra=_gama(2)), "gAMA of 2")
+    _check(tmp_path, _png(rgb[..., :1], 8, 0, extra=_gama(2)))
+
+
 # -- what is refused ----------------------------------------------------------------
 
 
@@ -333,9 +743,14 @@ def _sof_replaced(data: bytes, marker: int, body_edit=None) -> bytes:
 
 
 def test_progressive_jpeg_refused(tmp_path):
+    """A progressive JPEG is read byte for byte (it was refused before);
+    cut inside one of its scans it is refused as truncated."""
     data = _jpeg(_scene(40, 56, seed=11), 90, params=(cv2.IMWRITE_JPEG_PROGRESSIVE, 1))
     assert b"\xff\xc2" in data
-    _refused(tmp_path, data, "progressive")
+    _check(tmp_path, data)
+    units = _scan_units(data)
+    cut = sum(len(u) for u in units[:3]) + 40  # inside the third scan's data
+    _refused(tmp_path, data[:cut], "truncated")
 
 
 @pytest.mark.parametrize("marker,match", [(0xC3, "lossless"), (0xC5, "hierarchical"),
@@ -345,23 +760,28 @@ def test_other_jpeg_processes_refused(tmp_path, marker, match):
 
 
 def test_12bit_cmyk_and_rgb_jpeg_refused(tmp_path):
+    """12-bit JPEG stays refused; CMYK and RGB-coded JPEG are read byte for
+    byte (they were refused before): a four-component file with an Adobe
+    transform 0, and OpenCV's YCbCr data under an Adobe transform 0 with no
+    JFIF marker, which libjpeg then takes for R, G, B."""
     base = _jpeg(_scene(24, 32, seed=13), 90, S444)
     _refused(tmp_path, _sof_replaced(base, 0xC0, lambda b: bytes([12]) + b[1:]), "12-bit")
-
-    def four(b):
-        return b[:5] + bytes([4]) + b[6:] + bytes([4, 0x11, 1])
-
-    _refused(tmp_path, _sof_replaced(base, 0xC0, four), "CMYK")
-    adobe = b"Adobe" + bytes([0, 100, 0, 0, 0, 0, 0])  # transform 0: RGB
-    app14 = b"\xff\xee" + struct.pack(">H", len(adobe) + 2) + adobe
+    cmyk = _scene(24, 32, 4, seed=13)
+    _check(tmp_path, _baseline_jpeg([cmyk[..., c] for c in range(4)], [(1, 1)] * 4, (24, 32),
+                                    adobe=0))
+    app14 = _segment(0xEE, b"Adobe" + bytes([0, 100, 0, 0, 0, 0, 0]))  # transform 0: RGB
     no_jfif = base[:2] + base[4 + struct.unpack(">H", base[4:6])[0]:]  # drop APP0
     assert no_jfif[2:4] != b"\xff\xe0"
-    _refused(tmp_path, no_jfif[:2] + app14 + no_jfif[2:], "RGB-coded")
+    rgb = _check(tmp_path, no_jfif[:2] + app14 + no_jfif[2:])
+    assert not np.array_equal(rgb, imageio.decode_jpeg(base))
 
 
 def test_interlaced_png_refused(tmp_path):
+    """An interlaced (Adam7) PNG is read byte for byte (it was refused
+    before): the same pixels as the non-interlaced file."""
     gray = _scene(16, 16, 1, seed=14)[..., None]
-    _refused(tmp_path, _png(gray, 8, 0, interlace=1), "interlaced")
+    got = _check(tmp_path, _png(gray, 8, 0, interlace=1))
+    np.testing.assert_array_equal(got, gray[..., 0])
 
 
 @pytest.mark.parametrize("kind", ["jpeg", "png"])
@@ -406,16 +826,15 @@ def test_corrupt_data_refused(tmp_path):
 @pytest.mark.parametrize("tag", ["sRGB", "gAMA"])
 def test_gamma_tagged_color_png_refused(tmp_path, tag):
     """libpng converts a gamma-tagged color PNG to gray through its gamma
-    tables (OpenCV's result differs from the plain luma); the port refuses
-    it.  A gray PNG with the same tag is read (no conversion applies)."""
+    tables (OpenCV's result differs from the plain luma); the port reads it
+    byte for byte (it was refused before).  A gray PNG with the same tag is
+    read too (no conversion applies)."""
     body = b"\0" if tag == "sRGB" else struct.pack(">I", 45455)
     rgb = _scene(20, 30, 3, seed=17)
     data = _png(rgb, 8, 2, extra=_chunk(tag.encode(), body))
-    path = tmp_path / "g.png"
-    path.write_bytes(data)
     r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
-    assert not np.array_equal(cv2.imread(str(path), 0), (9797 * r + 19234 * g + 3737 * b) >> 15)
-    _refused(tmp_path, data, "gamma")
+    got = _check(tmp_path, data)
+    assert not np.array_equal(got, (9797 * r + 19234 * g + 3737 * b) >> 15)
     gray = _scene(20, 30, 1, seed=17)[..., None]
     _check(tmp_path, _png(gray, 8, 0, extra=_chunk(tag.encode(), body)))
 
@@ -458,14 +877,17 @@ def _chip_smoke():
     return mod
 
 
+@pytest.mark.parametrize("form", ["plain", "adam7", "srgb", "adam7-srgb"])
 @pytest.mark.parametrize("channels", [1, 3])
-def test_smoke_png_writer_round_trips(tmp_path, channels):
-    """``chip_smoke.write_png`` (each row's filter cycling through 0-4)
-    gives a PNG that OpenCV reads back exactly, in color and in gray."""
+def test_smoke_png_writer_round_trips(tmp_path, channels, form):
+    """``chip_smoke.write_png`` (each row's filter cycling through 0-4;
+    Adam7 and an sRGB chunk as phase 15 writes its second drive) gives a PNG
+    that OpenCV reads back exactly, in color and in gray."""
     img = _scene(23, 37, channels, seed=20)
     path = tmp_path / "w.png"
-    _chip_smoke().write_png(path, img)
-    assert _png_filters(path.read_bytes()) == {0, 1, 2, 3, 4}
+    _chip_smoke().write_png(path, img, adam7="adam7" in form, srgb="srgb" in form)
+    if "adam7" not in form:
+        assert _png_filters(path.read_bytes()) == {0, 1, 2, 3, 4}
     back = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
     np.testing.assert_array_equal(back, img if channels == 1 else img[..., ::-1])
     np.testing.assert_array_equal(imageio.decode_gray(path), cv2.imread(str(path), 0))
@@ -493,6 +915,19 @@ def make_fixtures(out_dir: Path) -> dict:
         "palette_120x160.png": _png(np.random.default_rng(38).integers(0, 16, (120, 160, 1)),
                                     4, 3, np.random.default_rng(39).integers(0, 256, (16, 3))),
         "rgba_120x160.png": cv2.imencode(".png", _scene(120, 160, 4, seed=40, noise=2.0))[1],
+        "prog420_rst5_240x320_q85.jpg": _jpeg(_scene(240, 320, seed=41, noise=6.0), 85, S420,
+                                              PROGRESSIVE + (cv2.IMWRITE_JPEG_RST_INTERVAL, 5)),
+        "prog_gray_120x160_q90.jpg": _jpeg(_scene(120, 160, 1, seed=42, noise=4.0), 90, None,
+                                           PROGRESSIVE),
+        "cmyk_120x160_q90.jpg": _pillow_jpeg(_scene(120, 160, 4, seed=43, noise=4.0), "CMYK",
+                                             quality=90),
+        "rgbcoded_120x160_q90.jpg": _pillow_jpeg(_scene(120, 160, seed=44, noise=4.0), "RGB",
+                                                 quality=90, keep_rgb=True),
+        "adam7_rgb_120x160.png": _png(_scene(120, 160, seed=45, noise=2.0), 8, 2, interlace=1),
+        "srgb_rgb_120x160.png": _png(_scene(120, 160, seed=46, noise=2.0), 8, 2, extra=SRGB),
+        "palette_gama45455_120x160.png": _png(
+            np.random.default_rng(47).integers(0, 200, (120, 160, 1)), 8, 3,
+            np.random.default_rng(48).integers(0, 256, (200, 3)), extra=_gama(45455)),
     }
     manifest = {}
     for name, data in files.items():
@@ -512,7 +947,7 @@ def _manifest():
 def test_fixtures_are_small_and_complete():
     manifest = _manifest()
     files = sorted(p.name for p in FIXTURES.iterdir() if p.name != "manifest.json")
-    assert files == sorted(manifest) and len(files) == 10
+    assert files == sorted(manifest) and len(files) == 17
     assert sum(p.stat().st_size for p in FIXTURES.iterdir()) < 1 << 20
 
 
