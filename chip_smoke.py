@@ -146,8 +146,11 @@ failure (nothing is caught):
     off (metrics, parameters, BatchNorm statistics, ηs, Adam's moments); the
     ordered scatter on that step's own inputs (the descriptor taps, 16×4000×256
     into 1200 cells, and the match rows, 16×1000×256) equal to its plain
-    version run on the host bit for bit, its ms beside the plain version's,
-    ``scatter_add``'s and its bound.
+    version run on the host bit for bit, and (``sorted`` and ``reversed``)
+    on the same indices sorted and reversed along k; its device ms (a CUDA
+    graph of 50 captured calls, replayed) and its eager ms (50 eager calls)
+    beside ``scatter_add``'s read the same two ways, the plain version's
+    and its bound.
 18. ``[synth]``, stage 1, MagicPoint pretraining on Synthetic Shapes: the
     generator (``ssp_torch.data.synthetic_shapes``, drawn by the C++
     rasteriser) against the SHA-256 of ``SYNTH_MANIFEST``, which OpenCV's
@@ -226,8 +229,13 @@ failure (nothing is caught):
     host ms per image; (b) the cross-checked matcher kernel
     (``csrc/bfmatch.cu``) against its plain version, exactly, on the
     fixtures' descriptors and on 1000×1000 SIFT (128 B) and ORB (32 B) rows
-    with shared and duplicate rows (ties), an empty side; its ms beside the
-    plain version's and its bound; (c) ``export_classical`` for ``sift`` and
+    with shared and duplicate rows (ties), on two rows whose squared
+    distances share a float root, on rows of 4 and 124 bytes, an empty
+    side; its device ms (a CUDA graph of 50 captured calls) and eager ms
+    beside the plain version's and its bound, its device operations per
+    call under ``torch.profiler`` (one kernel, no memset), and the count of
+    tensor-core opcodes (``IMMA``, ``BMMA``) in its library where
+    ``cuobjdump`` is present; (c) ``export_classical`` for ``sift`` and
     ``orb`` (``configs/classical_descriptors.yaml``) over phase 12's corpus:
     the launch counts set to 0 before each export and read after (the
     matcher once per pair with keypoints on both sides, the six kernels of
@@ -297,6 +305,7 @@ import gc
 import hashlib
 import json
 import os
+import re
 import shutil
 import struct
 import subprocess
@@ -313,9 +322,11 @@ import torch.nn.functional as F
 import yaml
 from torch.profiler import ProfilerActivity, profile
 
-from ssp_torch.bench import (BATCH, BORDER, NMS_RADIUS, TOP_K, H, W, build_pipeline,
-                             structured_images)
+from ssp_torch.bench import (BATCH, BORDER, NMS_RADIUS, PEAK_BF16, PEAK_FP32, TOP_K, H, W,
+                             bound, build_pipeline, structured_images)
 from ssp_torch import bench_ha
+from ssp_torch.bench_own_kernels import (MATCHER_ROWS, check_matcher, matcher_cases,
+                                         matcher_rows, scatter_rows)
 from ssp_torch.cli import train as train_cli
 from ssp_torch.cli.export import export_descriptor, export_detector_homoAdapt, export_sequence
 from ssp_torch.core.grid import flatten_detection
@@ -408,9 +419,8 @@ SEQ_DRIVES, SEQ_FRAMES = 2, 16  # the sequence corpus: 2 drives of 16 frames
 HA_CLI_IMAGES = 16  # the stage-2 corpus: the JPEG fixtures (each at least once) under 16 COCO names
 SLAM_HW = (384, 1248)  # the SLAM sequence export's shape (configs/kitti384_sequence_r5.yaml)
 # phase 21: OpenCV's SIFT and ORB on four images, written by
-# scripts/make_classical_fixtures.py; the matcher's rows at the config's top_k
+# scripts/make_classical_fixtures.py (the matcher's cases: bench_own_kernels)
 CLASSICAL_FIXTURES = ROOT / "tests" / "data" / "torch_classical"
-CLASSICAL_ROWS = 1000
 
 # phase 17: the flagship training configuration, run for TRAIN_RUN's schedule,
 # then TRAIN_TIMED steady-state steps
@@ -461,13 +471,6 @@ TRAIN_LABEL_FLIPS = 1e-3
 # ... and every metric within this relative difference (bf16 forwards of
 # inputs that differ by an ulp here and there: a few roundings flip)
 TRAIN_REL = 5e-3
-
-# published H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores,
-# fp32 outside the tensor cores, HBM3, int8 (the matcher's byte arithmetic)
-PEAK_BF16 = 989e12
-PEAK_FP32 = 67e12
-PEAK_BYTES = 3.35e12
-PEAK_INT8 = 1979e12
 
 # main-path agreement with the plain path on the card: the kernels differ
 # from their plain versions only by flipped bf16 roundings (NMS is exact),
@@ -550,12 +553,6 @@ def time_ms(fn, iters: int = 20, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def bound(flops: float, flop_peak: float, nbytes: float):
-    """(least ms for the work on this card, what bounds it)."""
-    t_ops, t_bytes = flops / flop_peak, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def agreement(pts, desc, ref_pts, ref_desc) -> dict:
@@ -1257,7 +1254,8 @@ def main() -> None:
         "tpu_counterpart": False, "launches": train["launches"]["ordered_scatter"],
         "max_abs_err": max(r["max_abs_err"] for r in sc["shapes"].values()),
         "ms": sc["ms"], "plain_ms": sc["plain_ms"], "bound_ms": sc["bound_ms"],
-        "bound_by": sc["bound_by"], "library_ms": sc["library_ms"], "shape": sc["shape"],
+        "bound_by": sc["bound_by"], "library_ms": sc["library_ms"], "eager_ms": sc["eager_ms"],
+        "library_eager_ms": sc["library_eager_ms"], "shape": sc["shape"],
         "shapes": sc["shapes"]})
     for row in kernels:
         row["launches_export"] = export_launches.get(row["name"], 0)
@@ -2086,7 +2084,7 @@ def train_phase(dev: torch.device, td: Path, smi: str) -> dict:
     # torch.use_deterministic_algorithms off; the ordered scatter's inputs of
     # that step held against its plain version and timed
     calls = repeat_step(agent, bk, sparse_step, "[train]")
-    scatter = scatter_check(calls, dev, smi)
+    scatter = scatter_check(calls, td, smi)
 
     # ---- steady state
     steady_state(agent, "[train]", TRAIN_TIMED, f"{B} images (each with its warped view) at "
@@ -2188,41 +2186,27 @@ def repeat_step(agent, batch: dict, step, tag: str) -> list:
     return calls
 
 
-def scatter_check(calls: list, dev: torch.device, smi: str) -> dict:
+def scatter_check(calls: list, td: Path, smi: str) -> dict:
     """The ordered scatter at each shape a flagship step gave it (its own
-    inputs, ``calls``: the descriptor taps and the match rows) against the
-    plain version on the host bit for bit, then its ms beside the plain
-    version's on the card, ``scatter_add`` (the one PyTorch call for the same
-    sums) and its bound (src, idx and out once).  Returns the row of the
+    inputs, ``calls``: the descriptor taps and the match rows), and on the
+    last call's indices sorted and reversed, against the plain version on
+    the host bit for bit; then its device and eager ms and device
+    operations per call beside ``scatter_add``'s (the one PyTorch call for
+    the same sums), the plain version's ms and its bound (src, idx and out
+    once): ``bench_own_kernels.scatter_rows``, its device operations read
+    in a fresh process through a file under ``td``.  Returns the row of the
     largest K on the path (the descriptor taps) with every shape's beside
     it."""
-    cases = [(f"{s.shape[0]}x{s.shape[1]}x{s.shape[2]}->{t}", s, i, t) for s, i, t in calls]
-    main = max(cases, key=lambda c: c[1].shape[1])[0]
-    rows = {}
-    for name, src, idx, t in cases:
-        got = osc_mod.ordered_scatter(src, idx, t).cpu()
-        want = osc_mod.ordered_scatter_plain(src.cpu(), idx.cpu(), t)
-        err = float((got - want).abs().max())
-        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
-            raise AssertionError(f"ordered_scatter {name}: max abs err {err} against the plain "
-                                 f"version (or a signed zero)")
-        if name in rows:
-            continue
-        r, k, c = src.shape
-        zeros = torch.zeros(r, t, c, device=dev)
-        ex = idx[..., None].expand(r, k, c)
-        b_ms, b_by = bound(r * k * c, PEAK_FP32, 4.0 * src.numel() + 8.0 * idx.numel() +
-                           4.0 * zeros.numel())
-        rows[name] = {"ms": time_ms(lambda: osc_mod.ordered_scatter(src, idx, t), iters=50),
-                      "plain_ms": time_ms(lambda: osc_mod.ordered_scatter_plain(src, idx, t),
-                                          iters=50),
-                      "library_ms": time_ms(lambda: zeros.scatter_add(1, ex, src), iters=50),
-                      "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
-        t_ = rows[name]
-        log(f"[train] ordered_scatter at {name} ({smi}): {t_['ms']:.4f} ms (bound "
-            f"{b_ms:.4f} ms by {b_by}), plain {t_['plain_ms']:.4f} ms, scatter_add "
-            f"{t_['library_ms']:.4f} ms; max abs err {err} against the plain version on the "
-            f"host, bit for bit")
+    rows = scatter_rows(calls, td)
+    for name, t_ in rows.items():
+        log(f"[train] ordered_scatter at {name} ({smi}): device {t_['ms']:.4f} ms, eager "
+            f"{t_['eager_ms']:.4f} ms, {len(t_['ops'])} device operations per call under "
+            f"torch.profiler in a fresh process ({', '.join(f'{n} {ms:.4f} ms' for n, ms in t_['ops'])}); bound "
+            f"{t_['bound_ms']:.4f} ms by {t_['bound_by']}; plain {t_['plain_ms']:.4f} ms; "
+            f"scatter_add device {t_['library_ms']:.4f} ms, eager {t_['library_eager_ms']:.4f} "
+            f"ms; max abs err {t_['max_abs_err']} against the plain version on the host, bit for "
+            f"bit (also on the indices sorted and reversed)")
+    main = max(rows, key=lambda name: int(name.split("x")[1]))
     return {"shape": main, **rows[main], "shapes": rows}
 
 
@@ -3119,64 +3103,30 @@ def classical_phase(dev: torch.device, td: Path, smi: str) -> dict:
         f"{min(envelope):.4f} at worst; host ms per 240x320 image on the host CPU (one thread): "
         f"SIFT {np.mean(host_ms['sift']):.2f}, ORB {np.mean(host_ms['orb']):.2f}")
 
-    # ---- (b) the matcher kernel against its plain version, exactly
-    rng = np.random.default_rng(SEED + 21)
-    cases = {}
-    with np.load(CLASSICAL_FIXTURES / "noise.npz") as a, \
-            np.load(CLASSICAL_FIXTURES / "blobs.npz") as b:
-        cases["fixtures_sift"] = (a["sift_plain_desc"].astype(np.float32),
-                                  b["sift_plain_desc"].astype(np.float32))
-        cases["fixtures_orb"] = (a["orb_desc"], b["orb_desc"])
-    for tag, dim, dtype in (("sift", 128, np.float32), ("orb", 32, np.uint8)):
-        q = rng.integers(0, 256, (CLASSICAL_ROWS, dim)).astype(dtype)
-        t = rng.integers(0, 256, (CLASSICAL_ROWS, dim)).astype(dtype)
-        t[:50] = q[:50]        # shared rows: distance 0
-        t[100:110] = t[99]     # duplicate train rows: ties to the lowest index
-        q[200:210] = q[199]    # duplicate query rows
-        cases[f"{CLASSICAL_ROWS}x{CLASSICAL_ROWS}_{tag}"] = (q, t)
-    on_card = {k: (torch.from_numpy(q).to(dev), torch.from_numpy(t).to(dev))
-               for k, (q, t) in cases.items()}
-    matches, err = {}, 0.0
-    for k, (q, t) in on_card.items():
-        got = bfmatch.bfmatch(q, t)
-        want = bfmatch.bfmatch_plain(q, t)
-        want_cpu = bfmatch.bfmatch_plain(q.cpu(), t.cpu())
-        if got.shape != want.shape or got.shape != want_cpu.shape:
-            raise AssertionError(f"[classical] (b) the matcher on {k}: {len(got)} matches, its "
-                                 f"plain version {len(want)} (card) and {len(want_cpu)} (CPU)")
-        if got.numel():
-            err = max(err, float((got - want).abs().max()),
-                      float((got.cpu() - want_cpu).abs().max()))
-        if not torch.equal(got, want) or not torch.equal(got.cpu(), want_cpu):
-            raise AssertionError(f"[classical] (b) the matcher on {k} differs from its plain "
-                                 f"version by up to {err}")
-        matches[k] = len(got)
-    q0 = on_card[f"{CLASSICAL_ROWS}x{CLASSICAL_ROWS}_sift"][0]
-    if bfmatch.bfmatch(q0[:0], q0).shape != (0, 3) or bfmatch.bfmatch(q0, q0[:0]).shape != (0, 3):
-        raise AssertionError("[classical] (b) an empty side gives matches")
-    times = {}
-    for k in (f"{CLASSICAL_ROWS}x{CLASSICAL_ROWS}_sift", f"{CLASSICAL_ROWS}x{CLASSICAL_ROWS}_orb",
-              "fixtures_sift"):
-        q, t = on_card[k]
-        hamming = q.dtype == torch.uint8
-        qb = q if hamming else q.to(torch.uint8)
-        tb = t if hamming else t.to(torch.uint8)
-        # the least int8 tensor-core work for the same function: L2 as
-        # |a|^2 + |b|^2 - 2 a.b, a u8 x u8 product summed exactly in int32 (2
-        # operations per byte pair; the norms are O(N D)); Hamming as
-        # |a| + |b| - 2 a.b over the 8 D bits as 0/1 int8 values (2 per bit
-        # pair).  The kernel's byte rows read once, its key per query row
-        # written once
-        ops = 2.0 * q.shape[0] * t.shape[0] * q.shape[1] * (8 if hamming else 1)
-        times[k] = {"ms": time_ms(lambda: bfmatch.launch(qb, tb, hamming), iters=50),
-                    "wrapper_ms": time_ms(lambda: bfmatch.bfmatch(q, t), iters=20),
-                    "plain_ms": time_ms(lambda: bfmatch.bfmatch_plain(q, t), iters=5),
-                    "bound": bound(ops, PEAK_INT8, qb.numel() + tb.numel() + q.shape[0] * 8)}
-    torch.cuda.synchronize()
+    # ---- (b) the matcher kernel against its plain version, exactly, then
+    # timed (bench_own_kernels: the cases, the comparisons and the readings)
+    matches, err, on_card = check_matcher(matcher_cases(SEED + 21), dev)
+    times = matcher_rows(on_card, td)
     for k, v in times.items():
-        log(f"[classical] (b) matcher {k}: kernel {v['ms']:.4f} ms (bound {v['bound'][0]:.5f} ms "
-            f"by {v['bound'][1]}), with the wrapper's checks and compaction "
-            f"{v['wrapper_ms']:.4f} ms, plain {v['plain_ms']:.4f} ms")
+        log(f"[classical] (b) matcher {k}: device {v['ms']:.4f} ms, eager {v['eager_ms']:.4f} "
+            f"ms (bound {v['bound_ms']:.6f} ms by {v['bound_by']}); "
+            f"{len(v['ops'])} device operations per call under torch.profiler in a fresh "
+            f"process ("
+            + ", ".join(f"{n} {ms:.4f} ms" for n, ms in v["ops"]) +
+            f"); with the wrapper's checks and compaction {v['wrapper_ms']:.4f} ms, plain "
+            f"{v['plain_ms']:.4f} ms ({smi})")
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    if cuobjdump.exists():
+        sass = subprocess.run([str(cuobjdump), "-sass", str(_build._lib_path("bfmatch"))],
+                              capture_output=True, text=True, check=True).stdout
+        mma = {op: len(re.findall(rf"\b{op}\.", sass)) for op in ("IMMA", "BMMA")}
+        log(f"[classical] (b) tensor-core opcodes in the matcher's library (cuobjdump -sass): "
+            f"{mma}")
+        if not (mma["IMMA"] and mma["BMMA"]):
+            raise AssertionError(f"[classical] (b) the matcher's library holds {mma}")
+    else:
+        log(f"[classical] (b) no cuobjdump beside {_build._nvcc()}: the matcher's opcodes "
+            f"not counted")
     log(f"[classical] (b) matcher equal to its plain version (on the card and on the CPU) on "
         f"{matches} cross-checked matches, max abs err {err}; an empty side gives none")
 
@@ -3233,17 +3183,19 @@ def classical_phase(dev: torch.device, td: Path, smi: str) -> dict:
             ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
                       for k, v in summary.items()))
 
-    k = f"{CLASSICAL_ROWS}x{CLASSICAL_ROWS}_sift"
+    k = f"{MATCHER_ROWS}x{MATCHER_ROWS}_sift"
     row = {"name": "bfmatch", "route": "cuda", "source": "ssp_torch/csrc/bfmatch.cu",
            "replaces": "no TPU kernel: ssp/export/classical.py:44 cv2.BFMatcher on the host",
            "tpu_counterpart": False, "launches": launches["bfmatch"],
            "launches_classical": launches["bfmatch"], "max_abs_err": err,
            "ms": times[k]["ms"], "plain_ms": times[k]["plain_ms"],
-           "bound_ms": times[k]["bound"][0], "bound_by": times[k]["bound"][1],
-           "library_ms": None, "shape": k,
-           "orb_ms": times[f"{CLASSICAL_ROWS}x{CLASSICAL_ROWS}_orb"]["ms"],
-           "orb_plain_ms": times[f"{CLASSICAL_ROWS}x{CLASSICAL_ROWS}_orb"]["plain_ms"],
-           "orb_bound_ms": times[f"{CLASSICAL_ROWS}x{CLASSICAL_ROWS}_orb"]["bound"][0],
+           "bound_ms": times[k]["bound_ms"], "bound_by": times[k]["bound_by"],
+           "library_ms": None, "shape": k, "eager_ms": times[k]["eager_ms"],
+           "ops_per_call": len(times[k]["ops"]),
+           "orb_ms": times[f"{MATCHER_ROWS}x{MATCHER_ROWS}_orb"]["ms"],
+           "orb_eager_ms": times[f"{MATCHER_ROWS}x{MATCHER_ROWS}_orb"]["eager_ms"],
+           "orb_plain_ms": times[f"{MATCHER_ROWS}x{MATCHER_ROWS}_orb"]["plain_ms"],
+           "orb_bound_ms": times[f"{MATCHER_ROWS}x{MATCHER_ROWS}_orb"]["bound_ms"],
            "sift_pairs_per_s": result["sift"]["pairs_per_s"],
            "orb_pairs_per_s": result["orb"]["pairs_per_s"]}
     return {"launches": launches, "row": row}

@@ -43,6 +43,19 @@ BORDER = 4
 ITERS = 30  # timed batches, after three of warm-up
 DEFAULT_WEIGHTS = Path(__file__).resolve().parents[1] / "evidence" / "wsem_weights.npz"
 
+# published H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores,
+# fp32 outside the tensor cores, HBM3, int8 (the matcher's byte arithmetic)
+PEAK_BF16 = 989e12
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+PEAK_INT8 = 1979e12
+
+
+def bound(flops: float, flop_peak: float, nbytes: float):
+    """(least ms for the work on this card, what bounds it)."""
+    t_ops, t_bytes = flops / flop_peak, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
 
 def build_pipeline(
     variables: Union[nn.Module, Mapping[str, torch.Tensor]],

@@ -7,7 +7,7 @@ It computes exactly what :func:`bfmatch_plain` computes (and :func:`bfmatch`
 runs for CPU tensors), which is OpenCV's result: query row ``q`` is matched
 to its nearest train row ``t`` when ``q`` is the nearest query row of ``t``,
 nearest meaning the least distance as a float with ties to the lowest
-index.  The distances are exact, not a ``‖a‖² + ‖b‖² − 2ab`` product:
+index.  The distances are exact integers before their one rounding:
 
 * L2 (SIFT): SIFT descriptors are integers in [0, 255] stored as float32
   (OpenCV saturates them to uchar); the squared distance is an exact integer
@@ -20,11 +20,21 @@ What bounds it on an H100: integer operations, against a few hundred kB
 of input.  The least work for the same function is int8 tensor-core work:
 two operations per byte pair for L2 (a u8 × u8 product summed in int32,
 2.6·10⁸ at 1000 × 1000 SIFT rows) and two per bit pair for Hamming (a 0/1
-dot product over the 8·D bits).  This kernel does its sums on the CUDA
-cores instead (``__dp4a``, ``__popc``).
+dot product over the 8·D bits).  The kernel does just that work on the
+tensor cores, from the same exact integers: L2 as ``|a|² + |b|² − 2a·b``
+(``mma.sync`` u8 × u8 → s32), Hamming as ``popc(a) + popc(b) −
+2 popc(a ∧ b)`` (``mma.sync`` b1 AND-popc); its keys stay on the float root.
+At a pair of images' sizes the work takes far less than a launch, so the
+design is one launch per call: 64 × 128 tiles, per-tile minima stored into
+scratch, the last block of each strip (column) of tiles reduces them, and
+the last block of all applies the cross-check (counters in the library,
+reset by those blocks: no memset).  The minima are found on the exact
+integers, the float root taken of the least sum and of any sum that could
+share its root.  A call takes up to 1,048,576 query rows and 2,097,152
+train rows (16384 tiles a side).
 
 ``launches`` counts the calls of :func:`bfmatch` that reach the card (each
-is two CUDA launches, the distance tile and the cross-check).
+is one CUDA launch).
 """
 
 from __future__ import annotations
@@ -37,7 +47,8 @@ from ssp_torch.kernels import _build
 
 launches = 0
 _NONE = -1  # the kernel's "no match" key, ~0 as int64
-_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
+_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+_MAX_QUERY, _MAX_TRAIN = 16384 * 64, 16384 * 128  # the kernel's tiles, 64 x 128, per side
 _CHUNK = 1 << 22  # elements of a [rows, Nt, D] difference block in the plain version
 _POPCOUNT = torch.tensor([bin(i).count("1") for i in range(256)], dtype=torch.int32)
 
@@ -132,6 +143,9 @@ def bfmatch(desc1: torch.Tensor, desc2: torch.Tensor) -> torch.Tensor:
     t = (desc2 if hamming else _integer_bytes(desc2)).contiguous()
     if q.shape[1] % 4 or q.shape[1] > 128:
         raise ValueError(f"the kernel takes rows of 4..128 bytes in steps of 4, got {q.shape[1]}")
+    if len(q) > _MAX_QUERY or len(t) > _MAX_TRAIN:
+        raise ValueError(f"the kernel takes at most {_MAX_QUERY} query and {_MAX_TRAIN} train "
+                         f"rows, got {len(q)} and {len(t)}")
     keys = launch(q, t, hamming)
     launches += 1
     return matches_from_keys(keys)
@@ -147,18 +161,21 @@ def matches_from_keys(keys: torch.Tensor) -> torch.Tensor:
 
 
 def launch(q: torch.Tensor, t: torch.Tensor, hamming: bool) -> torch.Tensor:
-    """One call of the kernel on contiguous CUDA uint8 rows ``q`` [Nq, D] and
-    ``t`` [Nt, D] (D a multiple of 4, at most 128) → int64 keys [Nq]:
+    """One launch of the kernel on contiguous CUDA uint8 rows ``q`` [Nq, D]
+    and ``t`` [Nt, D] (D a multiple of 4, at most 128) → int64 keys [Nq]:
     distance bits << 32 | train row, or -1 for no match; counts nothing
-    (:func:`bfmatch` does)."""
-    fn = _build.load("bfmatch").ssp_bfmatch_launch
+    (:func:`bfmatch` does).  Launches on one device must not overlap (the
+    kernel's counters are one set per device): calls on one stream do
+    not."""
+    lib = _build.load("bfmatch")
+    fn, size = lib.ssp_bfmatch_launch, lib.ssp_bfmatch_scratch
     if fn.argtypes is None:
         fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+        size.argtypes, size.restype = [ctypes.c_int] * 2, ctypes.c_longlong
     nq, nt = q.shape[0], t.shape[0]
-    scratch = torch.empty(nq + nt, dtype=torch.int64, device=q.device)
+    scratch = torch.empty(size(nq, nt), dtype=torch.int64, device=q.device)
     out = torch.empty(nq, dtype=torch.int64, device=q.device)
     err = fn(q.data_ptr(), t.data_ptr(), nq, nt, q.shape[1] // 4, int(hamming),
-             scratch.data_ptr(), scratch[nq:].data_ptr(), out.data_ptr(),
-             torch.cuda.current_stream(q.device).cuda_stream)
+             scratch.data_ptr(), out.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "ssp_bfmatch_launch")
     return out

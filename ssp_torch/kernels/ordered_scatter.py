@@ -16,7 +16,14 @@ the sparse descriptor loss's reads).
 The CUDA kernel is ``ssp_torch/csrc/ordered_scatter.cu``; CPU tensors run
 :func:`ordered_scatter_plain`.  It replaces no TPU kernel (the JAX package
 gathers with one-hot products or XLA scatters, deterministic on a TPU).
-``launches`` counts the calls that reach the card.
+What bounds it on the card is bytes: ``src`` and ``idx`` read once, ``out``
+written once.  A call is two launches: a counting sort of each row's hits
+by ``t``, made stable, into a CSR of int32 scratch (offsets ``[R, T+1]``
+and the order of ``k`` ``[R, K]``, allocated here), then a warp per 4
+output rows that reads their segments' ``src`` rows with 16-byte loads, 8
+rows in flight, and adds them in order from +0 in registers.  No host sync
+and no float atomics, so a CUDA graph captures the call.  ``launches``
+counts the calls that reach the card (one per call).
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ import torch
 from ssp_torch.kernels import _build
 
 launches = 0
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 
 
@@ -77,13 +84,18 @@ def ordered_scatter(src: torch.Tensor, idx: torch.Tensor, T: int) -> torch.Tenso
 
 
 def launch(src: torch.Tensor, idx: torch.Tensor, out: torch.Tensor) -> None:
-    """One launch on contiguous CUDA ``src [R, K, C]``, ``idx [R, K]`` into
-    ``out [R, T, C]``; counts nothing (:func:`ordered_scatter` does)."""
-    fn = _build.load("ordered_scatter").ssp_ordered_scatter_launch
+    """The kernel's two launches on contiguous CUDA ``src [R, K, C]``,
+    ``idx [R, K]`` into ``out [R, T, C]``, with the CSR scratch allocated
+    here; counts nothing (:func:`ordered_scatter` does)."""
+    lib = _build.load("ordered_scatter")
+    fn, size = lib.ssp_ordered_scatter_launch, lib.ssp_ordered_scatter_scratch
     if fn.argtypes is None:
         fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+        size.argtypes, size.restype = [ctypes.c_int] * 3, ctypes.c_longlong
     R, K, C = src.shape
-    err = fn(src.data_ptr(), idx.data_ptr(), out.data_ptr(), R, K, out.shape[1], C,
+    T = out.shape[1]
+    csr = torch.empty(size(R, K, T), dtype=torch.int32, device=src.device)
+    err = fn(src.data_ptr(), idx.data_ptr(), out.data_ptr(), csr.data_ptr(), R, K, T, C,
              _DTYPES[src.dtype], torch.cuda.current_stream(src.device).cuda_stream)
     _build.check(err, "ssp_ordered_scatter_launch")
 

@@ -365,6 +365,34 @@ def test_match_plain_at_full_size_and_edges():
                                   _bf(a[:1], b, cv2.NORM_L2))
 
 
+def _root_tie(s: int = 4_197_200):
+    """One query row of zeros and two train rows at squared distances
+    ``s + 1`` (train row 0) and ``s`` (train row 1), whose float roots are
+    equal (2048.707 for the default)."""
+    q = np.zeros((1, 128), np.float32)
+    t = np.zeros((2, 128), np.float32)
+    t[:, :64] = 255.0
+    t[:, 64:66] = (188.0, 16.0)  # 64·255² + 188² + 16² = 4,197,200
+    t[0, 66] = 1.0
+    assert [int((r.astype(np.int64) ** 2).sum()) for r in t] == [s + 1, s]
+    assert np.sqrt(np.float32(s)) == np.sqrt(np.float32(s + 1))
+    return q, t
+
+
+def test_match_root_tie_keeps_the_lower_index():
+    """Two squared distances with one float root: OpenCV keeps the lower
+    train index (the larger sum), as do the plain version, the CPU
+    ``match_classical`` and the JAX package's; a minimum over the integer
+    sums would take train row 1."""
+    q, t = _root_tie()
+    want = _bf(q, t, cv2.NORM_L2)
+    np.testing.assert_array_equal(want, [[0.0, 0.0, np.float32(np.sqrt(np.float32(4_197_200)))]])
+    np.testing.assert_array_equal(bfmatch.bfmatch_plain(torch.from_numpy(q),
+                                                        torch.from_numpy(t)).numpy(), want)
+    np.testing.assert_array_equal(t_classical.match_classical(q, t, "sift", device="cpu"), want)
+    np.testing.assert_array_equal(j_classical.match_classical(q, t, "sift"), want)
+
+
 def test_match_refuses_inexact_descriptors():
     a = np.full((3, 128), 10.0, np.float32)
     for bad in (0.5, -1.0, 256.0, np.nan):

@@ -701,17 +701,20 @@ def test_val_agent_launches_the_kernels_once_per_image(cuda):
         assert min(cos) >= 0.999
 
 
-def _match_inputs(rng, nq, nt, hamming, levels):
+def _match_inputs(rng, nq, nt, hamming, levels, width=None):
     """Descriptor rows with ties: few distinct values per entry (SIFT) or
     masked bits (ORB), planted duplicate rows on both sides and rows shared
-    by the two sides."""
+    by the two sides; ``width`` bytes a row (ORB's 32 or SIFT's 128 by
+    default)."""
     if hamming:
-        q = rng.integers(0, 256, (nq, 32), dtype=np.uint8) & np.uint8(levels)
-        t = rng.integers(0, 256, (nt, 32), dtype=np.uint8) & np.uint8(levels)
+        width = width or 32
+        q = rng.integers(0, 256, (nq, width), dtype=np.uint8) & np.uint8(levels)
+        t = rng.integers(0, 256, (nt, width), dtype=np.uint8) & np.uint8(levels)
     else:
+        width = width or 128
         step = 255 // (levels - 1)
-        q = (rng.integers(0, levels, (nq, 128)) * step).astype(np.float32)
-        t = (rng.integers(0, levels, (nt, 128)) * step).astype(np.float32)
+        q = (rng.integers(0, levels, (nq, width)) * step).astype(np.float32)
+        t = (rng.integers(0, levels, (nt, width)) * step).astype(np.float32)
     n = min(nq, nt, 7)
     t[:n] = q[:n]
     if nt > 12:
@@ -759,6 +762,41 @@ def test_bfmatch_kernel_edges(cuda):
         bfmatch.bfmatch(q, bad)
     # three equal rows on each side: query 0 takes train 0, the others none
     np.testing.assert_array_equal(bfmatch.bfmatch(q, q).cpu().numpy(), [[0.0, 0.0, 0.0]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hamming", [False, True])
+@pytest.mark.parametrize("width", [4, 64, 124])
+def test_bfmatch_kernel_row_counts_and_widths(cuda, hamming, width):
+    """Row counts on both sides of the kernel's 128-row tiles and of its
+    16- and 8-row products (1, 15, 17, 63, 65, 1025), rows of 4, 64 and 124
+    bytes (k steps of 32 bytes padded with zeros), with ties (ORB: masked
+    bits, so many rows at one distance), against the plain version
+    exactly."""
+    from ssp_torch.kernels import bfmatch
+
+    rng = np.random.default_rng(width + 1000 * hamming)
+    for nq, nt in ((1, 1025), (1025, 1), (15, 17), (17, 15), (63, 65), (65, 63), (1025, 1025)):
+        q, t = _match_inputs(rng, nq, nt, hamming, 0x11 if hamming else 3, width)
+        got = bfmatch.bfmatch(q.to(cuda), t.to(cuda))
+        assert torch.equal(got.cpu(), bfmatch.bfmatch_plain(q, t)), (nq, nt, width)
+        assert len(got) > 0
+
+
+@pytest.mark.cuda
+def test_bfmatch_kernel_root_tie(cuda):
+    """Squared distances 4,197,201 (train row 0) and 4,197,200 (train row 1)
+    share a float root: the kernel keeps train row 0, as OpenCV does."""
+    from ssp_torch.kernels import bfmatch
+
+    q = torch.zeros(1, 128, device=cuda)
+    t = torch.zeros(2, 128, device=cuda)
+    t[:, :64] = 255.0
+    t[:, 64], t[:, 65], t[0, 66] = 188.0, 16.0, 1.0
+    got = bfmatch.bfmatch(q, t).cpu()
+    assert torch.equal(got, bfmatch.bfmatch_plain(q.cpu(), t.cpu()))
+    assert got[:, :2].tolist() == [[0.0, 0.0]]
+    assert got[0, 2] == float(np.sqrt(np.float32(4_197_200)))
 
 
 @pytest.mark.cuda
@@ -889,6 +927,94 @@ def test_ordered_scatter_kernel_equals_plain(cuda, shape, dtype):
     want = osc.ordered_scatter_plain(src.cpu(), idx.cpu(), T)
     bits = torch.int64 if dtype == torch.float64 else torch.int32
     assert torch.equal(got.view(bits), want.view(bits))
+
+
+def _scatter_inputs(cuda, R, K, C, T, dtype, order):
+    g = torch.Generator(cuda).manual_seed(1)
+    src = torch.randn(R, K, C, device=cuda, generator=g, dtype=dtype)
+    src[:, ::7] = -0.0
+    if order == "one_segment":
+        idx = torch.full((R, K), T // 2, device=cuda, dtype=torch.int64)
+    else:
+        idx = torch.randint(0, T, (R, K), device=cuda, generator=g).sort(dim=1).values
+        if order == "reversed":
+            idx = idx.flip(1)
+    return src, idx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["one_segment", "sorted", "reversed"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ordered_scatter_kernel_segments(cuda, order, dtype):
+    """Every k of a row on one t (4000 adds in order into one output row,
+    C = 256), and indices sorted and reversed along k, against the plain
+    version on the host bit for bit."""
+    from ssp_torch.kernels import ordered_scatter as osc
+
+    R, K, C, T = 4, 4000, 256, 1200
+    src, idx = _scatter_inputs(cuda, R, K, C, T, dtype, order)
+    got = osc.ordered_scatter(src, idx, T).cpu()
+    want = osc.ordered_scatter_plain(src.cpu(), idx.cpu(), T)
+    bits = torch.int64 if dtype == torch.float64 else torch.int32
+    assert torch.equal(got.view(bits), want.view(bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 3, 33, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ordered_scatter_kernel_skips_out_of_range_indices(cuda, C, dtype):
+    """Indices outside [0, T) add nothing on the card: a whole row of them
+    (row 0: -1, T, past T, ±2⁴⁰) and a fifth of each other row, against the
+    plain version on the same inputs with those hits moved to t = 0 and
+    their src rows set to +0 (a sum from +0 is never -0, so adding +0
+    changes no bit)."""
+    from ssp_torch.kernels import ordered_scatter as osc
+
+    R, K, T = 4, 300, 40
+    g = torch.Generator(cuda).manual_seed(2)
+    src = torch.randn(R, K, C, device=cuda, generator=g, dtype=dtype)
+    src[:, ::7] = -0.0
+    idx = torch.randint(0, T, (R, K), device=cuda, generator=g)
+    wild = torch.randint(0, 5, (R, K), device=cuda, generator=g) == 0
+    wild[0] = True
+    bad = torch.tensor([-1, T, T + 5, -(1 << 40), 1 << 40], device=cuda)
+    idx = torch.where(wild, bad[torch.arange(R * K, device=cuda).view(R, K) % 5], idx)
+    got = osc.ordered_scatter(src, idx, T).cpu()
+    keep = ~wild.cpu()
+    want = osc.ordered_scatter_plain(torch.where(keep[..., None], src.cpu(), 0.0),
+                                     torch.where(keep, idx.cpu(), 0), T)
+    bits = torch.int64 if dtype == torch.float64 else torch.int32
+    assert torch.equal(got.view(bits), want.view(bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 4000, 256, 1200), (3, 300, 127, 40), (4, 200, 2, 76800)])
+def test_ordered_scatter_graph_equals_eager(cuda, shape):
+    """The call captured in a CUDA graph (its CSR scratch and output from
+    the graph's pool): each replay equals the eager call on the same inputs
+    bit for bit, also after the inputs change in place."""
+    from ssp_torch.kernels import ordered_scatter as osc
+
+    R, K, C, T = shape
+    src, idx = _scatter_inputs(cuda, R, K, C, T, torch.float32, "random")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        osc.ordered_scatter(src, idx, T)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = osc.launches
+    with torch.cuda.graph(graph):
+        out = osc.ordered_scatter(src, idx, T)
+    assert osc.launches == before + 1
+    for step in range(2):
+        if step:
+            src.mul_(-3.0)
+            idx.copy_(idx.flip(1))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = osc.ordered_scatter(src, idx, T)
+        assert torch.equal(out.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.cuda
