@@ -216,7 +216,12 @@ failure (nothing is caught):
     over NCCL at world size 1 against the same, ms per step of each over
     REST_TIMED steps with ``vresample_coef`` 4 per rank per step, and
     ``train_joint`` on the ranks for REST_RUN's schedule (rank 0 alone
-    writes; NMS only on rank 0's validation images); (e)
+    writes; NMS only on rank 0's validation images), then the mesh shrink:
+    ``train_joint`` on SHRINK_WORLD ranks, which do not divide the global
+    batch of 16, trains on the largest count that does (REST_WORLD), with
+    those ranks' launches and metric rows equal to the REST_WORLD-rank run's
+    (within TRAIN_REL), the other ranks idle with no launch, every rank
+    exiting 0; (e)
     ``export_detector_homoAdapt`` on REST_WORLD ranks of the one card over
     phase 16's images: the same files as phase 16's one process, each written
     once, the points within HA_MULTI_MAX, every rank launching the stem,
@@ -255,15 +260,19 @@ failure (nothing is caught):
     the host's queueing and its prologue alone, the capture's ms and the
     graph pool; (b) ``export_detector_homoAdapt`` with ``one_dispatch`` over
     phase 16's images: the same files; (c) the flagship on phase 17's tree
-    and (d) stage 1 on phase 18's corpus, each with the device corpus and
-    DISPATCH_SPD steps per dispatch, the graphed loop against the eager one
-    (``eager=True``) from the same state and seeds: one untimed turn, then
-    DISPATCH_TIMED timed steps and one profiled turn, ms/step, the idle
-    share and peak memory of each; equal (largest absolute difference 0) in
-    every turn's metrics, the parameters, the BatchNorm statistics and the
-    ηs, both as they run (``torch.use_deterministic_algorithms`` off) and
-    under it.  The kernel wrappers' counters do not see a replay: the graphs'
-    launches are those counted at the capture times the replays.
+    and (d) stage 1 on phase 18's corpus, each with the device corpus, and
+    (e) the flagship on phase 17's tree through the host loader (the train
+    CLI's ``Prefetcher`` of ``batches``: the JAX trainer's
+    ``multi_train_step``, each batch copied into the graph's static inputs),
+    each with DISPATCH_SPD steps per dispatch, the graphed loop against the
+    eager one (``eager=True``) from the same state and seeds: one untimed
+    turn, then DISPATCH_TIMED timed steps and one profiled turn, ms/step,
+    the host's wait for the loader per step, the idle share and peak memory
+    of each; equal (largest absolute difference 0) in every turn's metrics,
+    the parameters, the BatchNorm statistics and the ηs, both as they run
+    (``torch.use_deterministic_algorithms`` off) and under it.  The kernel
+    wrappers' counters do not see a replay: the graphs' launches are those
+    counted at the capture times the replays.
 
 23. ``[tools]``, the port's evaluation tools, each with launch counts from
     0: ``python -m ssp_torch.cli.eval_sequence --pred`` over phase 15's
@@ -285,7 +294,8 @@ phase 18's reload, ``launches_synth_reload``, of phase 19's four runs,
 (d)'s timed steps and train CLI on every rank and (e)'s export on every
 rank, and of phase 21, ``launches_classical``, all 0, and of phase 22,
 ``launches_dispatch_ha``, ``launches_dispatch_ha_cli``,
-``launches_dispatch_train`` and ``launches_dispatch_synth``, and of phase 23,
+``launches_dispatch_train``, ``launches_dispatch_synth`` and
+``launches_dispatch_loader``, and of phase 23,
 ``launches_tools``; then the ordered scatter's entry (the same keys; its
 ``launches`` those of phase 17's CLI run, its times at the descriptor taps'
 shape, every shape's beside them) and the matcher's, which replace no TPU
@@ -339,6 +349,7 @@ from ssp_torch.data.coco_labels import PANOPTIC_IDS
 from ssp_torch.data.hpatches import PatchesDataset
 from ssp_torch.data.kitti import KittiDataset
 from ssp_torch.data.photometric import draw_photometric
+from ssp_torch.data.prefetch import Prefetcher
 from ssp_torch.data.pipeline import prepare_batch
 from ssp_torch.data.synthetic_shapes import generate_sample
 from ssp_torch.export.descriptors_export import (make_detect_describe_fn, run_descriptor_export,
@@ -513,6 +524,9 @@ SAME_PX = 0.5
 # the ranks for REST_RUN's schedule; (e) the HA CLI on REST_WORLD ranks
 REST_PAIRS = 4
 REST_WORLD = 2
+# ... and the train CLI on SHRINK_WORLD ranks, which do not divide the
+# flagship's global batch of 16: REST_WORLD of them train
+SHRINK_WORLD = 3
 REST_TIMED = 10
 REST_RUN = {"train_iter": 4, "validation_interval": 4, "save_interval": 4,
             "tensorboard_interval": 1, "validation_size": 0}
@@ -2786,7 +2800,15 @@ def rest_rank(job: str, backend: str, work: Path) -> None:
 
     dev = mesh.init_distributed("cuda", backend=backend)
     rank, world = mesh.rank(), mesh.world()
-    if job == "train":
+    if job == "shrink":
+        cfg = torch.load(work / "train_in.pt", weights_only=False)["cfg"]
+        reset_launches()
+        t0 = time.perf_counter()
+        agent = train_cli.train_joint(dict(cfg, **REST_RUN), "rest_cli_shrink", device=dev)
+        torch.cuda.synchronize()
+        out = {"idle": agent.idle, "world": agent.world, "cli_s": time.perf_counter() - t0,
+               "cli_launches": read_launches()}
+    elif job == "train":
         inp = torch.load(work / "train_in.pt", weights_only=False)
         cfg = inp["cfg"]
         agent = TrainAgent(cfg, save_path=ExperimentPaths(f"rest_ranks{world}"), device=dev)
@@ -3009,9 +3031,11 @@ def rest_phase(dev: torch.device, td: Path, smi: str, main_desc: torch.Tensor) -
     steps, n_val = REST_RUN["train_iter"], 1
     exper = td / "logs" / "rest_cli"
     rows = [json.loads(r) for r in (exper / "metrics_train.jsonl").read_text().splitlines()]
+    want_cli = {"stem": 0, "down1": 0, "nms": 2 * n_val, "vresample": 0,
+                "vresample_coef": 4 * (steps + n_val),
+                "ordered_scatter": SCATTER_PER_STEP * steps}
     for r, res in enumerate(ranks):
-        want = {"stem": 0, "down1": 0, "nms": 2 * n_val if r == 0 else 0, "vresample": 0,
-                "vresample_coef": 4 * (steps + n_val), "ordered_scatter": SCATTER_PER_STEP * steps}
+        want = dict(want_cli, nms=want_cli["nms"] if r == 0 else 0)
         if res["cli_launches"] != want:
             raise AssertionError(f"[rest] train CLI rank {r}: launches {res['cli_launches']}, "
                                  f"expected {want}")
@@ -3025,6 +3049,39 @@ def rest_phase(dev: torch.device, td: Path, smi: str, main_desc: torch.Tensor) -
         f"{[round(r['cli_s'], 2) for r in ranks]} s with the model load; rank 0 alone wrote "
         f"{len(rows)} metric rows and the checkpoints; launches per rank "
         f"{[r['cli_launches'] for r in ranks]}")
+
+    # ---- (d) the mesh shrink: the train CLI on SHRINK_WORLD ranks, which do
+    # not divide the global batch: the largest count that does trains
+    t0 = time.perf_counter()
+    shrink = run_ranks("shrink", SHRINK_WORLD, "gloo", work)
+    wall = time.perf_counter() - t0
+    n_train = max(n for n in range(1, SHRINK_WORLD + 1) if B % n == 0)
+    if [r["idle"] for r in shrink] != [r >= n_train for r in range(SHRINK_WORLD)] or \
+            {r["world"] for r in shrink} != {n_train}:
+        raise AssertionError(f"[rest] shrink: {[(r['idle'], r['world']) for r in shrink]}")
+    for r, res in enumerate(shrink):
+        want = (dict(want_cli, nms=want_cli["nms"] if r == 0 else 0) if r < n_train else
+                dict.fromkeys(want_cli, 0))
+        if res["cli_launches"] != want:
+            raise AssertionError(f"[rest] shrink rank {r}: launches {res['cli_launches']}, "
+                                 f"expected {want}")
+        add(res["cli_launches"])
+    shrunk = td / "logs" / "rest_cli_shrink"
+    srows = [json.loads(r) for r in (shrunk / "metrics_train.jsonl").read_text().splitlines()]
+    keys = [k for k in rows[0] if k.startswith(("loss", "eta", "positive", "negative"))]
+    sdiff = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) for a, b in zip(srows, rows)
+                for k in keys)
+    log(f"[rest] (d) the mesh shrink: train_joint on {SHRINK_WORLD} ranks of one card over gloo "
+        f"with a global batch of {B}: ranks 0..{n_train - 1} train "
+        f"({[round(r['cli_s'], 2) for r in shrink]} s each with the model load, {wall:.1f} s "
+        f"with the processes' start), ranks {n_train}..{SHRINK_WORLD - 1} idle and exit 0; "
+        f"{len(srows)} metric rows against the {REST_WORLD}-rank run's {len(rows)}: largest "
+        f"relative difference {sdiff:.3g} over {keys}; launches per rank "
+        f"{[r['cli_launches'] for r in shrink]}")
+    if n_train != REST_WORLD or [r["step"] for r in srows] != [r["step"] for r in rows] or \
+            sdiff > TRAIN_REL or \
+            not (shrunk / "checkpoints" / f"superPointNet_{steps}.pth.tar").exists():
+        raise AssertionError(f"[rest] shrink: {n_train} ranks, rows {srows}, diff {sdiff}")
 
     # ---- (e) the HA CLI on REST_WORLD ranks of the one card
     t0 = time.perf_counter()
@@ -3346,6 +3403,7 @@ def _dispatch_run(cfg: dict, name: str, mode: str, dev: torch.device, attach,
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            wait0 = agent.loader_wait_s
             t0 = time.perf_counter()
             e0.record()
             out = [agent.dispatch() for _ in range(turns)]
@@ -3353,6 +3411,7 @@ def _dispatch_run(cfg: dict, name: str, mode: str, dev: torch.device, attach,
             queued_s = time.perf_counter() - t0
             torch.cuda.synchronize()
             host_s = time.perf_counter() - t0
+            wait_s = agent.loader_wait_s - wait0
             peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
             metrics += [{k: float(v) for k, v in m.items()} for m in out]
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -3372,11 +3431,12 @@ def _dispatch_run(cfg: dict, name: str, mode: str, dev: torch.device, attach,
     # the host's own work per step: the prologue (homographies and warp plans)
     t1 = time.perf_counter()
     for _ in range(10):
-        agent._prologue()
+        agent._prologue(cfg["data"]["preprocessing"]["resize"])
     prologue_ms = (time.perf_counter() - t1) * 1e2
     return {
         "ms_per_step": e0.elapsed_time(e1) / steps, "host_ms_per_step": host_s * 1e3 / steps,
         "queue_ms_per_step": queued_s * 1e3 / steps, "prologue_ms": prologue_ms,
+        "wait_ms_per_step": wait_s * 1e3 / steps,
         "idle": max(0.0, 1 - busy_ms / (prof_s * 1e3)) if on_card else None,
         "device_ops_per_step": len(on_card) / DISPATCH_SPD, "peak_gib": peak,
         "metrics": metrics, "step": count, "state": state, "etas": etas,
@@ -3384,6 +3444,8 @@ def _dispatch_run(cfg: dict, name: str, mode: str, dev: torch.device, attach,
         "pool_mib": region.pool_bytes / 2 ** 20 if region else None,
         "per_replay": dict(region.launches_per_replay) if region else None,
         "replays": region.replays if region else 0,
+        "inputs": sorted(region.inputs) if region else [],
+        "loader": agent.train_loader is not None,
         "nondeterministic": sorted({str(w.message).split(".")[0][:120] for w in caught
                                     if "deterministic" in str(w.message)}),
     }
@@ -3399,9 +3461,10 @@ def _largest_diff(a: dict, b: dict) -> float:
 
 def dispatch_train(cfg: dict, tag: str, dev: torch.device, smi: str, attach,
                    scatters: int) -> dict:
-    """Phase 22 (c)/(d): the trainer's device-corpus loop with DISPATCH_SPD
-    steps per dispatch, graphed and eager (the agent's ``eager`` keyword),
-    from the same state and seeds, ``attach(agent)`` giving each its corpus:
+    """Phase 22 (c)/(d)/(e): the trainer's loop with DISPATCH_SPD steps per
+    dispatch, graphed and eager (the agent's ``eager`` keyword), from the
+    same state and seeds, ``attach(agent)`` giving each its device corpus or
+    its host loader:
     one untimed turn (WARMUP eager steps, the capture, the replays), then
     DISPATCH_TIMED steps timed by CUDA events and the host clock with the
     peak memory, then one turn under ``torch.profiler`` for the idle share.
@@ -3432,7 +3495,8 @@ def dispatch_train(cfg: dict, tag: str, dev: torch.device, smi: str, attach,
         log(f"[dispatch] {tag} {mode}: {r['ms_per_step']:.3f} ms/step by CUDA events over "
             f"{DISPATCH_TIMED} steps ({B * 1e3 / r['ms_per_step']:.2f} img/s), "
             f"{r['host_ms_per_step']:.3f} ms/step by the host clock, the host queued a step in "
-            f"{r['queue_ms_per_step']:.3f} ms (its prologue alone {r['prologue_ms']:.3f} ms); "
+            f"{r['queue_ms_per_step']:.3f} ms (its prologue alone {r['prologue_ms']:.3f} ms, "
+            f"its wait for the host loader {r['wait_ms_per_step']:.3f} ms); "
             f"idle share {idle} ({r['device_ops_per_step']:.0f} device operations per step "
             f"under torch.profiler); peak memory of the timed steps {r['peak_gib']:.2f} GiB "
             f"above what earlier phases hold" +
@@ -3449,6 +3513,8 @@ def dispatch_train(cfg: dict, tag: str, dev: torch.device, smi: str, attach,
     if g["per_replay"]["vresample_coef"] == 0 or g["per_replay"]["ordered_scatter"] != scatters:
         raise AssertionError(f"{tag}: the captured step launches {g['per_replay']}, "
                              f"ordered_scatter expected {scatters}")
+    if ("raw.image" in g["inputs"]) != g["loader"]:
+        raise AssertionError(f"{tag}: the graph's inputs {g['inputs']}")
     return launches
 
 
@@ -3457,17 +3523,49 @@ def dispatch_phase(dev: torch.device, td: Path, smi: str) -> dict:
     CUDA graphs, on the trained weights.  (a) the HA group as one graph
     against the staged group; (b) the HA CLI with ``one_dispatch`` against
     phase 16's files; (c) the flagship on phase 17's tree and (d) stage 1 on
-    phase 18's corpus, each with the device corpus and DISPATCH_SPD steps
-    per dispatch, graphed against eager.  Returns the launches per path."""
+    phase 18's corpus, each with the device corpus, and (e) the flagship on
+    phase 17's tree through the host loader (the JAX trainer's
+    ``multi_train_step``), each with DISPATCH_SPD steps per dispatch,
+    graphed against eager.  Returns the launches per path."""
     out = {"ha": dispatch_ha_group(dev, smi), "ha_cli": dispatch_ha_cli(dev, td)}
-    for tag, name, scatters in (("(c) flagship", "train", SCATTER_PER_STEP),
-                                ("(d) stage 1", "synth", 0)):
+    for tag, name, source, scatters in (("(c) flagship", "train", "corpus", SCATTER_PER_STEP),
+                                        ("(d) stage 1", "synth", "corpus", 0),
+                                        ("(e) flagship, host loader", "train", "loader",
+                                         SCATTER_PER_STEP)):
         cfg = yaml.safe_load((td / f"{name}_cfg.yaml").read_text())
         cfg.update(pretrained=str(NPZ), reset_iter=True, auto_resume=False)
         train_set = train_cli.make_dataset(cfg, "train")
-        out[name] = dispatch_train(cfg, tag, dev, smi,
-                                   lambda a: a.attach_device_corpus(train_set), scatters)
+        if source == "corpus":
+            def attach(a, train_set=train_set):
+                a.attach_device_corpus(train_set)
+        else:
+            workers = int((cfg.get("training") or {}).get("workers_train", 4))
+
+            def attach(a, train_set=train_set, workers=workers):
+                a.train_loader = Prefetcher(train_set.batches(
+                    a.real_batch_size, shuffle=True, seed=SEED, workers=workers))
+
+            # the loader's own pace: batches read one after another, no step beside
+            it = train_set.batches(int(cfg["model"]["batch_size"]), shuffle=True, seed=SEED,
+                                   workers=workers)
+            next(it)
+            t0 = time.perf_counter()
+            for _ in range(DISPATCH_TIMED):
+                next(it)
+            threaded = (time.perf_counter() - t0) * 1e3 / DISPATCH_TIMED
+            it.close()
+            t0 = time.perf_counter()
+            for i in range(len(train_set)):
+                train_set[i]
+            serial = (time.perf_counter() - t0) * 1e3 / len(train_set)
+            log(f"[dispatch] (e) the host loader alone, no step beside, by the host clock: "
+                f"{threaded:.3f} ms per batch of {cfg['model']['batch_size']} with {workers} "
+                f"decode threads over {DISPATCH_TIMED} batches; one thread {serial:.3f} ms per "
+                f"sample over the {len(train_set)} samples")
+        out["loader" if source == "loader" else name] = dispatch_train(cfg, tag, dev, smi,
+                                                                        attach, scatters)
     return out
+
 
 def tools_phase(dev: torch.device, td: Path, smi: str) -> dict:
     """Phase 23 [tools]: the port's evaluation tools on the card, each from 0

@@ -29,7 +29,9 @@ Data-parallel training: with ``SSP_DISTRIBUTED`` set, each process of a
 ``torchrun --nproc_per_node=N`` launch joins the process group
 (``ssp_torch.parallel.init_distributed``: NCCL, one card per rank,
 ``cuda:LOCAL_RANK``; gloo over the CPU with ``--device cpu``) and trains its
-share of every global batch (``ssp_torch.train.trainer``)::
+share of every global batch (``ssp_torch.train.trainer``; where N does not
+divide the global batch, the largest count that does trains and the other
+ranks idle until the end)::
 
   SSP_DISTRIBUTED=1 torchrun --nproc_per_node=N -m ssp_torch.cli.train \
       train_joint <config> <exper_name>
@@ -76,6 +78,8 @@ def train_joint(config: dict, exper_name: str, debug: bool = False, eval_only: b
     exper = ExperimentPaths(exper_name)
     agent = registry.get("agent", config["front_end_model"])(
         config, save_path=exper, exper_name=exper_name, device=device)
+    if agent.idle:  # a rank the shrink left out reads no data
+        return agent
     train_set = make_dataset(config, "train")
     val_set = make_dataset(config, "val")
     bs = int(config["model"].get("real_batch_size", config["model"]["batch_size"]))

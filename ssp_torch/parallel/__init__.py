@@ -9,7 +9,9 @@ from ssp_torch.parallel.mesh import (  # noqa: F401
     is_rank0,
     rank,
     reduce_sum_,
+    scope,
     shard_rows,
     shutdown,
+    training_group,
     world,
 )

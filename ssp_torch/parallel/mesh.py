@@ -13,8 +13,16 @@ global batch, and the reductions are explicit collectives.
   CPU (gloo).  Several ranks on one card need gloo: NCCL refuses two ranks
   on one device, and gloo's ``all_reduce`` and ``broadcast`` take CUDA
   tensors (its ``all_gather`` does not, so nothing here uses it).
-* :func:`world` and :func:`rank` read the default group: 1 and 0 without
-  one, so single-process code is unchanged.
+* The training group: the JAX trainer trains on the largest device count
+  that divides its global batch (``ssp/train/trainer.py:125-132``), and so
+  does the port's.  :func:`training_group` (every rank calls it) makes the
+  group of ranks 0..n−1 for that n; :func:`scope` makes a group the one that
+  :func:`world`, :func:`rank`, :func:`barrier` and the collectives below
+  read.  Outside a scope they read the default group: 1 and 0 without one,
+  so single-process code is unchanged, and the multi-rank HA export, which
+  splits images by position, keeps every rank.  The ranks a shrink leaves
+  idle wait in :func:`shutdown` on a gloo group whose timeout outlasts a
+  training run.
 * :func:`shard_rows` splits a batch by rows as ``shard_batch`` shards it.
 * :func:`all_reduce_sum` is the differentiable sum over the ranks (its
   backward sums the gradients over the ranks); :func:`global_sum` the
@@ -24,7 +32,9 @@ global batch, and the reductions are explicit collectives.
 
 from __future__ import annotations
 
+import contextlib
 import os
+from datetime import timedelta
 from typing import Any, Dict, List, Optional, Sequence, Union
 
 import torch
@@ -33,6 +43,11 @@ import torch.distributed as dist
 from ssp_torch._device import resolve_device
 
 _ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+# the idle ranks of a shrunk run wait for the training ranks this long at most
+IDLE_WAIT = timedelta(days=30)
+
+_group: Optional[Any] = None  # the scope's group (scope); None: the default group
+_final: Optional[Any] = None  # the group shutdown() waits on; None: the default group
 
 
 def init_distributed(device: Union[str, torch.device] = "cuda",
@@ -61,20 +76,57 @@ def shutdown() -> None:
     """Wait for every rank, then leave the process group (if one was
     joined).  Call it when the work is done: a rank that leaves while another
     still talks to it aborts (gloo)."""
+    global _final
     if dist.is_available() and dist.is_initialized():
         if dist.get_world_size() > 1:
-            dist.barrier()
+            dist.barrier(group=_final)
         dist.destroy_process_group()
+    _final = None
+
+
+def _joined() -> bool:
+    return dist.is_available() and dist.is_initialized()
 
 
 def world() -> int:
-    """The number of ranks of the default group (1 without one)."""
-    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    """The number of ranks of the scope's group, else of the default group
+    (1 without one)."""
+    return dist.get_world_size(_group) if _joined() else 1
 
 
 def rank() -> int:
-    """This process's rank in the default group (0 without one)."""
-    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+    """This process's rank in the scope's group, else in the default group
+    (0 without one)."""
+    return dist.get_rank(_group) if _joined() else 0
+
+
+def training_group(batch: int):
+    """(group, n): the ranks that train on a global batch of ``batch`` rows
+    are 0..n−1, n the largest count ≤ the default group's size W that
+    divides ``batch`` (the JAX trainer's mesh); ``group`` is their group,
+    None where n = W.  Every rank of the default group must call this.  Where
+    it shrinks, :func:`shutdown` then waits on a gloo group with the
+    :data:`IDLE_WAIT` timeout, so the idle ranks outwait the training."""
+    global _final
+    W = dist.get_world_size() if _joined() else 1
+    n = max(k for k in range(1, W + 1) if batch % k == 0)
+    if n == W:
+        return None, n
+    group = dist.new_group(list(range(n)))
+    _final = dist.new_group(backend="gloo", timeout=IDLE_WAIT)
+    return group, n
+
+
+@contextlib.contextmanager
+def scope(group):
+    """Within the block, :func:`world`, :func:`rank`, :func:`barrier` and the
+    collectives read ``group`` (None: the default group)."""
+    global _group
+    prev, _group = _group, group
+    try:
+        yield
+    finally:
+        _group = prev
 
 
 def is_rank0() -> bool:
@@ -84,7 +136,7 @@ def is_rank0() -> bool:
 
 def barrier() -> None:
     if world() > 1:
-        dist.barrier()
+        dist.barrier(group=_group)
 
 
 def shard_rows(batch: Dict[str, Any], world_: int, rank_: int) -> Dict[str, Any]:
@@ -103,24 +155,26 @@ def shard_rows(batch: Dict[str, Any], world_: int, rank_: int) -> Dict[str, Any]
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """Σ over the ranks; its gradient is the Σ over the ranks of the
-    incoming gradients (every rank's loss reads the sum)."""
+    """Σ over the ranks of ``group``; its gradient is the Σ over those ranks
+    of the incoming gradients (every rank's loss reads the sum).  The group
+    rides along: a card's backward runs on the autograd engine's thread."""
 
     @staticmethod
-    def forward(ctx, t):
+    def forward(ctx, t, group):
+        ctx.group = group
         out = t.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=group)
         return out
 
     @staticmethod
     def backward(ctx, grad):
-        return _AllReduceSum.apply(grad)
+        return _AllReduceSum.apply(grad, ctx.group), None
 
 
 def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
     """Σ of ``t`` over the ranks, differentiable: the backward sums the
     incoming gradients over the ranks.  ``t`` itself with one rank."""
-    return t if world() == 1 else _AllReduceSum.apply(t)
+    return t if world() == 1 else _AllReduceSum.apply(t, _group)
 
 
 def global_sum(t: torch.Tensor) -> torch.Tensor:
@@ -129,7 +183,7 @@ def global_sum(t: torch.Tensor) -> torch.Tensor:
     if world() == 1:
         return t
     out = t.detach().clone()
-    dist.all_reduce(out)
+    dist.all_reduce(out, group=_group)
     return out
 
 
@@ -143,7 +197,7 @@ def reduce_sum_(tensors: Sequence[torch.Tensor]) -> None:
         groups.setdefault((t.dtype, t.device), []).append(t)
     for group in groups.values():
         flat = torch.cat([t.reshape(-1) for t in group])
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=_group)
         off = 0
         for t in group:
             t.copy_(flat[off:off + t.numel()].view_as(t))

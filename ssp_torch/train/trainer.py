@@ -30,20 +30,23 @@ reference's summed micro-batch gradients) on the real batch;
 ``steps_per_dispatch`` k: each loop turn makes k steps, ``n_iter`` advances
 by r·k, the intervals are aligned to that stride and the metrics logged are
 the turn's last step's, as the JAX trainer's ``lax.scan`` of k steps per
-device program.  With the device corpus on one card and k > 1 the turn is
-its counterpart on Hopper: one step (corpus sample → :func:`prepare_body`
-→ the agent's ``step``) captured once as a CUDA graph
+device program (``multi_train_step`` on the host loader, the device corpus's
+scan otherwise).  On one card with k > 1 the turn is its counterpart on
+Hopper, for either source of batches: one step (the raw batch →
+:func:`prepare_body` → the agent's ``step``) captured once as a CUDA graph
 (``ssp_torch.graphs``) and replayed k times, each replay after its own host
-prologue (:func:`prepare_prologue`: the homographies and warp plans, copied
-in through the graph's pinned slots) and followed by the schedule's step.
-The first :data:`ssp_torch.graphs.WARMUP` steps run eagerly and count, so a
-run equals the same run with ``eager=True`` (the constructor's keyword: the
-same loop, every step eager) bit for bit: both make the optimizer
-capturable (:meth:`~ssp_torch.train.state.TrainState.set_capturable`),
-which no other loop does.  The turn stays eager on the CPU,
-with several ranks (gloo's collectives cannot be captured, and NCCL across
-cards is untried without a machine of several cards) and on the host
-loader's path (its batches carry a per-batch count of points).
+inputs (:func:`prepare_prologue`'s homographies and warp plans, and on the
+host loader's path the loader's batch, whose readers pad the points to a
+fixed K, under ``raw.<key>``), copied in through the graph's pinned slots,
+and followed by the schedule's step; the device corpus's batch is sampled
+inside the graph.  The first :data:`ssp_torch.graphs.WARMUP` steps run
+eagerly and count, so a run equals the same run with ``eager=True`` (the
+constructor's keyword: the same loop, every step eager) bit for bit: both
+make the optimizer capturable
+(:meth:`~ssp_torch.train.state.TrainState.set_capturable`), which no other
+loop does.  The turn stays eager on the CPU and with several training ranks
+(gloo's collectives cannot be captured, and NCCL across cards is untried
+without a machine of several cards).
 
 Validation telemetry, as the JAX trainer's: ``val_residual_diagnostic: true``
 adds the soft-argmax residual error at the label points
@@ -64,9 +67,14 @@ samples itself.  The step is the global batch's (``ssp_torch.train.step``:
 global normalisers and BatchNorm moments, gradients and metrics summed over
 the ranks; with accumulation each rank's rows split into the r
 micro-batches and only the last reduces), and validation reports the
-global batch's metrics.  A world size that does not divide the global batch
-is refused; the JAX trainer instead shrinks its mesh to the largest device
-count that does.  Rank r's generators are seeded with ``seed + 1 + r``, so
+global batch's metrics.  Where the world size W does not divide the global
+batch, the run trains, as the JAX trainer's mesh does, on the largest n ≤ W
+that divides it: ranks 0..n−1 form the training group
+(:func:`~ssp_torch.parallel.training_group`), every collective of the loop,
+the step and validation goes over it (:func:`~ssp_torch.parallel.scope`),
+and ranks n..W−1 are idle: they build nothing, draw and write nothing, and
+wait for the others when the process group is left.  Rank r's generators are
+seeded with ``seed + 1 + r``, so
 the ranks' draws are not the single process's (nor are the port's
 ``jax.random``'s).  Rank 0 alone writes the configuration, the metrics, the
 checkpoints, the validation images and the profile; every rank starts from
@@ -76,6 +84,7 @@ the same weights and resumes from the same checkpoint.
 from __future__ import annotations
 
 import copy
+import functools
 import logging
 import resource
 import signal
@@ -158,6 +167,16 @@ def rss_mb() -> float:
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0
 
 
+def _on_training_group(method):
+    """Run ``method`` with the agent's training group as the group that
+    ``ssp_torch.parallel`` reads."""
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        with mesh.scope(self.group):
+            return method(self, *args, **kwargs)
+    return run
+
+
 @register("agent", "Train_model_heatmap", "Train_model_heatmap_all", "Train_model_frontend",
           "Train_model_frontend_all")
 class TrainAgent:
@@ -170,10 +189,18 @@ class TrainAgent:
         self.batch_size = int(m["batch_size"])
         self.real_batch_size = int(m.get("real_batch_size", self.batch_size))
         self.r = max(self.real_batch_size // self.batch_size, 1)
-        self.world, self.rank = mesh.world(), mesh.rank()
-        if self.real_batch_size % self.world:
-            raise ValueError(f"a global batch of {self.real_batch_size} does not split over "
-                             f"{self.world} ranks")
+        W, self.rank = mesh.world(), mesh.rank()
+        # ranks 0..world-1 train; their numbers are the same in either group
+        self.group, self.world = mesh.training_group(self.real_batch_size)
+        self.idle = self.rank >= self.world
+        if self.world < W:
+            log.warning("a global batch of %d does not split over %d ranks: ranks 0..%d train "
+                        "(the largest count that divides it)", self.real_batch_size, W,
+                        self.world - 1)
+        if self.idle:
+            log.warning("rank %d is idle: it waits for the training ranks at the end",
+                        self.rank)
+            return
         self.local_batch = self.real_batch_size // self.world
         for k in ("train_iter", "validation_interval", "tensorboard_interval", "save_interval"):
             self.config[k] = int(self.config[k]) * self.r
@@ -202,12 +229,14 @@ class TrainAgent:
         self.n_iter = 0
         self.max_iter = self.config["train_iter"]
         self._val_logger: Optional[MetricsLogger] = None
-        self._build()
+        with mesh.scope(self.group):
+            self._build()
         self.train_loader: Optional[Iterator] = None
         self.val_loader: Optional[Iterator] = None
         self.device_corpus: Optional[DeviceCorpus] = None
-        # the captured step of the device corpus's loop, and the eager steps
-        # made before its capture
+        self.loader_wait_s = 0.0  # the host's wait for train_loader's batches
+        # the captured step of the graphed loop, and the eager steps made
+        # before its capture
         self.region: Optional[CapturedRegion] = None
         self._warm_steps = 0
 
@@ -301,7 +330,10 @@ class TrainAgent:
         the global batch that ``train_loader`` reads."""
         if self.device_corpus is not None:
             return self.device_corpus.sample(self.local_batch, self.generator)
-        return mesh.shard_rows(next(self.train_loader), self.world, self.rank)
+        t0 = time.perf_counter()
+        batch = next(self.train_loader)
+        self.loader_wait_s += time.perf_counter() - t0
+        return mesh.shard_rows(batch, self.world, self.rank)
 
     @staticmethod
     def _photo_cfg(cfg: Dict[str, Any], split: str) -> Dict[str, Any]:
@@ -334,54 +366,72 @@ class TrainAgent:
                              generator=self.generator, host_generator=self.host_generator,
                              **(self.prep_train if train else self.prep_val), **kwargs)
 
-    def _corpus_step(self, prologue: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """One step of the device corpus's loop after its host prologue: the
-        sample, :func:`prepare_body` and the agent's ``step``, all on the
-        device (the region a CUDA graph captures)."""
-        raw = self.device_corpus.sample(self.local_batch, self.generator)
+    # the host loader's keys that a training step reads, at the types it reads
+    _RAW = {"image": torch.float32, "points": torch.float32, "points_valid": torch.bool,
+            "sem": torch.int32}
+
+    def _region_step(self, inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """One training step from its host inputs (:meth:`_inputs`; the region
+        a CUDA graph captures, where they are its static inputs on the card):
+        the raw batch, sampled from the device corpus or the loader's under
+        ``raw.<key>``, then :func:`prepare_body` and the agent's ``step``."""
+        if self.device_corpus is not None:
+            raw = self.device_corpus.sample(self.local_batch, self.generator)
+        else:
+            raw = {k[4:]: to_device(v, self.device) for k, v in inputs.items()
+                   if k.startswith("raw.")}
+        prologue = {k: v for k, v in inputs.items() if not k.startswith("raw.")}
         sem = raw["sem"].to(torch.int32) if self.semantic else None
         batch = prepare_body(raw["image"].float(), raw["points"].float(),
                              raw["points_valid"].bool(), prologue, sem=sem,
                              generator=self.generator, **self.prep_train)
         return self.step(batch)
 
-    def _prologue(self) -> Dict[str, torch.Tensor]:
-        """The host's part of the next training batch of the device corpus."""
-        H, W = self.device_corpus.arrays["image"].shape[1:]
-        return prepare_prologue(self.local_batch, (H, W), self.device,
+    def _prologue(self, hw) -> Dict[str, torch.Tensor]:
+        """The host's part of the preparation of the next training batch of
+        images of ``hw`` (H, W)."""
+        return prepare_prologue(self.local_batch, tuple(hw), self.device,
                                 homographic=self.prep_train["homographic"],
                                 warped_pair=self.prep_train["warped_pair"],
                                 host_generator=self.host_generator)
 
+    def _inputs(self) -> Dict[str, torch.Tensor]:
+        """The next training step's host inputs, CPU tensors of fixed shapes:
+        its prologue and, on the host loader's path, this rank's rows of the
+        loader's next batch under ``raw.<key>``."""
+        if self.device_corpus is not None:
+            return self._prologue(self.device_corpus.arrays["image"].shape[1:])
+        host = self.next_batch()
+        keys = [k for k in self._RAW if k != "sem" or self.semantic]
+        raw = {f"raw.{k}": torch.as_tensor(host[k], dtype=self._RAW[k]) for k in keys}
+        return dict(self._prologue(host["image"].shape[1:]), **raw)
+
     def graphable(self) -> bool:
         """True where a loop turn can replay a captured step (module
         docstring), with ``eager=True`` too."""
-        return (self.device_corpus is not None and self.device.type == "cuda"
-                and self.world == 1 and self.steps_per_dispatch > 1)
+        return self.device.type == "cuda" and self.world == 1 and self.steps_per_dispatch > 1
 
     def graphed(self) -> bool:
         """True where a loop turn replays a captured step."""
         return self.graphable() and not self.eager
 
+    @_on_training_group
     def dispatch(self) -> Dict[str, torch.Tensor]:
         """One loop turn: ``steps_per_dispatch`` steps; the last one's
         metrics."""
-        if self.device_corpus is None:
-            for _ in range(self.steps_per_dispatch):
-                metrics = self.step(self.prepare(self.next_batch(), train=True))
-            return metrics
         self.state.set_capturable(self.graphable())
         for _ in range(self.steps_per_dispatch):
-            prologue = self._prologue()
+            inputs = self._inputs()
             if not self.graphed():
-                metrics = self._corpus_step(prologue)
+                metrics = self._region_step(inputs)
                 continue
             if self.region is None:
-                self.region = CapturedRegion(self._corpus_step, prologue, device=self.device,
+                self.region = CapturedRegion(self._region_step, inputs, device=self.device,
                                              generators=[self.generator])
-                log.info("the device corpus's step runs as a CUDA graph, %d replays per loop "
-                         "turn, after %d eager steps", self.steps_per_dispatch, WARMUP)
-            self.region.load(prologue)
+                log.info("the training step (%s) runs as a CUDA graph, %d replays per loop "
+                         "turn, after %d eager steps", "device corpus" if self.device_corpus
+                         is not None else "host loader", self.steps_per_dispatch, WARMUP)
+            self.region.load(inputs)
             if self._warm_steps < WARMUP:
                 metrics = self.region.eager()
                 self._warm_steps += 1
@@ -407,7 +457,10 @@ class TrainAgent:
         return eval_step(self.state, batch, generator=self.generator, **self.step_kwargs)
 
     # -- loop ---------------------------------------------------------
+    @_on_training_group
     def train(self) -> None:
+        if self.idle:
+            return
         if self.train_loader is None and self.device_corpus is None:
             raise ValueError("set train_loader or attach a device corpus first")
         rank0 = self.rank == 0
@@ -437,8 +490,7 @@ class TrainAgent:
 
         if self.steps_per_dispatch > 1 and self.device.type == "cuda" and not self.graphed():
             why = ("eager=True" if self.eager else
-                   f"{self.world} ranks: collectives between ranks are not captured"
-                   if self.world > 1 else "the host loader's batches")
+                   f"{self.world} ranks: collectives between ranks are not captured")
             log.info("steps_per_dispatch %d: every step runs eagerly (%s)",
                      self.steps_per_dispatch, why)
         t0 = time.time()
@@ -514,6 +566,7 @@ class TrainAgent:
         prof.export_chrome_trace(str(path))
         log.info("profile of iterations up to %d written to %s", self.n_iter, path)
 
+    @_on_training_group
     def _validate(self, label: Optional[int] = None) -> Dict[str, float]:
         """The mean of each metric over ``validation_size + 1`` validation
         batches (running BatchNorm statistics), logged with the ``val_``

@@ -16,9 +16,10 @@ TF32 off; the cross-checked matcher (SIFT and ORB rows) exact.  The CUDA
 graphs (``ssp_torch.graphs``): the HA group's replay equal to its eager call
 and within the JAX package's one_dispatch bar of the staged group; three
 replayed training steps (the flagship's, dense, accumulated and
-SubpixelNet's) equal to three eager ones under
-``torch.use_deterministic_algorithms`` (which needs cuBLAS's workspace
-setting below before cuBLAS starts), and the flagship's without it.  The
+SubpixelNet's), on the device corpus and on the host loader, equal to three
+eager ones under ``torch.use_deterministic_algorithms`` (which needs
+cuBLAS's workspace setting below before cuBLAS starts), and the flagship's
+without it.  The
 ordered scatter-add exact.
 """
 
@@ -864,10 +865,12 @@ def _variant_config(variant: str) -> dict:
     return cfg
 
 
-def _corpus_loop(cuda, cfg: dict, runs: int = 2, eager: bool = False):
-    """``runs`` turns of the device-corpus loop of a fresh agent on a seeded
-    corpus of 8 samples at 64×96: (metrics of each turn, step count, ηs,
-    module state, the captured region or None)."""
+def _corpus_loop(cuda, cfg: dict, runs: int = 2, eager: bool = False, source: str = "corpus"):
+    """``runs`` turns of the training loop of a fresh agent on a seeded corpus
+    of 8 samples at 64×96, sampled on the card (``source="corpus"``) or read
+    as host batches in a fixed cycle (``"loader"``): (metrics of each turn,
+    step count, ηs, module state, the captured region or None)."""
+    import itertools
     import tempfile
     from pathlib import Path
 
@@ -887,7 +890,14 @@ def _corpus_loop(cuda, cfg: dict, runs: int = 2, eager: bool = False):
     with tempfile.TemporaryDirectory() as td:
         agent = registry.get("agent", cfg["front_end_model"])(
             cfg, save_path=ExperimentPaths(f"e{int(eager)}", Path(td)), device=cuda, eager=eager)
-        agent.device_corpus = DeviceCorpus({k: v.to(cuda) for k, v in arrays.items()}, 8)
+        if source == "corpus":
+            agent.device_corpus = DeviceCorpus({k: v.to(cuda) for k, v in arrays.items()}, 8)
+        else:
+            host = {k: v.numpy() for k, v in arrays.items()}
+            host["image"] = host["image"].astype(np.float32) / 255.0
+            b = agent.real_batch_size
+            agent.train_loader = itertools.cycle([{k: v[i:i + b] for k, v in host.items()}
+                                                  for i in range(0, 8, b)])
         assert agent.graphed() != eager
         metrics = [{k: float(v) for k, v in agent.dispatch().items()} for _ in range(runs)]
         return (metrics, agent.state.step, agent.state.etas.detach().clone(),
@@ -1055,3 +1065,44 @@ def test_training_steps_graphed_equal_eager(cuda, variant):
     assert region.launches_per_replay["vresample_coef"] == (2 if variant == "subpixel" else 4)
     assert graphed[1] == 6
     _assert_same_runs(graphed, eager)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["flagship", "dense", "accum", "subpixel"])
+def test_host_loader_steps_graphed_equal_eager(cuda, variant):
+    """The trainer's host-loader loop (the JAX trainer's ``multi_train_step``)
+    with 3 steps per dispatch, each step's batch read from the host and
+    copied into the graph's static inputs: two turns (the eager warm-up, then
+    the capture and three replays) against the same loop with ``eager=True``
+    under ``torch.use_deterministic_algorithms``, equal as in
+    :func:`test_training_steps_graphed_equal_eager`; the captured step
+    launches the resample kernel as the device corpus's does."""
+    cfg = _variant_config(variant)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        graphed = _corpus_loop(cuda, cfg, source="loader")
+        eager = _corpus_loop(cuda, cfg, eager=True, source="loader")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    region = graphed[4]
+    assert region.graph is not None and region.replays == 3
+    assert "raw.image" in region.inputs
+    assert region.launches_per_replay["vresample_coef"] == (2 if variant == "subpixel" else 4)
+    assert graphed[1] == 6
+    _assert_same_runs(graphed, eager)
+
+
+@pytest.mark.cuda
+def test_flagship_host_loader_loop_repeats_without_the_deterministic_switch(cuda):
+    """:func:`test_flagship_loop_repeats_without_the_deterministic_switch` on
+    the host loader's path: two graphed loops equal each other and the eager
+    loop bit for bit, switch off."""
+    cfg = _variant_config("flagship")
+    cfg["model"]["params"]["dtype"] = "bfloat16"
+    cfg["model"]["sparse_loss"]["params"].update(num_matching_attempts=1000,
+                                                 num_masked_non_matches_per_match=100)
+    first = _corpus_loop(cuda, cfg, source="loader")
+    second = _corpus_loop(cuda, cfg, source="loader")
+    assert first[4].replays == 3 and first[4].launches_per_replay["ordered_scatter"] == 3
+    _assert_same_runs(first, second)
+    _assert_same_runs(first, _corpus_loop(cuda, cfg, eager=True, source="loader"))

@@ -1,10 +1,11 @@
 """The port's single-program dispatches on the CPU: the two-pass warp split
 into a host plan and a device apply, the HA ``one_dispatch`` chain, the
-device-corpus loop with ``steps_per_dispatch`` and ``prepare_batch`` split
-into its host prologue and device body.  On a card the chains run as CUDA
-graphs (``ssp_torch.graphs``; ``tests/test_torch_cuda.py`` holds the graphs
-against the eager chains there); here they run eagerly, which is what a
-graph replays.
+device-corpus and host-loader loops with ``steps_per_dispatch``, the
+trainer's step on static inputs and ``prepare_batch`` split into its host
+prologue and device body.  On a card the chains run as CUDA graphs
+(``ssp_torch.graphs``; ``tests/test_torch_cuda.py`` holds the graphs against
+the eager chains there); here they run eagerly, which is what a graph
+replays.
 
 Bars: the warp's rotation is a gather, a copy of the passes' values, so it is
 equal bit for bit to ``torch.rot90`` per warp.  The port's ``one_dispatch``
@@ -13,10 +14,11 @@ fp32 forwards differ by ~2e-4 on semi: ≥ 95% of either side's valid points
 on the other within 1e-3 px, scores within 1e-4).  ``one_dispatch`` against
 the port's staged chain: valid flags equal and points within 1e-4, the JAX
 package's own bar for its two modes (``tests/test_export_eval.py``): the
-same sums in another order.  The loop with 4 steps per dispatch against 1,
-and the split ``prepare_batch`` against the one before the split: equal bit
-for bit, on one CPU thread (with several, PyTorch's CPU reductions and
-scatters take another order from run to run).
+same sums in another order.  The loops with 4 steps per dispatch against 1,
+the step on static inputs against ``prepare`` and ``step``, and the split
+``prepare_batch`` against the one before the split: equal bit for bit, on
+one CPU thread (with several, PyTorch's CPU reductions and scatters take
+another order from run to run).
 """
 
 import json
@@ -152,20 +154,24 @@ def test_one_dispatch_matches_the_staged_chain(model, use_twopass, one_thread): 
             torch.testing.assert_close(a_pts, b_pts, atol=1e-4, rtol=0)
 
 
-def _corpus_run(tmp: Path, spd: int):
+def _loop_run(tmp: Path, spd: int, source: str = "corpus"):
     """The cut flagship (ssmall-133, warped pair, photometric, sparse loss,
-    Kendall; fp32 at 64×96, batch 2) on the device corpus for 8 steps with
-    ``spd`` steps per dispatch; (agent, the logged training rows)."""
+    Kendall; fp32 at 64×96, batch 2) for 8 steps with ``spd`` steps per
+    dispatch, its batches sampled from the device corpus or read by the host
+    loader (``source``); (agent, the logged training rows)."""
     cfg = _config(tmp / "data")
     cfg["model"].update(batch_size=2, real_batch_size=2)
     cfg.update(steps_per_dispatch=spd, train_iter=8, tensorboard_interval=1,
                validation_interval=100, save_interval=100)
     cfg.pop("pretrained")
-    exper = ExperimentPaths(f"spd{spd}", tmp)
+    exper = ExperimentPaths(f"{source}{spd}", tmp)
     agent = TrainAgent(cfg, save_path=exper, device="cpu")
     data = {k: v for k, v in cfg["data"].items() if k != "dataset"}
-    agent.attach_device_corpus(registry.get("dataset", cfg["data"]["dataset"])(task="train",
-                                                                             **data))
+    train_set = registry.get("dataset", cfg["data"]["dataset"])(task="train", **data)
+    if source == "corpus":
+        agent.attach_device_corpus(train_set)
+    else:
+        agent.train_loader = train_set.batches(2, shuffle=True, seed=0)
     assert not agent.graphed()
     agent.train()
     rows = [json.loads(line) for line in (exper.root / "metrics_train.jsonl").read_text()
@@ -173,14 +179,14 @@ def _corpus_run(tmp: Path, spd: int):
     return agent, rows
 
 
-def test_steps_per_dispatch_equals_one_step_per_dispatch(tmp_path, one_thread):
-    """The device-corpus loop with 4 steps per dispatch against 1 over the same
-    8 steps and seeds: parameters, ηs, BatchNorm statistics and the step
+def _assert_four_equal_one(tmp: Path, source: str):
+    """``source``'s loop with 4 steps per dispatch against 1 over the same 8
+    steps and seeds: parameters, ηs, BatchNorm statistics and the step
     count equal, and each logged row (the dispatch's last step, as the JAX
-    trainer's scan returns) equal to that step's row of the one-step run."""
-    _write_tree(tmp_path / "data")
-    one, rows1 = _corpus_run(tmp_path, 1)
-    four, rows4 = _corpus_run(tmp_path, 4)
+    trainer's scan returns) equal to that step's row of the one-step run.
+    Returns the 4-step agent."""
+    one, rows1 = _loop_run(tmp, 1, source)
+    four, rows4 = _loop_run(tmp, 4, source)
     assert one.state.step == four.state.step == 8 and four.n_iter == 8
     for (k, a), b in zip(one.state.model.state_dict().items(),
                          four.state.model.state_dict().values()):
@@ -193,6 +199,58 @@ def test_steps_per_dispatch_equals_one_step_per_dispatch(tmp_path, one_thread):
                                                              "negative"))} == \
             {k: v for k, v in want.items() if k.startswith(("loss", "eta", "positive",
                                                             "negative"))}
+    return four
+
+
+def test_steps_per_dispatch_equals_one_step_per_dispatch(tmp_path, one_thread):
+    """The device-corpus loop with 4 steps per dispatch against 1
+    (:func:`_assert_four_equal_one`)."""
+    _write_tree(tmp_path / "data")
+    _assert_four_equal_one(tmp_path, "corpus")
+
+
+def test_host_loader_steps_per_dispatch_equals_one_step_per_dispatch(tmp_path, one_thread):
+    """The host loader's loop (the JAX trainer's ``multi_train_step``) with 4
+    steps per dispatch against 1 over the same 8 batches and seeds
+    (:func:`_assert_four_equal_one`), the loader's wait counted."""
+    _write_tree(tmp_path / "data")
+    four = _assert_four_equal_one(tmp_path, "loader")
+    assert four.device_corpus is None and four.loader_wait_s > 0
+
+
+def test_region_step_on_static_inputs_equals_prepare_and_step(tmp_path, one_thread):
+    """The trainer's step on its host inputs (``TrainAgent._inputs``: the
+    prologue and the loader's batch), read from one packed buffer as a
+    graph's static inputs are and called eagerly, against ``prepare`` then
+    ``step`` on the same batch from the same state and seeds: metrics,
+    parameters, BatchNorm statistics and ηs equal bit for bit."""
+    _write_tree(tmp_path / "data")
+    cfg = _config(tmp_path / "data")
+    cfg["model"].update(batch_size=2, real_batch_size=2)
+    cfg.pop("pretrained")
+    data = {k: v for k, v in cfg["data"].items() if k != "dataset"}
+    train_set = registry.get("dataset", cfg["data"]["dataset"])(task="train", **data)
+    host = next(train_set.batches(2, shuffle=True, seed=0))
+    a = TrainAgent(cfg, save_path=ExperimentPaths("a", tmp_path), device="cpu")
+    b = TrainAgent(cfg, save_path=ExperimentPaths("b", tmp_path), device="cpu")
+    want = a.step(a.prepare(host))
+    b.train_loader = iter([host])
+    inputs = b._inputs()
+    assert sorted(k for k in inputs if k.startswith("raw.")) == [
+        "raw.image", "raw.points", "raw.points_valid", "raw.sem"]
+    packed = torch.cat([v.reshape(-1).view(torch.uint8) for v in inputs.values()])
+    views, at = {}, 0
+    for name, v in inputs.items():
+        n = v.numel() * v.element_size()
+        views[name] = packed[at:at + n].view(v.dtype).view(v.shape)
+        at += n
+    got = b._region_step(views)
+    assert got.keys() == want.keys()
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    for (k, x), y in zip(a.state.model.state_dict().items(), b.state.model.state_dict().values()):
+        assert torch.equal(x, y), k
+    assert torch.equal(a.state.etas, b.state.etas) and a.state.step == b.state.step == 1
 
 
 def _prep_inputs():

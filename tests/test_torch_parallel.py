@@ -27,6 +27,13 @@ there.  The script imports neither JAX nor the JAX package.
   loss (checked beside it).  The one process at fp32 is held against the
   JAX step at ``tests/test_torch_train_step.py``'s first-step bars (metrics
   rel 1e-4), from the same seeded weights.
+* (ii') The mesh shrink: a ``TrainAgent`` of global batch 4 on three ranks
+  trains on two (the largest count that divides 4, the JAX trainer's mesh)
+  and leaves rank 2 idle; ranks 0-1 take (ii)'s step over the agent's
+  training group and equal the two-rank run of (ii) bit for bit and the one
+  process at (ii)'s bars; rank 2 writes nothing; all three exit 0.  The same
+  through the train CLI under torchrun: three ranks write the rows of two,
+  equal to a two-rank launch's.
 * (iii) ``run_ha_export`` on two ranks against one process on the plain path
   (the tiny model and 6 images of ``tests/multiproc_ha_worker.py``): the same
   files, each written once, with equal points; and again with two files
@@ -116,7 +123,23 @@ def _ha_rank(inp, rank, world):
                          world=world)
 
 
-CASES = {"bn": _bn_rank, "step": _step_rank, "ha": _ha_rank}
+def _shrink_rank(inp, rank, world):
+    """(ii'): the agent's training group, then (ii)'s step on it; an idle rank
+    returns None and so writes no result."""
+    from ssp_torch.train.trainer import TrainAgent
+    from ssp_torch.utils.experiment import ExperimentPaths
+
+    agent = TrainAgent(inp["config"], save_path=ExperimentPaths("shrink", Path(inp["out"])),
+                       device="cpu")
+    assert agent.world == 2 and agent.idle == (rank == 2) and mesh.world() == world
+    if agent.idle:
+        return None
+    with mesh.scope(agent.group):
+        assert mesh.world() == 2 and mesh.rank() == rank
+        return _step_rank(inp, rank, mesh.world())
+
+
+CASES = {"bn": _bn_rank, "step": _step_rank, "shrink": _shrink_rank, "ha": _ha_rank}
 
 
 def _step_result(ts, metrics):
@@ -135,7 +158,8 @@ def _rank_main(case: str, rank: int, world: int, port: int, work: Path) -> None:
     mesh.init_distributed("cpu")
     assert mesh.world() == world and mesh.rank() == rank
     out = CASES[case](torch.load(work / f"{case}_in.pt", weights_only=False), rank, world)
-    torch.save(out, work / f"{case}_{rank}.pt")
+    if out is not None:
+        torch.save(out, work / f"{case}_{rank}.pt")
     mesh.shutdown()
 
 
@@ -147,16 +171,23 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _ranks(case: str, inp: dict, work: Path, world: int = 2):
-    """Run ``case`` on ``world`` ranks over gloo; their results in rank order."""
+def _launch(case: str, inp: dict, work: Path, world: int = 2):
+    """Start ``case`` on ``world`` ranks over gloo (:func:`_collect` waits)."""
     torch.save(inp, work / f"{case}_in.pt")
     port = _free_port()
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["OMP_NUM_THREADS"] = "2"
-    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), case, str(r),
-                               str(world), str(port), str(work)], cwd=ROOT, env=env,
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-             for r in range(world)]
+    return case, work, [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), case,
+                                          str(r), str(world), str(port), str(work)], cwd=ROOT,
+                                         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                         text=True)
+                        for r in range(world)]
+
+
+def _collect(launched):
+    """The launched ranks' results in rank order (None for a rank that wrote
+    none), once every rank has exited 0."""
+    case, work, procs = launched
     try:
         outs = [p.communicate(timeout=300) for p in procs]
     finally:
@@ -166,7 +197,13 @@ def _ranks(case: str, inp: dict, work: Path, world: int = 2):
                 p.wait()
     for p, (_, err) in zip(procs, outs):
         assert p.returncode == 0, err[-4000:]
-    return [torch.load(work / f"{case}_{r}.pt", weights_only=False) for r in range(world)]
+    return [torch.load(work / f"{case}_{r}.pt", weights_only=False)
+            if (work / f"{case}_{r}.pt").exists() else None for r in range(len(procs))]
+
+
+def _ranks(case: str, inp: dict, work: Path, world: int = 2):
+    """Run ``case`` on ``world`` ranks over gloo; their results in rank order."""
+    return _collect(_launch(case, inp, work, world))
 
 
 def _rel(a, b, rel):
@@ -204,24 +241,11 @@ def test_cross_replica_batchnorm_equals_one_process(tmp_path):
     assert float((x[:2].mean(dim=(0, 2, 3)) - x.mean(dim=(0, 2, 3))).abs().max()) > 1e-2
 
 
-def _uneven_joint_batch(state_dict):
-    """A global batch of B pairs prepared by the port (the JAX step takes it
-    too), the second half (rank 1's rows) with most semantic pixels ignored
-    and half the cells masked; the JAX step's descriptor draws; the JAX
-    train state at ``state_dict``'s weights and its step."""
-    import jax
-    import jax.numpy as jnp
-    import optax
-
-    from ssp.losses.multitask import init_etas
-    from ssp.models import build_model as j_build_model
-    from ssp.train.lr import polynomial_decay_schedule
-    from ssp.train.state import TrainState as JTrainState
-    from ssp.train.step import make_train_step
+def _uneven_batch():
+    """A global batch of B pairs prepared by the port, the second half (rank
+    1's rows) with most semantic pixels ignored and half the cells masked."""
     from ssp_torch.data.pipeline import prepare_batch
-    from ssp_torch.models.weights import state_dict_to_flax
-    from test_torch_losses import jax_sparse_draws
-    from test_torch_train_step import PAIR, _tree
+    from test_torch_train_step import PAIR
 
     rng = np.random.default_rng(1)
     imgs = rng.uniform(size=(B, H, W)).astype(np.float32)
@@ -241,6 +265,27 @@ def _uneven_joint_batch(state_dict):
         batch[k][half:, :, : W // 2] = 0
     for k in ("labels_2d", "warped_labels_2d"):
         batch[k][half:] = 0
+    return batch
+
+
+def _uneven_joint_batch(state_dict):
+    """:func:`_uneven_batch` (the JAX step takes it too), the JAX step's
+    descriptor draws, the JAX train state at ``state_dict``'s weights and its
+    step."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from ssp.losses.multitask import init_etas
+    from ssp.models import build_model as j_build_model
+    from ssp.train.lr import polynomial_decay_schedule
+    from ssp.train.state import TrainState as JTrainState
+    from ssp.train.step import make_train_step
+    from ssp_torch.models.weights import state_dict_to_flax
+    from test_torch_losses import jax_sparse_draws
+    from test_torch_train_step import _tree
+
+    batch = _uneven_batch()
     jbatch = {k: jnp.asarray(v.numpy()) for k, v in batch.items()}
     draws = jax_sparse_draws(jax.random.key(100), np.asarray(jbatch["H_pair"]),
                              (H // 8, W // 8), M, N)
@@ -306,6 +351,41 @@ def test_two_rank_joint_step_equals_one_process_and_jax(tmp_path):
     for k in ("loss", "loss_det", "loss_sem"):  # off by 1000x the bar and more
         mean_of_ratios = np.mean([float(h[k]) for h in halves])
         assert abs(mean_of_ratios - one["metrics"][k]) > 1e-3 * abs(one["metrics"][k]), k
+
+
+def test_three_ranks_shrink_to_two_and_equal_two_ranks(tmp_path):
+    """(ii'): three ranks on a global batch of 4 train on two; ranks 0-1
+    equal (ii)'s two ranks bit for bit and the one process at (ii)'s bars;
+    rank 2 writes nothing."""
+    from ssp_torch.losses.descriptor_sparse import cell_matches, sample_draws
+    from ssp_torch.models.superpoint import build_model
+    from ssp_torch.train import train_step
+    from test_torch_train_agent import _config
+
+    model = build_model("SuperPointNet_gauss2_ssmall", device="cpu", n_classes=133,
+                        generator=torch.Generator().manual_seed(0))
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = _uneven_batch()
+    draws = sample_draws(cell_matches(batch["H_pair"], (H // 8, W // 8))[2], M, N,
+                         generator=torch.Generator().manual_seed(100))
+    inp = {"state_dict": sd, "batch": batch, "draws": dict(vars(draws))}
+    cfg = _config(tmp_path / "data")
+    cfg["model"].update(batch_size=B, real_batch_size=B)
+    cfg["pretrained"] = None
+    launched = [_launch("step", inp, tmp_path),
+                _launch("shrink", dict(inp, config=cfg, out=str(tmp_path / "logs")), tmp_path,
+                        world=3)]
+    ts64 = _fp64_state(sd)
+    one = _step_result(ts64, train_step(ts64, _fp64_batch(batch), desc_draws=draws, **STEP_KW))
+    two, three = map(_collect, launched)
+    assert three[2] is None and not (tmp_path / "shrink_2.pt").exists()
+    for r, want in zip(three[:2], two):
+        assert r["metrics"] == want["metrics"] and r["checksum"] == want["checksum"]
+        assert torch.equal(r["etas"], want["etas"])
+        assert all(torch.equal(r["stats"][k], v) for k, v in want["stats"].items())
+        _rel(r["metrics"]["loss"], one["metrics"]["loss"], 1e-6)
+        _rel(r["checksum"], one["checksum"], 1e-6)
+        _rel(r["etas"], one["etas"], 1e-6)
 
 
 def _ha_inputs(out: Path):
@@ -407,6 +487,55 @@ def test_two_rank_train_cli_under_torchrun(tmp_path):
     assert (exper / "checkpoints" / "superPointNet_12.pth.tar").exists()
     for r in got + rows("metrics_val.jsonl"):
         assert all(np.isfinite(v) for k, v in r.items() if k.startswith(("loss", "val_loss")))
+
+
+def test_three_rank_train_cli_trains_on_two_ranks(tmp_path):
+    """``torchrun --nproc_per_node=3`` of the train CLI on the cut flagship
+    config (global batch 4) beside a two-rank launch: all five ranks exit 0,
+    rank 2 logs that it is idle, and the three-rank run's metrics rows (at
+    the JAX trainer's boundaries) and checkpoints equal the two-rank run's."""
+    import json
+
+    import yaml
+
+    from test_torch_train_agent import _config, _write_tree, jax_rows
+
+    _write_tree(tmp_path / "data")
+    cfg = _config(tmp_path / "data")
+    path = tmp_path / "cfg.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(SSP_DISTRIBUTED="1", SSP_EXPER_PATH=str(tmp_path / "logs"), OMP_NUM_THREADS="1")
+    procs = {n: subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", f"--nproc_per_node={n}",
+         "--master_addr=127.0.0.1", f"--master_port={_free_port()}", "-m", "ssp_torch.cli.train",
+         "train_joint", str(path), f"ranks{n}", "--device", "cpu"], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for n in (2, 3)}
+    try:
+        errs = {n: p.communicate(timeout=600)[1] for n, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for n, p in procs.items():
+        assert p.returncode == 0, errs[n][-4000:]
+    assert "rank 2 is idle" in errs[3] and "ranks 0..1 train" in errs[3]
+    assert "idle" not in errs[2]
+
+    def rows(n, name):
+        return [{k: v for k, v in json.loads(line).items() if k not in ("iters_per_s",
+                                                                        "host_rss_mb")}
+                for line in (tmp_path / "logs" / f"ranks{n}" / name).read_text().splitlines()]
+
+    train_rows, val_rows, _ = jax_rows(cfg)
+    assert [r["step"] for r in rows(3, "metrics_train.jsonl")] == train_rows
+    assert [r["step"] for r in rows(3, "metrics_val.jsonl")] == val_rows
+    for name in ("metrics_train.jsonl", "metrics_val.jsonl"):
+        assert rows(3, name) == rows(2, name)
+    ckpts = {n: sorted(p.name for p in (tmp_path / "logs" / f"ranks{n}" / "checkpoints").iterdir())
+             for n in (2, 3)}
+    assert ckpts[3] == ckpts[2] and ckpts[3]
 
 
 if __name__ == "__main__":
