@@ -93,10 +93,13 @@ failure (nothing is caught):
     an ``export_descriptor`` of 4 pairs (NMS twice per pair, no stem or
     down1), detect+describe ms/image by CUDA events;
 14. ``[imageio]``, the host decoder on a machine without OpenCV: every
-    fixture of ``tests/data/torch_imageio`` decodes to the hash of OpenCV's
-    decode in its ``manifest.json``; seeded 375×1242 RGB and 240×320 gray
-    frames written by :func:`write_png` (each row's filter cycling through
-    0-4) read back exactly; ms per image of decoding by the host clock;
+    fixture of ``tests/data/torch_imageio`` (arithmetic-coded, lossless and
+    cut JPEG and a PNG with a bad ancillary CRC among them) decodes to the
+    hash of OpenCV's decode in its ``manifest.json``; seeded 375×1242 RGB
+    and 240×320 gray frames written by :func:`write_png` (each row's filter
+    cycling through 0-4) read back exactly; ms per image of decoding by the
+    host clock (``scripts/bench_imageio.py``'s ``decode_ms``), each new form
+    beside its baseline with the card's name and power limit;
 15. ``[sequence]``, the SLAM sequence export: a KITTI tree under
     ``SSP_DATA_PATH`` (2 drives × 16 structured 375×1242 color PNG frames)
     through ``ssp_torch.cli.export.export_sequence`` with
@@ -108,7 +111,7 @@ failure (nothing is caught):
     the host clock with ms/frame by part (decode and resize, detect+describe,
     npz write); the stem, down1 and NMS at 1×384×1248 beside their bounds,
     each held against its plain version first;
-16. ``[ha_cli]``, stage-2 pseudo-labels: the JPEG fixtures under 16
+16. ``[ha_cli]``, stage-2 pseudo-labels: ``HA_CLI_FIXTURES`` under 16
     twelve-digit names in ``SSP_DATA_PATH/COCO/train2017`` through
     ``export_detector_homoAdapt`` with ``HA_CLI_CONFIG``
     (``configs/magicpoint_coco_export.yaml`` with the trained weights:
@@ -313,6 +316,7 @@ import copy
 import csv
 import gc
 import hashlib
+import importlib.util
 import json
 import os
 import re
@@ -427,7 +431,14 @@ HP_SEQ, HP_VIEWS, HP_RAW = 16, (2, 3), (600, 800)
 FIXTURES = ROOT / "tests" / "data" / "torch_imageio"
 KITTI_RAW = (375, 1242)  # a KITTI color frame
 SEQ_DRIVES, SEQ_FRAMES = 2, 16  # the sequence corpus: 2 drives of 16 frames
-HA_CLI_IMAGES = 16  # the stage-2 corpus: the JPEG fixtures (each at least once) under 16 COCO names
+HA_CLI_IMAGES = 16  # the stage-2 corpus: HA_CLI_FIXTURES (each at least once) under 16 COCO names
+# the JPEG fixtures of the forms a COCO download holds (not the arithmetic,
+# lossless and cut files): phases 16, 17, 20 and 22 train and export on them
+HA_CLI_FIXTURES = ("cmyk_120x160_q90.jpg", "exif6_120x160_q90.jpg", "gray_240x320_q96.jpg",
+                   "prog420_rst5_240x320_q85.jpg", "prog_gray_120x160_q90.jpg",
+                   "rgbcoded_120x160_q90.jpg", "ycc420_480x640_q90.jpg",
+                   "ycc420_odd_239x321_q90.jpg", "ycc420_optimized_240x320_q85.jpg",
+                   "ycc444_rst4_120x160_q90.jpg")
 SLAM_HW = (384, 1248)  # the SLAM sequence export's shape (configs/kitti384_sequence_r5.yaml)
 # phase 21: OpenCV's SIFT and ORB on four images, written by
 # scripts/make_classical_fixtures.py (the matcher's cases: bench_own_kernels)
@@ -1250,7 +1261,7 @@ def main() -> None:
     with hpatches_workdir() as td:
         export_launches, export_times = hpatches_phase(dev, td)
         sweep_launches = evaluate_phase(dev, td)
-        imageio_phase(td)
+        imageio_phase(td, smi)
         sequence_launches, sequence_times = sequence_phase(dev, td)
         ha_cli_launches = ha_cli_phase(dev, td)
         train = train_phase(dev, td, smi)
@@ -1634,15 +1645,21 @@ def evaluate_phase(dev: torch.device, td: Path) -> dict:
     return launches
 
 
-def imageio_phase(td: Path) -> None:
+def imageio_phase(td: Path, smi: str) -> None:
     """Phase 14 [imageio]: the host decoder on the card's machine, which has
     no OpenCV.  Every committed fixture (progressive, CMYK and RGB-coded
-    JPEG, Adam7 and gamma-tagged PNG among them) decodes to the hash of
-    OpenCV's decode in its manifest; seeded RGB and gray frames written by
-    :func:`write_png` read back exactly (RGB as libpng's luma of them), and
-    the same RGB frame as Adam7 with an sRGB chunk decodes as the
+    JPEG, arithmetic-coded, lossless and cut JPEG, Adam7, gamma-tagged PNG
+    and a PNG whose tEXt chunk has a bad CRC among them) decodes to the
+    hash of OpenCV's decode in its manifest; seeded RGB and gray frames
+    written by :func:`write_png` read back exactly (RGB as libpng's luma of
+    them), and the same RGB frame as Adam7 with an sRGB chunk decodes as the
     non-interlaced sRGB file does and unlike the untagged one; ms per image
-    of decoding, by the host clock, each new form beside its baseline."""
+    of decoding, by the host clock (``decode_ms`` of
+    ``scripts/bench_imageio.py``), each new form beside its baseline."""
+    spec = importlib.util.spec_from_file_location("bench_imageio",
+                                                  ROOT / "scripts" / "bench_imageio.py")
+    bench_imageio = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench_imageio)
     manifest = json.loads((FIXTURES / "manifest.json").read_text())
     for name, entry in sorted(manifest.items()):
         img = imageio.decode_gray(FIXTURES / name)
@@ -1670,10 +1687,7 @@ def imageio_phase(td: Path) -> None:
         path = td / f"tagged_{int(adam7)}{int(srgb)}.png"
         write_png(path, rgb, adam7=adam7, srgb=srgb)
         decoded[adam7, srgb] = imageio.decode_gray(path)
-        t0 = time.perf_counter()
-        for _ in range(10):
-            imageio.decode_gray(path)
-        frame_ms[adam7, srgb] = (time.perf_counter() - t0) / 10 * 1e3
+        frame_ms[adam7, srgb] = bench_imageio.decode_ms(imageio.decode_gray, path)
     if not np.array_equal(decoded[True, True], decoded[False, True]) or \
             np.array_equal(decoded[False, True], decoded[False, False]):
         raise AssertionError("an Adam7 sRGB frame does not decode as the non-interlaced sRGB "
@@ -1690,11 +1704,7 @@ def imageio_phase(td: Path) -> None:
                  "prog_gray_120x160_q90.jpg", "cmyk_120x160_q90.jpg", "rgbcoded_120x160_q90.jpg",
                  "ycc444_rst4_120x160_q90.jpg", "rgba_120x160.png", "adam7_rgb_120x160.png",
                  "srgb_rgb_120x160.png", "palette_120x160.png", "palette_gama45455_120x160.png"):
-        imageio.decode_gray(FIXTURES / name)
-        t0 = time.perf_counter()
-        for _ in range(20):
-            imageio.decode_gray(FIXTURES / name)
-        ms[name] = (time.perf_counter() - t0) / 20 * 1e3
+        ms[name] = bench_imageio.decode_ms(imageio.decode_gray, FIXTURES / name)
         log(f"[imageio] decode {name}: {ms[name]:.3f} ms per image by the host clock "
             f"(one thread)")
     pairs = (("prog420_rst5_240x320_q85.jpg", "ycc420_optimized_240x320_q85.jpg"),
@@ -1706,6 +1716,27 @@ def imageio_phase(td: Path) -> None:
     log("[imageio] side by side, ms per image (Mpixel/s): " + "; ".join(
         f"{a} {ms[a]:.3f} ({rate[a]:.1f}) vs {b} {ms[b]:.3f} ({rate[b]:.1f})" for a, b in pairs)
         + f"; rgb_375x1242.png {rate['rgb_375x1242.png']:.1f} Mpixel/s")
+    # the forms read since the decoder follows libjpeg past damage: each
+    # beside the file it is measured against (the same scene, or the whole
+    # file of a cut one), one thread, with the card's name and power limit
+    new_pairs = (("arith_ycc420_480x640_q90.jpg", "ycc420_480x640_q90.jpg"),
+                 ("arith_gray_240x320_q96.jpg", "gray_240x320_q96.jpg"),
+                 ("arith_prog420_rst4_240x320_q85.jpg", "prog420_rst5_240x320_q85.jpg"),
+                 ("lossless_gray_p1_240x320.jpg", "gray_240x320_q96.jpg"),
+                 ("lossless_gray_p7_pt1_rst8_120x160.jpg", "prog_gray_120x160_q90.jpg"),
+                 ("lossless_cmyk_120x160.jpg", "cmyk_120x160_q90.jpg"),
+                 ("cut_ycc420_480x640_q90.jpg", "ycc420_480x640_q90.jpg"),
+                 ("cut_prog420_rst5_240x320_q85.jpg", "prog420_rst5_240x320_q85.jpg"),
+                 ("cut_arith_ycc420_480x640_q90.jpg", "arith_ycc420_480x640_q90.jpg"),
+                 ("bad_text_crc_120x160.png", "rgba_120x160.png"))
+    for a, b in new_pairs:
+        for name in (a, b):
+            if name not in ms:
+                ms[name] = bench_imageio.decode_ms(imageio.decode_gray, FIXTURES / name)
+        ra, rb = (np.prod(manifest[n]["shape"]) / 1e3 / ms[n] for n in (a, b))
+        log(f"[imageio] {smi}: {a} {ms[a]:.3f} ms per image ({ra:.1f} Mpixel/s) vs {b} "
+            f"{ms[b]:.3f} ms ({rb:.1f} Mpixel/s), ratio {ms[a] / ms[b]:.2f}, by the host clock, "
+            f"one thread")
     # the decoder's calls release the GIL (ctypes, zlib): threads scale it
     from concurrent.futures import ThreadPoolExecutor
 
@@ -1829,12 +1860,13 @@ def sequence_phase(dev: torch.device, td: Path):
 def ha_cli_phase(dev: torch.device, td: Path) -> dict:
     """Phase 16 [ha_cli]: stage-2 pseudo-labels through
     ``export_detector_homoAdapt`` on a COCO tree under ``td`` (the JPEG
-    fixtures under HA_CLI_IMAGES twelve-digit names), against the same
-    export on the kernels' plain versions; img/s with the decode's share.
+    fixtures of HA_CLI_FIXTURES under HA_CLI_IMAGES twelve-digit names),
+    against the same export on the kernels' plain versions; img/s with the
+    decode's share.
     Returns the CLI's launches per kernel."""
     folder = td / "COCO" / "train2017"
     folder.mkdir(parents=True)
-    jpegs = sorted(FIXTURES.glob("*.jpg"))
+    jpegs = [FIXTURES / name for name in HA_CLI_FIXTURES]
     if HA_CLI_IMAGES < len(jpegs):
         raise AssertionError(f"HA_CLI_IMAGES {HA_CLI_IMAGES} < {len(jpegs)} JPEG fixtures")
     stems = [f"{139 + 4099 * i:012d}" for i in range(HA_CLI_IMAGES)]

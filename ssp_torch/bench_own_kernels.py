@@ -92,7 +92,7 @@ def device_ms(fn, calls: int = CALLS) -> float:
     return ms
 
 
-def device_ops(fn, calls: int = 20, warmup: int = 3) -> list:
+def device_ops(fn, calls: int = 20, warmup: int = 3, sessions: int = 3) -> list:
     """The device operations (kernels, memsets, copies) of one eager call of
     ``fn()``: [(name, ms)] in order of first start, ms the mean over
     ``calls`` calls under ``torch.profiler``.  The profiler traces
@@ -100,7 +100,10 @@ def device_ops(fn, calls: int = 20, warmup: int = 3) -> list:
     loses some of its first operations).  It still loses a call's records
     now and then (9 calls of 10 recorded, once), so an operation counts
     round(records / calls) times per call: one seen in fewer than half the
-    calls not at all."""
+    calls not at all.  Once in a while it records no device operation in a
+    whole trace, even in a fresh process (the first matcher case, once): a
+    trace with none is taken again, up to ``sessions`` traces in all, and
+    [] comes back only if every one of them saw nothing on the device."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     events = []
@@ -111,14 +114,17 @@ def device_ops(fn, calls: int = 20, warmup: int = 3) -> list:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=warmup, active=calls, repeat=1),
-                 on_trace_ready=keep) as prof:
-        for i in range(warmup + calls):
-            fn()
-            if i == warmup + calls - 1:
-                torch.cuda.synchronize()
-            prof.step()
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=warmup, active=calls, repeat=1),
+                     on_trace_ready=keep) as prof:
+            for i in range(warmup + calls):
+                fn()
+                if i == warmup + calls - 1:
+                    torch.cuda.synchronize()
+                prof.step()
+        if events:
+            break
     by_name = {}
     for e in sorted(events, key=lambda e: e.time_range.start):
         by_name.setdefault(e.name[:60], []).append(e.time_range.elapsed_us() / 1e3)

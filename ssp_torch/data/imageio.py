@@ -2,54 +2,75 @@
 and a PNG writer (:func:`write_png`).
 
 :func:`decode_gray` returns what ``cv2.imread(path, cv2.IMREAD_GRAYSCALE)``
-returns (OpenCV 5.0 on libjpeg-turbo 3.1 and libpng 1.6.58), byte for byte,
-for the forms it reads (the JAX package reads images with OpenCV).  It
-dispatches on the file's magic bytes, not on its suffix:
+returns (OpenCV 5.0 on libjpeg-turbo 3.1, with its x86 SIMD code, and
+libpng 1.6.58), byte for byte, and returns an image exactly when OpenCV
+does (the JAX package reads images with OpenCV).  It dispatches on the
+file's magic bytes, not on its suffix:
 
-* ``FF D8``: JPEG, 8-bit, Huffman-coded, baseline, extended sequential or
-  progressive (spectral selection and successive approximation, restart
-  intervals); gray, YCbCr, RGB-coded (Adobe transform 0, or component ids
-  R, G, B), CMYK (Adobe transform 0 or no Adobe marker) and YCCK (transform
-  2); any integral sampling factors, luma subsampled against chroma too.
-  The components that gray needs go through libjpeg's integer inverse DCT
-  (Y alone of YCbCr; all of the others), libjpeg-turbo's upsampling (the
-  triangle filters for 2:1, replication otherwise) and its colour
-  conversion (RGB → Y in 16-bit fixed point; YCCK → CMYK through its
-  tables), CMYK through OpenCV's CMYK → gray; then the EXIF orientation,
-  as OpenCV applies it.  The decoder is C++
-  (``ssp_torch/csrc/imageio_host.cpp``);
+* ``FF D8 FF``: JPEG as libjpeg-turbo decodes it for OpenCV.  Huffman-coded
+  baseline, extended sequential and progressive (SOF0-2); arithmetic-coded
+  sequential and progressive (SOF9, SOF10: the QM decoder of T.81 Annex D,
+  with DAC conditioning); lossless (SOF3: predictors 1-7, the point
+  transform, samples of 2-8 bits, gray or CMYK); restart intervals; 1, 3 or
+  4 components in libjpeg's colour space (gray, YCbCr, RGB, CMYK, YCCK) at
+  any integral sampling factors.  The components that gray needs go
+  through libjpeg-turbo's integer inverse DCT as its SIMD code computes it,
+  its upsampling (the triangle filters for 2:1, replication otherwise and
+  in a lossless file) and its colour conversion (RGB → Y in 16-bit fixed
+  point; YCCK → CMYK through its tables), CMYK through OpenCV's CMYK →
+  gray; then the EXIF orientation, as OpenCV applies it.  A damaged file is
+  read as libjpeg reads it, with a warning: past the end of the file come
+  fake EOI markers; a scan whose data runs out is decoded on zero bits to
+  the end of its MCU and its later MCUs are skipped (their coefficients
+  stay as they are: flat 128 in a sequential file) up to a restart; a bad
+  Huffman code gives symbol 0; missing or misnumbered restart markers are
+  resynchronised as ``jpeg_resync_to_restart`` does; bytes before a marker
+  are skipped; a progressive file whose scans leave one of the first nine
+  AC coefficients short of its last bit is smoothed (libjpeg-turbo's 5×5
+  block smoothing); a sequential file's missing Huffman table 0 or 1 is the
+  standard's; and what follows the data of a file of one scan is not read
+  (OpenCV ignores what ``jpeg_finish_decompress`` finds there).  The
+  decoder is C++ (``ssp_torch/csrc/imageio_host.cpp``);
 * ``\x89PNG``: PNG, any bit depth and colour type, plain or interlaced
-  (Adam7): the chunks are read and their CRCs checked here, the image data
-  inflated with ``zlib``, and the C++ side unfilters the rows (each pass's
-  own) and converts them to gray as libpng does for OpenCV (its 15-bit
-  fixed-point luma, truncated), then the orientation of an ``eXIf`` chunk.
-  A color file (RGB, RGBA, palette) with a gamma goes through libpng's gamma
-  tables as ``png_set_rgb_to_gray`` asks for them, fitted to ``cv2.imread``
-  (:func:`_file_gamma`): ``sRGB`` is gamma 45455 and wins over ``gAMA``;
-  a ``gAMA`` within 5% of 1 (its reciprocal too) changes nothing; ``cHRM``
+  (Adam7): the chunks are read and their CRCs checked here (an ancillary
+  chunk with a bad CRC is dropped, as libpng drops it, and an IEND with a
+  bad CRC still ends the file), the image data inflated with ``zlib``, and
+  the C++ side unfilters the rows (each pass's own) and converts them to
+  gray as libpng does for OpenCV (its 15-bit fixed-point luma, truncated),
+  then the orientation of an ``eXIf`` chunk.  A color file (RGB, RGBA,
+  palette) with a gamma goes through libpng's gamma tables as
+  ``png_set_rgb_to_gray`` asks for them, fitted to ``cv2.imread``
+  (:func:`_file_gamma`): ``sRGB`` is gamma 45455 and wins over ``gAMA``; a
+  ``gAMA`` within 5% of 1 (its reciprocal too) changes nothing; ``cHRM``
   changes nothing (OpenCV sets the coefficients) and neither does an
-  ``iCCP`` profile, sRGB or not (the ``gAMA`` beside it holds); 16-bit
-  samples are converted at 16 bits, then cut to their high byte, the tables'
-  shift 5 or ``sBIT``'s;
+  ``iCCP`` profile, sRGB or not (the ``gAMA`` beside it holds); a ``gAMA``
+  of 1-4, whose reciprocal overflows libpng's fixed point, takes libpng's
+  tables for an unset screen gamma; 16-bit samples are converted at 16
+  bits, then cut to their high byte, the tables' shift 5 or ``sBIT``'s;
 * ``P5``/``P6``: binary netpbm (:func:`ssp_torch.data.base.read_pnm`; color
   through OpenCV's 14-bit ``cvtColor`` weights, :func:`~ssp_torch.data.base.
   rgb_to_gray`, which is what OpenCV uses for these files).
 
-A form the decoder does not reproduce raises ``ValueError`` naming the file
-and the form, and there is no fallback:
+A file that OpenCV does not read raises ``ValueError`` naming the file and
+the form, and there is no fallback:
 
-* lossless (SOF3), arithmetic-coded (SOF9-11, 13-15) and 12-bit JPEG, and a
-  DNL marker: neither OpenCV nor Pillow writes them, so OpenCV's result for
-  them is not tested;
-* hierarchical JPEG (SOF5-7): libjpeg does not decode it either;
-* progressive JPEG whose scans leave one of the first nine AC coefficients
-  of a needed component short of its last bit: libjpeg then smooths the
-  blocks (``jdcoefct.c``), an estimate not reproduced here;
-* sampling factors libjpeg refuses (fractional, more than 10 blocks in an
-  MCU), where ``cv2.imread`` returns None;
-* a color PNG with a ``gAMA`` of 1-4, whose reciprocal overflows libpng's
-  fixed point;
-* a truncated or corrupt file.
+* 12-bit JPEG, and 12- to 16-bit lossless JPEG (messages "12-bit JPEG",
+  "N-bit lossless JPEG"): OpenCV reads through libjpeg's 8-bit interface;
+* arithmetic-coded lossless JPEG (SOF11) and hierarchical JPEG (SOF5-7,
+  SOF13-15): libjpeg-turbo decodes neither;
+* lossless JPEG in RGB, YCbCr or YCCK ("lossless JPEG in ..."): libjpeg
+  takes no lossy colour conversion of a lossless file to gray;
+* 2- or 5- to 10-component JPEG ("N-component JPEG"), fractional sampling
+  factors, more than 10 blocks in an MCU, a height of 0 (set by a DNL
+  marker), a side above 65500 or more than 2^30 pixels;
+* damage that libjpeg treats as fatal ("corrupt JPEG: ...", "truncated
+  JPEG: ..."): a bad length, index or table in DQT, DHT, DAC, DRI, SOF or
+  SOS, a reserved marker, two frames, a scan before the frame, no scan at
+  all (a file that ends before its first scan), a progressive or lossless
+  scan whose Huffman table no DHT defined, bad progression parameters;
+* a PNG that libpng or OpenCV does not read: truncated, a bad CRC on IHDR,
+  PLTE or IDAT, an unknown critical chunk, image data that does not
+  inflate.
 
 The C++ library is built with the system ``g++`` at first use, into
 ``ssp_torch/_build`` (``ssp_torch.kernels._build``).  Its calls go through
@@ -72,7 +93,7 @@ from pathlib import Path
 
 import numpy as np
 
-JPEG_MAGIC = b"\xff\xd8"
+JPEG_MAGIC = b"\xff\xd8\xff"  # OpenCV's JPEG signature: SOI and a marker's first byte
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 PNM_MAGICS = (b"P5", b"P6")
 
@@ -204,9 +225,6 @@ def _file_gamma(chunks, ctype: int, depth: int, name):
                 sig_bit = max(body[:3]) if ctype in (2, 3, 6) else body[0]
     if srgb:
         gamma = _SRGB_GAMMA
-    if 0 < gamma < 5 and ctype in (2, 3, 6):
-        raise ValueError(f"{name}: color PNG with a gAMA of {gamma} (below 5: its reciprocal "
-                         f"overflows libpng's fixed point) is not supported")
     return gamma, sig_bit
 
 
@@ -224,9 +242,15 @@ def decode_png(data: bytes, name="<bytes>") -> np.ndarray:
             raise ValueError(f"{name}: truncated PNG (chunk {kind!r} past the end)")
         body = data[pos + 8:pos + 8 + length]
         (crc,) = struct.unpack(">I", data[end - 4:end])
-        if zlib.crc32(kind + body) != crc:
-            raise ValueError(f"{name}: PNG chunk {kind.decode('latin-1')} has a bad CRC")
         pos = end
+        if zlib.crc32(kind + body) != crc:
+            # libpng's default: an ancillary chunk is dropped with a warning;
+            # OpenCV takes IEND as it is; any other critical chunk is fatal
+            if kind == b"IEND":
+                break
+            if kind[0] & 0x20:
+                continue
+            raise ValueError(f"{name}: PNG chunk {kind.decode('latin-1')} has a bad CRC")
         if kind == b"IHDR":
             if len(body) != 13:
                 raise ValueError(f"{name}: corrupt PNG (IHDR of {len(body)} bytes)")

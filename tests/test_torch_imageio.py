@@ -284,6 +284,160 @@ def _baseline_jpeg(planes, factors, hw, ids=None, adobe=None, jfif=True, quant=4
     return out + data + b"\xff\xd9"
 
 
+def _lossless_jpeg(planes, factors, hw, predictor=1, pt=0, restart_rows=0, ids=None, adobe=None,
+                   jfif=False, precision=8, sof=0xC3):
+    """A lossless JPEG (SOF3, ITU-T T.81 Annex H) [hw] written here: one
+    interleaved scan (one component: its own), component i holding
+    ``planes[i]`` >> ``pt`` at sampling factors ``factors[i]``, predictor
+    ``predictor`` (1-7), a restart every ``restart_rows`` MCU rows (each
+    restarts the first-row prediction), one Huffman table for every
+    component (DC-style categories 0-16), no quantisation table."""
+    H, W = hw
+    hmax, vmax = max(f[0] for f in factors), max(f[1] for f in factors)
+    ids = ids or list(range(1, len(planes) + 1))
+    one = len(planes) == 1
+    comps = []
+    for plane, (h, v) in zip(planes, factors):
+        dw, dh = -(-W * h // hmax), -(-H * v // vmax)
+        comps.append((np.asarray(plane, np.int64)[:dh, :dw] >> pt, h, v))
+    mcux = comps[0][0].shape[1] if one else -(-W // hmax)
+    mcuy = comps[0][0].shape[0] if one else -(-H // vmax)
+    initial = 1 << (precision - pt - 1)
+
+    def differences(x, rows_per_mcu_row):
+        d = np.zeros_like(x)
+        for r in range(x.shape[0]):
+            first = r == 0 or (restart_rows and r % (rows_per_mcu_row * restart_rows) == 0)
+            for c in range(x.shape[1]):
+                if first:
+                    p = initial if c == 0 else x[r, c - 1]
+                elif c == 0:
+                    p = x[r - 1, 0]
+                else:
+                    a, b, cc = int(x[r, c - 1]), int(x[r - 1, c]), int(x[r - 1, c - 1])
+                    p = (a, b, cc, a + b - cc, a + ((b - cc) >> 1), b + ((a - cc) >> 1),
+                         (a + b) >> 1)[predictor - 1]
+                d[r, c] = (x[r, c] - p) & 0xFFFF
+        return d
+
+    diffs = [differences(x, 1 if one else v) for x, _, v in comps]
+    counts = bytes([0, 3] + [1] * 14)  # 17 codes: categories 0-16
+    code = _huffman_codes(counts, bytes(range(17)))
+    bits, out = [], b""
+
+    def put(value, n):
+        bits.extend((value >> (n - 1 - i)) & 1 for i in range(n))
+
+    def flush():
+        nonlocal bits, out
+        bits.extend([1] * (-len(bits) % 8))
+        out += bytes(np.packbits(np.array(bits, np.uint8))).replace(b"\xff", b"\xff\x00")
+        bits = []
+
+    rst = 0
+    for my in range(mcuy):
+        if restart_rows and my and my % restart_rows == 0:
+            flush()
+            out += bytes([0xFF, 0xD0 + rst])
+            rst = (rst + 1) & 7
+        for mx in range(mcux):
+            for d, (x, h, v) in zip(diffs, comps):
+                bh, bv = (1, 1) if one else (h, v)
+                for yy in range(bv):
+                    for xx in range(bh):
+                        r, c = my * bv + yy, mx * bh + xx
+                        value = int(d[r, c]) if r < d.shape[0] and c < d.shape[1] else 0
+                        if value == 32768:
+                            put(*code[16])
+                            continue
+                        value -= 65536 if value > 32768 else 0
+                        size = abs(value).bit_length()
+                        put(*code[size])
+                        if size:
+                            put(value if value > 0 else value + (1 << size) - 1, size)
+    flush()
+    head = b"\xff\xd8"
+    if adobe is not None:
+        head += _segment(0xEE, b"Adobe" + bytes([0, 100, 0, 0, 0, 0, adobe]))
+    elif jfif:
+        head += _segment(0xE0, b"JFIF\0\1\1\0\0\1\0\1\0\0")
+    head += _segment(sof, struct.pack(">BHHB", precision, H, W, len(planes)) + b"".join(
+        bytes([i, (h << 4) | v, 0]) for i, (h, v) in zip(ids, factors)))
+    head += _segment(0xC4, bytes([0]) + counts + bytes(range(17)))
+    if restart_rows:
+        head += _segment(0xDD, struct.pack(">H", restart_rows * mcux))
+    head += _segment(0xDA, bytes([len(planes)]) + b"".join(bytes([i, 0]) for i in ids) +
+                     bytes([predictor, 0, pt]))
+    return head + out + b"\xff\xd9"
+
+
+_WRITER = {}
+
+
+def _arith_writer() -> Path:
+    """``tests/torch_jpeg_writer.cpp`` built against the system libjpeg
+    (libjpeg-turbo, arithmetic coding on) into a directory of this process
+    (removed at its exit), once; skips where there is no g++ or no libjpeg
+    headers."""
+    if "exe" not in _WRITER:
+        import atexit
+        import tempfile
+
+        gxx = shutil.which("g++")
+        if gxx is None:
+            pytest.skip("no g++: cannot build the arithmetic JPEG writer")
+        work = tempfile.mkdtemp(prefix="ssp_jpeg_writer_")
+        atexit.register(shutil.rmtree, work, True)
+        exe = Path(work) / "torch_jpeg_writer"
+        run = subprocess.run([gxx, "-O1", str(ROOT / "tests" / "torch_jpeg_writer.cpp"), "-ljpeg",
+                              "-o", str(exe)], capture_output=True, text=True)
+        if run.returncode != 0:
+            pytest.skip(f"cannot build the arithmetic JPEG writer (libjpeg headers?): {run.stderr}")
+        _WRITER["exe"] = exe
+    return _WRITER["exe"]
+
+
+def _arith_jpeg(img, quality=90, progressive=False, restart=0, hv="22", dac=(0, 1, 5),
+                keep_dac=True) -> bytes:
+    """``img`` (uint8 [h, w] gray or [h, w, 3] RGB) written by the system
+    libjpeg: arithmetic-coded (SOF9, SOF10 progressive), luma sampling
+    ``hv``, a restart every ``restart`` MCUs, DAC conditioning (L, U, K) of
+    every table; ``keep_dac=False`` drops the DAC segments (libjpeg writes
+    one before each scan), so that the decoder takes the defaults."""
+    import tempfile
+
+    img = np.ascontiguousarray(img, np.uint8)
+    h, w = img.shape[:2]
+    with tempfile.TemporaryDirectory() as d:
+        raw, out = Path(d) / "in.raw", Path(d) / "out.jpg"
+        raw.write_bytes(img.tobytes())
+        subprocess.run([str(_arith_writer()), str(raw), str(h), str(w),
+                        str(1 if img.ndim == 2 else 3), str(quality), str(int(progressive)),
+                        str(restart), hv, *map(str, dac), str(out)],
+                       check=True)
+        data = out.read_bytes()
+    if not keep_dac:
+        data = _drop_segments(data, 0xCC)
+    return data
+
+
+def _drop_segments(data: bytes, marker: int) -> bytes:
+    """``data`` without its marker segments of type ``marker`` (those before
+    each scan; entropy-coded data is copied as it is)."""
+    out, pos = data[:2], 2
+    while True:
+        m = data[pos + 1]
+        if m == 0xD9:
+            return out + data[pos:]
+        end = pos + 2 + struct.unpack(">H", data[pos + 2:pos + 4])[0]
+        if m == 0xDA:
+            while not (data[end] == 0xFF and data[end + 1] not in (0, *range(0xD0, 0xD8))):
+                end += 1
+        if m != marker:
+            out += data[pos:end]
+        pos = end
+
+
 def _scan_units(data: bytes):
     """A JPEG split at its scans: [head, scan 1, ..., scan n, EOI], each scan
     with the table segments (DHT, DRI) just before it."""
@@ -512,11 +666,11 @@ def test_progressive_jpeg_written_by_pillow(tmp_path, kind):
 
 def test_progressive_jpeg_cut_refinement(tmp_path):
     """OpenCV's progressive file with some refinement scans cut out, EOI
-    kept.  libjpeg smooths the blocks (jdcoefct.c) where one of the first
-    nine AC coefficients of a component is short of its last bit; the port
-    does not reproduce that estimate and refuses such a file where the
-    gray output depends on it (the luma's refinement cut), and reads the
-    others exactly (the chroma's or the DC's refinement cut)."""
+    kept.  libjpeg smooths the blocks (jdcoefct.c, libjpeg-turbo's 5×5
+    estimate) where one of the first nine AC coefficients of a component is
+    short of its last bit; the port smooths them alike (it refused these
+    files before): the luma's refinement cut, the AC scans cut (the DC
+    estimated too), and the chroma's or the DC's refinement cut."""
     data = _jpeg(_scene(45, 61, seed=23), 90, S420, PROGRESSIVE)
     units = _scan_units(data)
     assert len(units) == 12  # head, 10 scans, EOI
@@ -524,10 +678,7 @@ def test_progressive_jpeg_cut_refinement(tmp_path):
     for keep in (units[:8] + units[10:], units[:7] + units[8:]):
         _check(tmp_path, b"".join(keep))
     for keep in (units[:10] + units[11:], units[:6] + units[-1:]):
-        path = tmp_path / "cut.jpg"
-        path.write_bytes(b"".join(keep))
-        assert cv2.imread(str(path), 0) is not None
-        _refused(tmp_path, b"".join(keep), "block smoothing")
+        _check(tmp_path, b"".join(keep))
 
 
 # -- CMYK, YCCK, RGB-coded JPEG and the sampling factors ----------------------------
@@ -714,11 +865,22 @@ def test_gamma_16bit_every_gray_value(tmp_path, gamma):
 
 
 def test_gamma_below_5_refused(tmp_path):
-    """A gAMA of 1-4: its reciprocal overflows libpng's fixed point, which
-    then falls back on other tables; not reproduced, refused (gray is read)."""
-    rgb, _ = _samples(2, 8, 3, (8, 8), 29)
-    _refused(tmp_path, _png(rgb, 8, 2, extra=_gama(2)), "gAMA of 2")
-    _check(tmp_path, _png(rgb[..., :1], 8, 0, extra=_gama(2)))
+    """A gAMA of 1-4: its reciprocal overflows libpng's fixed point, so the
+    screen gamma stays unset and libpng takes other tables ("from 1" with
+    the file's gamma, gamma 1 from file to screen); read as OpenCV reads it
+    (it was refused before), in every colour form, and as gray."""
+    a = np.arange(256)
+    grid = np.stack([np.repeat(a, 256).reshape(256, 256), np.tile(a, 256).reshape(256, 256),
+                     np.full((256, 256), 7)], -1)
+    for gamma in (1, 2, 3, 4):
+        _check(tmp_path, _png(grid, 8, 2, extra=_gama(gamma)))
+        for ctype, depth, channels in GAMMA_FORMS:
+            samples, palette = _samples(ctype, depth, channels, (16, 24), 29 + gamma)
+            _check(tmp_path, _png(samples, depth, ctype, palette, extra=_gama(gamma)))
+        rgb, _ = _samples(2, 8, 3, (8, 8), 29)
+        _check(tmp_path, _png(rgb[..., :1], 8, 0, extra=_gama(gamma)))
+    v = np.arange(1 << 16).reshape(256, 256)
+    _check(tmp_path, _png(np.repeat(v[..., None], 3, -1), 16, 2, extra=_gama(3)))
 
 
 # -- what is refused ----------------------------------------------------------------
@@ -744,19 +906,38 @@ def _sof_replaced(data: bytes, marker: int, body_edit=None) -> bytes:
 
 def test_progressive_jpeg_refused(tmp_path):
     """A progressive JPEG is read byte for byte (it was refused before);
-    cut inside one of its scans it is refused as truncated."""
+    cut inside one of its scans it is read as OpenCV reads it (libjpeg's
+    fake EOI, the scan's blocks past the cut left as they are, smoothed)."""
     data = _jpeg(_scene(40, 56, seed=11), 90, params=(cv2.IMWRITE_JPEG_PROGRESSIVE, 1))
     assert b"\xff\xc2" in data
     _check(tmp_path, data)
     units = _scan_units(data)
-    cut = sum(len(u) for u in units[:3]) + 40  # inside the third scan's data
-    _refused(tmp_path, data[:cut], "truncated")
+    cut = sum(len(u) for u in units[:3]) + 40  # inside the third scan's header
+    path = tmp_path / "cut.jpg"
+    path.write_bytes(data[:cut])
+    assert cv2.imread(str(path), 0) is None
+    _refused(tmp_path, data[:cut], "corrupt JPEG")
+    cut = sum(len(u) for u in units[:4]) - 10  # inside the third scan's data
+    assert data.rfind(b"\xff\xda", 0, cut) + 14 < cut
+    _check(tmp_path, data[:cut])
 
 
-@pytest.mark.parametrize("marker,match", [(0xC3, "lossless"), (0xC5, "hierarchical"),
-                                          (0xC9, "arithmetic"), (0xCA, "arithmetic")])
+@pytest.mark.parametrize("marker,match", [(0xC3, "lossless"),
+                                          (0xC5, "hierarchical"), (0xC9, None),
+                                          (0xCA, "progression parameters")])
 def test_other_jpeg_processes_refused(tmp_path, marker, match):
-    _refused(tmp_path, _sof_replaced(_jpeg(_scene(24, 32, seed=12)), marker), match)
+    """A baseline file's Huffman-coded body under another SOF: read as
+    OpenCV reads it (SOF9: decoded as arithmetic-coded data), or refused by
+    both (SOF3: a lossless file in YCbCr; SOF10: the scan's parameters are
+    not a progressive scan's; SOF5: hierarchical)."""
+    data = _sof_replaced(_jpeg(_scene(24, 32, seed=12)), marker)
+    path = tmp_path / "sof.jpg"
+    path.write_bytes(data)
+    if match is None:
+        _check(tmp_path, data)
+    else:
+        assert cv2.imread(str(path), 0) is None
+        _refused(tmp_path, data, match)
 
 
 def test_12bit_cmyk_and_rgb_jpeg_refused(tmp_path):
@@ -786,12 +967,18 @@ def test_interlaced_png_refused(tmp_path):
 
 @pytest.mark.parametrize("kind", ["jpeg", "png"])
 def test_truncated_files_refused(tmp_path, kind):
+    """A truncated PNG is refused by both; a JPEG cut in its scan is read
+    as OpenCV reads it (libjpeg feeds zero bits, then leaves the rest of
+    the scan's blocks at zero: flat 128)."""
     if kind == "jpeg":
         data = _jpeg(_scene(64, 64, seed=15), 90)
     else:
         data = _png(_scene(64, 64, 3, seed=15), 8, 2)
     for cut in (len(data) // 2, len(data) - 20):
-        _refused(tmp_path, data[:cut], "truncated")
+        if kind == "jpeg":
+            _check(tmp_path, data[:cut])
+        else:
+            _refused(tmp_path, data[:cut], "truncated")
 
 
 def test_bad_crc_refused(tmp_path):
@@ -928,7 +1115,31 @@ def make_fixtures(out_dir: Path) -> dict:
         "palette_gama45455_120x160.png": _png(
             np.random.default_rng(47).integers(0, 200, (120, 160, 1)), 8, 3,
             np.random.default_rng(48).integers(0, 256, (200, 3)), extra=_gama(45455)),
+        # arithmetic-coded (the system libjpeg's), lossless (written here),
+        # files cut in a scan, and a PNG whose tEXt chunk has a bad CRC
+        "arith_ycc420_480x640_q90.jpg": _arith_jpeg(_scene(480, 640, seed=31, noise=6.0), 90),
+        "arith_prog420_rst4_240x320_q85.jpg": _arith_jpeg(_scene(240, 320, seed=41, noise=6.0),
+                                                          85, progressive=True, restart=4),
+        "arith_gray_240x320_q96.jpg": _arith_jpeg(_scene(240, 320, 1, seed=30, noise=4.0), 96,
+                                                  hv="11", keep_dac=False),
+        "lossless_gray_p1_240x320.jpg": _lossless_jpeg([_scene(240, 320, 1, seed=30, noise=4.0)],
+                                                       [(1, 1)], (240, 320), predictor=1),
+        "lossless_gray_p7_pt1_rst8_120x160.jpg": _lossless_jpeg(
+            [_scene(120, 160, 1, seed=50, noise=4.0)], [(1, 1)], (120, 160), predictor=7, pt=1,
+            restart_rows=8),
+        "lossless_cmyk_120x160.jpg": _lossless_jpeg(
+            [c for c in np.moveaxis(_scene(120, 160, 4, seed=51, noise=2.0), -1, 0)],
+            [(2, 2), (1, 1), (1, 1), (2, 2)], (120, 160), predictor=4, adobe=0),
+        "bad_text_crc_120x160.png": _png(_scene(120, 160, seed=52, noise=2.0), 8, 2,
+                                         extra=_bad_crc(_chunk(b"tEXt", b"Comment\0cut"))),
     }
+    # cut in a scan: the baseline and arithmetic 480x640 files at 55% of
+    # their bytes, the progressive one inside its 6th scan (of 10: the
+    # luma's refinement is lost, so libjpeg smooths)
+    for name in ("ycc420_480x640_q90.jpg", "arith_ycc420_480x640_q90.jpg"):
+        files["cut_" + name] = bytes(files[name])[:len(files[name]) * 55 // 100]
+    prog = bytes(files["prog420_rst5_240x320_q85.jpg"])
+    files["cut_prog420_rst5_240x320_q85.jpg"] = prog[:_prog_cut(prog)]
     manifest = {}
     for name, data in files.items():
         path = out_dir / name
@@ -940,6 +1151,16 @@ def make_fixtures(out_dir: Path) -> dict:
     return manifest
 
 
+def _bad_crc(chunk: bytes) -> bytes:
+    """A PNG chunk with the last bit of its CRC flipped."""
+    return chunk[:-1] + bytes([chunk[-1] ^ 1])
+
+
+def _prog_cut(prog: bytes) -> int:
+    """Where the cut progressive fixture ends: 300 bytes into its 6th scan."""
+    return sum(len(u) for u in _scan_units(prog)[:6]) + 300
+
+
 def _manifest():
     return json.loads((FIXTURES / "manifest.json").read_text())
 
@@ -947,8 +1168,8 @@ def _manifest():
 def test_fixtures_are_small_and_complete():
     manifest = _manifest()
     files = sorted(p.name for p in FIXTURES.iterdir() if p.name != "manifest.json")
-    assert files == sorted(manifest) and len(files) == 17
-    assert sum(p.stat().st_size for p in FIXTURES.iterdir()) < 1 << 20
+    assert files == sorted(manifest) and len(files) == 27
+    assert sum(p.stat().st_size for p in FIXTURES.iterdir()) < 3 << 19  # 1.5 MiB
 
 
 # (empty before the fixtures are made: then the test above fails)
