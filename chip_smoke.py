@@ -9,8 +9,9 @@ failure (nothing is caught):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. builds every CUDA kernel from ``ssp_torch/csrc`` (one ``nvcc`` per
-   source) and the host libraries (the image decoder, the rasteriser, the
-   host ops, SIFT and ORB: ``*_host.cpp``, ``g++``), all started together,
+   source) and the host libraries (the image decoder, the JPEG encoder, the
+   rasteriser, the host ops, SIFT and ORB: ``*_host.cpp``, ``g++``), all
+   started together,
    and prints the build seconds of each;
 3. the main path: the trained weights of ``evidence/wsem_weights.npz``
    loaded as ``SuperPointNet_gauss2``, detect+describe at 480×640, B=16,
@@ -286,6 +287,24 @@ failure (nothing is caught):
     ``run_export`` (``export_descriptor`` then ``evaluate -r -homo``) over
     phase 12's tree with the trained weights; each tool's metrics (finite,
     the expected counts) and seconds.
+24. ``[corpus]``, the corpus tools and the stand-in pipeline on their
+    trees (``corpus_phase``): ``ssp_torch.cli.make_coco_tree`` and
+    ``make_gt_labels`` at the split sizes of
+    ``tests/data/torch_corpus/manifest.json`` (28 + 15 images),
+    ``make_coco_sem_labels``, ``make_synth_hpatches`` (40 × 2) and
+    ``make_kitti_tree`` (2 + 1 drives × 10 frames at 384×1248, static and
+    ``--motion``) at their defaults, each tree equal to the manifest's
+    digests of the JAX scripts' trees (JPEG, PPM and text files by their
+    bytes, PNG by its pixels, npz by its arrays); then
+    ``export_detector_homoAdapt`` on ``configs/pipeline240_export.yaml`` and
+    ``_val.yaml`` (every image of each split, 100 warps), ``train_joint`` on
+    ``configs/pipeline240_joint_wsem.yaml`` cut by CORPUS_TRAIN, on the HA
+    labels and on the oracle labels, ``export_eval`` on
+    ``configs/pipeline240_sweep.yaml`` over the 80 synthetic pairs (one CSV
+    row per checkpoint, each exported), ``export_sequence`` and
+    ``eval_sequence --pred`` on the ``--motion`` tree against its
+    ``rel_H.json``; each stage's seconds, the phase's, and its launches
+    (stem, down1, NMS and ``vresample_coef`` must each launch).
 
 Prints a ``{"kernels": [...]}`` line (each row also with the launches of
 phase 12's export, ``launches_export``, of phase 13's sweep,
@@ -298,8 +317,8 @@ phase 18's reload, ``launches_synth_reload``, of phase 19's four runs,
 rank, and of phase 21, ``launches_classical``, all 0, and of phase 22,
 ``launches_dispatch_ha``, ``launches_dispatch_ha_cli``,
 ``launches_dispatch_train``, ``launches_dispatch_synth`` and
-``launches_dispatch_loader``, and of phase 23,
-``launches_tools``; then the ordered scatter's entry (the same keys; its
+``launches_dispatch_loader``, of phase 23,
+``launches_tools``, and of phase 24, ``launches_corpus``; then the ordered scatter's entry (the same keys; its
 ``launches`` those of phase 17's CLI run, its times at the descriptor taps'
 shape, every shape's beside them) and the matcher's, which replace no TPU
 kernel; for the stem, down1 and NMS
@@ -560,6 +579,13 @@ DISPATCH_SPD = 10
 DISPATCH_TIMED = 20
 # phase 23 [tools]: the frames of eval_sequence --synthetic (the JAX tool's default)
 TOOLS_SYNTH_FRAMES = 8
+# phase 24 [corpus]: the corpus tools' trees against the manifest the JAX
+# scripts wrote (the COCO tree and its oracle labels at the manifest's split
+# sizes, the other tools at their defaults), then the stand-in chain of
+# docs/REAL_DATA_RUNBOOK.md on them, each stage cut as these say
+CORPUS_MANIFEST = ROOT / "tests" / "data" / "torch_corpus" / "manifest.json"
+CORPUS_TRAIN = {"train_iter": 4, "save_interval": 2, "validation_interval": 4,
+                "validation_size": 1, "tensorboard_interval": 1, "steps_per_dispatch": 1}
 
 
 def log(msg: str) -> None:
@@ -1271,6 +1297,7 @@ def main() -> None:
         classical = classical_phase(dev, td, smi)
         dispatch = dispatch_phase(dev, td, smi)
         tools = tools_phase(dev, td, smi)
+        corpus = corpus_phase(dev, td, smi)
     sc = train["scatter"]
     kernels.append({
         "name": "ordered_scatter", "route": "cuda", "source": "ssp_torch/csrc/ordered_scatter.cu",
@@ -1297,6 +1324,7 @@ def main() -> None:
         for path, counts in dispatch.items():
             row[f"launches_dispatch_{path}"] = counts.get(row["name"], 0)
         row["launches_tools"] = tools.get(row["name"], 0)
+        row["launches_corpus"] = corpus.get(row["name"], 0)
         if row["name"] in export_times:
             row["export_1x240x320"] = export_times[row["name"]]
         if row["name"] in sequence_times:
@@ -3655,6 +3683,152 @@ def tools_phase(dev: torch.device, td: Path, smi: str) -> dict:
         lambda: run_export_cli.main([str(cfg_path), "tools_hp", "--device", str(dev)]),
         lambda m: ([] if m["n_files"] == HP_SEQ * len(HP_VIEWS) else ["n_files"]) +
         finite("repeatability", "localization_err", "nn_map", "matching_score")(m))
+    return total
+
+
+def corpus_phase(dev: torch.device, td: Path, smi: str) -> dict:
+    """Phase 24 [corpus]: the five corpus tools (``ssp_torch/cli/make_*.py``)
+    write their trees under ``td / "corpus"``, each held to the manifest of the
+    JAX scripts' trees; then the stand-in chain of
+    ``docs/REAL_DATA_RUNBOOK.md`` on those trees through the port's CLIs, each
+    stage cut as CORPUS_TRAIN says: the stage-2 HA export of both splits,
+    ``train_joint`` on ``configs/pipeline240_joint_wsem.yaml`` on the HA labels
+    and on the oracle labels, ``export_eval`` on ``configs/pipeline240_sweep.
+    yaml`` over the synthetic HPatches, ``export_sequence`` and ``eval_sequence
+    --pred`` on the ``--motion`` tree.  Each stage's outputs are checked, each
+    tool's and stage's seconds printed.  Returns the launches over the phase."""
+    from ssp_torch.cli import (export_eval, make_coco_sem_labels, make_coco_tree,
+                               make_gt_labels, make_kitti_tree, make_synth_hpatches)
+    from ssp_torch.data.corpus import tree_digests
+
+    t_phase = time.perf_counter()
+    work = td / "corpus"
+    manifest = json.loads(CORPUS_MANIFEST.read_text())
+    cut = manifest["coco_split_sizes"]
+    coco, gt, hp = work / "COCO240", work / "gt_labels", work / "HPatches"
+    total: dict = {}
+    saved = os.environ["SSP_DATA_PATH"]
+    os.environ["SSP_DATA_PATH"] = str(work / "data")  # the synthetic shards' cache
+
+    def run(name, fn):
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):  # the tools print what they wrote
+            out = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        log(f"[corpus] {name}: {secs:.2f} s ({smi}); launches {launches}")
+        return out
+
+    try:
+        # ---- (a) the five tools, against the manifest
+        run(f"make_coco_tree at {cut['training']} + {cut['validation']} per primitive "
+            "(the script's 1500 + 40 cut)",
+            lambda: make_coco_tree.make_coco_tree(coco, split_sizes=cut))
+        run("make_gt_labels at the same cut",
+            lambda: make_gt_labels.make_gt_labels(gt, split_sizes=cut))
+        run("make_coco_sem_labels (sigma 4)",
+            lambda: make_coco_sem_labels.main(["--root", str(coco)]))
+        run("make_synth_hpatches (40 sequences x 2 views, 240x320)",
+            lambda: make_synth_hpatches.main([str(hp)]))
+        for name, flags in (("KITTI_synth", []), ("KITTI_motion", ["--motion"])):
+            run(f"make_kitti_tree {' '.join(flags) or '(static)'} (2 + 1 drives x 10 frames, "
+                "384x1248)",
+                lambda: make_kitti_tree.main(["--root", str(work / name), *flags]))
+        for name, want in manifest["trees"].items():
+            got = tree_digests(work / name)
+            bad = sorted(k for k in set(want) | set(got) if got.get(k) != want.get(k))
+            if bad:
+                raise AssertionError(f"[corpus] {name}: {len(bad)} of {len(want)} files differ "
+                                     f"from the manifest, e.g. {bad[:4]}")
+            log(f"[corpus] {name}: {len(got)} files equal to the JAX scripts' manifest")
+
+        # ---- (b) the stand-in chain on those trees
+        preds = td / "logs" / "corpus_export" / "predictions"
+        n_split = {s: len(list((coco / s).glob("*.jpg"))) for s in ("train2017", "val2017")}
+        for cfg_name, split in (("pipeline240_export.yaml", "train2017"),
+                                ("pipeline240_export_val.yaml", "val2017")):
+            cfg = yaml.safe_load((ROOT / "configs" / cfg_name).read_text())
+            cfg["data"]["root"], cfg["pretrained"] = str(coco), str(NPZ)
+            written = run(f"export_detector_homoAdapt {cfg_name} ({n_split[split]} images, "
+                          f"{cfg['data']['homography_adaptation']['num']} warps each; the "
+                          "trained weights as the stage-1 detector)",
+                          lambda: export_detector_homoAdapt(cfg, "corpus_export", device=dev))
+            files = sorted((preds / split).glob("*.npz"))
+            if written != n_split[split] or len(files) != n_split[split]:
+                raise AssertionError(f"[corpus] HA export of {split}: {written} written, "
+                                     f"{len(files)} files")
+            for f in files:
+                with np.load(f) as z:
+                    if z["pts"].ndim != 2 or z["pts"].shape[1] != 3 or \
+                            not np.isfinite(z["pts"]).all():
+                        raise AssertionError(f"[corpus] {f}: pts {z['pts'].shape}")
+        train_cfg = yaml.safe_load((ROOT / "configs" / "pipeline240_joint_wsem.yaml").read_text())
+        for exper, labels in (("corpus_joint", preds), ("corpus_joint_gt", gt)):
+            cfg = copy.deepcopy(train_cfg)
+            cfg["data"].update(root=str(coco), labels=str(labels), sem_labels=str(coco /
+                                                                                "annotations"))
+            cfg.update(**CORPUS_TRAIN)
+            cfg_path = work / f"{exper}.yaml"
+            cfg_path.write_text(yaml.safe_dump(cfg))
+            run(f"train_joint pipeline240_joint_wsem.yaml on {labels.relative_to(td)} "
+                f"(cut: {CORPUS_TRAIN})",
+                lambda: train_cli.main(["train_joint", str(cfg_path), exper, "--device",
+                                        str(dev)]))
+            out = td / "logs" / exper
+            rows = [json.loads(r) for r in (out / "metrics_train.jsonl").read_text().splitlines()]
+            ckpts = sorted(p.name for p in (out / "checkpoints").glob("superPointNet_*.npz"))
+            steps = CORPUS_TRAIN["train_iter"]
+            if [r["step"] for r in rows] != list(range(steps)) or \
+                    not all(np.isfinite(v) for r in rows for v in r.values()) or \
+                    ckpts != [f"superPointNet_{s}.npz" for s in range(
+                        CORPUS_TRAIN["save_interval"], steps + 1, CORPUS_TRAIN["save_interval"])]:
+                raise AssertionError(f"[corpus] {exper}: rows {rows}, checkpoints {ckpts}")
+            log(f"[corpus] {exper}: loss by step " + ", ".join(
+                f"{r['step']}: {r['loss']:.4f}" for r in rows) + f"; checkpoints {ckpts}")
+        sweep_cfg = yaml.safe_load((ROOT / "configs" / "pipeline240_sweep.yaml").read_text())
+        sweep_cfg["data"]["root"] = str(hp)
+        sweep_cfg["model"]["folder"] = str(td / "logs" / "corpus_joint" / "checkpoints")
+        csv_path = run(f"export_eval pipeline240_sweep.yaml over {hp.name} (80 pairs) and "
+                       "corpus_joint's checkpoints",
+                       lambda: export_eval.sweep(sweep_cfg, "corpus_sweep", device=dev))
+        with open(csv_path) as f:
+            sweep_rows = list(csv.DictReader(f))
+        n_ckpt = len(list((td / "logs" / "corpus_joint" / "checkpoints").glob("*.npz")))
+        if len(sweep_rows) != n_ckpt or not all(
+                float(r["repeatability"]) > 0 and np.isfinite(float(r["nn_map"]))
+                for r in sweep_rows):
+            raise AssertionError(f"[corpus] sweep rows {sweep_rows}")
+        log(f"[corpus] sweep: {len(sweep_rows)} rows, " + "; ".join(
+            f"iter {r['iter']}: repeatability {float(r['repeatability']):.4f}, NN mAP "
+            f"{float(r['nn_map']):.4f}" for r in sweep_rows))
+        motion = work / "KITTI_motion"
+        seq_cfg = copy.deepcopy(SEQUENCE_CONFIG)
+        seq_cfg["data"]["root"] = seq_cfg["data"]["root_split_txt"] = str(motion)
+        seq_cfg["pretrained"] = str(NPZ)
+        written = run("export_sequence (the --motion tree's 2 train drives x 10 frames, "
+                      "384x1248)", lambda: export_sequence(seq_cfg, "corpus_sequence",
+                                                          device=dev))
+        m = run("eval_sequence --pred (rel_H.json as the ground truth)",
+                lambda: eval_sequence.main(["--pred", str(td / "logs" / "corpus_sequence" /
+                                                          "predictions"), "--rel-h-root",
+                                            str(motion), "--device", str(dev)]))
+        if written != 20 or m["n_sequences"] != 2 or m["n_frames"] != 20 or not all(
+                np.isfinite(float(m[k])) for k in ("survival_mean", "mean_matches_per_pair")):
+            raise AssertionError(f"[corpus] sequence: {written} frames, {m}")
+        log(f"[corpus] eval_sequence: " + json.dumps(
+            {k: v for k, v in m.items() if not isinstance(v, dict)}))
+    finally:
+        os.environ["SSP_DATA_PATH"] = saved
+    missing = [k for k in ("stem", "down1", "nms", "vresample_coef") if not total.get(k)]
+    if dev.type == "cuda" and missing:
+        raise AssertionError(f"[corpus] no launch of {missing} over the phase: {total}")
+    log(f"[corpus] phase 24: {time.perf_counter() - t_phase:.2f} s ({smi}); launches over the "
+        f"phase {total}")
     return total
 
 

@@ -36,17 +36,22 @@
 // * ``getAffineTransform`` and ``getPerspectiveTransform``: the 6x6 and 8x8
 //   systems as OpenCV sets them up (the perspective products in float),
 //   solved by OpenCV's LU with partial pivoting;
-// * ``warpPerspective`` of a float32 image, INTER_LINEAR, BORDER_CONSTANT 0
-//   (the sequence evaluation's frames): the matrix inverted as OpenCV's
+// * ``GaussianBlur`` with a sigma and kernel size 0 (the semantic labels'
+//   smoothing): the size cvRound(6 sigma + 1) | 1, the taps from that sigma,
+//   then the same fixed-point passes;
+// * ``warpPerspective`` of a float32 or an 8-bit image, INTER_LINEAR,
+//   BORDER_CONSTANT 0 (the sequence evaluation's frames, the synthetic
+//   HPatches and KITTI corpora): the matrix inverted as OpenCV's
 //   ``invert`` inverts a 3x3 (cofactors over the determinant, in double) and
 //   rounded to float; each destination pixel's source point in float, the
 //   per-row terms M1*y + M2 rounded twice, the column term one fused
 //   multiply-add, one division by the homogeneous coordinate; the taps
 //   blended by three fused lerps (no 1/32 grid: OpenCV 5.0 computes linear
-//   warps in float).  OpenCV runs the first 16 * floor(W / 16) columns of a
-//   row in its vector loop and the rest in a scalar loop whose sums its
-//   compiler contracted otherwise (x*M0 + y*M1 as one FMA, then + M2); both
-//   are reproduced.
+//   warps in float, 8-bit ones too, rounded to nearest, ties to even, at the
+//   end).  OpenCV runs the first 16 * floor(W / 16) columns of a row in its
+//   vector loop and the rest in a scalar loop whose sums its compiler
+//   contracted otherwise (x*M0 + y*M1 as one FMA, then + M2); both are
+//   reproduced.
 //
 // Build without -ffast-math and without FMA contraction (kernels/_build.py):
 // the double arithmetic must round as OpenCV's does.  A plain C interface
@@ -77,6 +82,7 @@ struct P {
 
 using sspcv::reflect101;
 using sspcv::round_even;
+using sspcv::cv_round;
 using sspcv::sat_u8;
 
 inline void hline(const Canvas& c, int y, int x1, int x2, uint8_t color) {
@@ -770,10 +776,40 @@ void box_blur(const uint8_t* src, uint8_t* dst, int h, int w, int k) {
   }
 }
 
-// OpenCV's bit-exact Gaussian taps for 8-bit images: 8 fractional bits.
-std::vector<uint32_t> gaussian_taps(int n) {
+// OpenCV's getGaussianKernelBitExact: n (odd) taps of a bell of the given
+// sigma, normalised to sum 1, in double.
+std::vector<double> gaussian_bell(int n, double sigma) {
   std::vector<double> kd(static_cast<size_t>(n));
-  if (n == 3) {
+  const double scale2 = -0.125 / (sigma * sigma);
+  const int n2 = (n - 1) / 2;
+  std::vector<double> values(static_cast<size_t>(n2 + 1));
+  double sum = 0.0;
+  for (int i = 0, x = 1 - n; i < n2; i++, x += 2) {
+    const double t = std::exp(static_cast<double>(x * x) * scale2);
+    values[i] = t;
+    sum += t;
+  }
+  sum *= 2.0;
+  sum += 1.0;
+  const double mul1 = 1.0 / sum;
+  for (int i = 0; i < n2; i++) {
+    const double t = values[i] * mul1;
+    kd[i] = t;
+    kd[n - 1 - i] = t;
+  }
+  kd[n2] = 1.0 * mul1;
+  return kd;
+}
+
+// OpenCV's bit-exact Gaussian taps for 8-bit images: 8 fractional bits.
+// ``sigma`` > 0 sets the bell; else it follows from n (the tables of 3..9).
+std::vector<uint32_t> gaussian_taps(int n, double sigma) {
+  std::vector<double> kd(static_cast<size_t>(n));
+  if (n == 1) {
+    kd = {1.0};
+  } else if (sigma > 0.0) {
+    kd = gaussian_bell(n, sigma);
+  } else if (n == 3) {
     kd = {0.25, 0.5, 0.25};
   } else if (n == 5) {
     kd = {0.0625, 0.25, 0.375, 0.25, 0.0625};
@@ -783,25 +819,7 @@ std::vector<uint32_t> gaussian_taps(int n) {
     kd = {4.0 / 256, 13.0 / 256, 30.0 / 256, 51.0 / 256, 60.0 / 256,
           51.0 / 256, 30.0 / 256, 13.0 / 256, 4.0 / 256};
   } else {
-    const double sigma = static_cast<double>(n) * 0.15 + 0.35;
-    const double scale2 = -0.125 / (sigma * sigma);
-    const int n2 = (n - 1) / 2;
-    std::vector<double> values(static_cast<size_t>(n2 + 1));
-    double sum = 0.0;
-    for (int i = 0, x = 1 - n; i < n2; i++, x += 2) {
-      const double t = std::exp(static_cast<double>(x * x) * scale2);
-      values[i] = t;
-      sum += t;
-    }
-    sum *= 2.0;
-    sum += 1.0;
-    const double mul1 = 1.0 / sum;
-    for (int i = 0; i < n2; i++) {
-      const double t = values[i] * mul1;
-      kd[i] = t;
-      kd[n - 1 - i] = t;
-    }
-    kd[n2] = 1.0 * mul1;
+    kd = gaussian_bell(n, static_cast<double>(n) * 0.15 + 0.35);
   }
   // error-diffused rounding to 8 fractional bits; the centre takes the rest
   std::vector<uint32_t> taps(static_cast<size_t>(n));
@@ -819,8 +837,8 @@ std::vector<uint32_t> gaussian_taps(int n) {
   return taps;
 }
 
-void gaussian_blur(const uint8_t* src, uint8_t* dst, int h, int w, int n) {
-  const std::vector<uint32_t> t = gaussian_taps(n);
+void gaussian_blur(const uint8_t* src, uint8_t* dst, int h, int w, int n, double sigma) {
+  const std::vector<uint32_t> t = gaussian_taps(n, sigma);
   const int r = n / 2;
   // horizontal pass at 8 fractional bits: at most 255 * 256, exact in 16 bits
   // (the taps are symmetric: one product per pair)
@@ -904,14 +922,17 @@ bool invert3(const double* m, double* t) {
   return true;
 }
 
-// The bilinear sample of a float image at (sx, sy), taps outside it 0.
-float linear_tap(const float* src, int h, int w, float sx, float sy) {
+// The bilinear sample of an image (float or 8-bit, taken as float) at
+// (sx, sy), taps outside it 0.
+template <typename T>
+float linear_tap(const T* src, int h, int w, float sx, float sy) {
   const float fx = std::floor(sx), fy = std::floor(sy);
   // no tap inside (NaN too): the border value
   if (!(fx >= -1.0f && fx <= float(w - 1) && fy >= -1.0f && fy <= float(h - 1))) return 0.0f;
   const int x0 = static_cast<int>(fx), y0 = static_cast<int>(fy);
   auto at = [&](int y, int x) {
-    return (x >= 0 && x < w && y >= 0 && y < h) ? src[static_cast<size_t>(y) * w + x] : 0.0f;
+    return (x >= 0 && x < w && y >= 0 && y < h) ? static_cast<float>(src[static_cast<size_t>(y) * w + x])
+                                                : 0.0f;
   };
   const float a = sx - fx, b = sy - fy;
   const float p00 = at(y0, x0), p01 = at(y0, x0 + 1), p10 = at(y0 + 1, x0),
@@ -920,15 +941,15 @@ float linear_tap(const float* src, int h, int w, float sx, float sy) {
   return std::fma(b, bot - top, top);
 }
 
-}  // namespace
+inline float store(float v, float*) { return v; }
+// an 8-bit destination: the float blend rounded to nearest, ties to even, and
+// saturated (OpenCV's v_round and v_pack_u; saturate_cast in the scalar loop)
+inline uint8_t store(float v, uint8_t*) { return sat_u8(cv_round(v)); }
 
-extern "C" {
-
-// cv::warpPerspective(src, dst, H, (dw, dh), INTER_LINEAR) of a float32 [sh, sw]
-// image into dst [dh, dw]; H row-major, source to destination.  Returns -1
-// (dst untouched) for a singular H.
-int ssp_warp_perspective(const float* src, int sh, int sw, float* dst, int dh, int dw,
-                         const double* H) {
+// warpPerspective, INTER_LINEAR, BORDER_CONSTANT 0, of a float32 or 8-bit
+// image (module comment); -1 for a singular H.
+template <typename T>
+int warp_perspective(const T* src, int sh, int sw, T* dst, int dh, int dw, const double* H) {
   double inv[9];
   if (!invert3(H, inv)) return -1;
   float m[9];
@@ -937,7 +958,7 @@ int ssp_warp_perspective(const float* src, int sh, int sw, float* dst, int dh, i
   for (int y = 0; y < dh; y++) {
     const float yf = static_cast<float>(y);
     const float rx = m[1] * yf + m[2], ry = m[4] * yf + m[5], rw = m[7] * yf + m[8];
-    float* row = dst + static_cast<size_t>(y) * dw;
+    T* row = dst + static_cast<size_t>(y) * dw;
     for (int x = 0; x < dw; x++) {
       const float xf = static_cast<float>(x);
       float X, Y, Z;
@@ -950,10 +971,28 @@ int ssp_warp_perspective(const float* src, int sh, int sw, float* dst, int dh, i
         Y = std::fma(xf, m[3], yf * m[4]) + m[5];
         Z = std::fma(xf, m[6], yf * m[7]) + m[8];
       }
-      row[x] = linear_tap(src, sh, sw, X / Z, Y / Z);
+      row[x] = store(linear_tap(src, sh, sw, X / Z, Y / Z), row);
     }
   }
   return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// cv::warpPerspective(src, dst, H, (dw, dh), INTER_LINEAR) of a float32 [sh, sw]
+// image into dst [dh, dw]; H row-major, source to destination.  Returns -1
+// (dst untouched) for a singular H.
+int ssp_warp_perspective(const float* src, int sh, int sw, float* dst, int dh, int dw,
+                         const double* H) {
+  return warp_perspective(src, sh, sw, dst, dh, dw, H);
+}
+
+// The same of an 8-bit image.
+int ssp_warp_perspective_u8(const uint8_t* src, int sh, int sw, uint8_t* dst, int dh, int dw,
+                            const double* H) {
+  return warp_perspective(src, sh, sw, dst, dh, dw, H);
 }
 
 int ssp_line(uint8_t* img, int h, int w, int64_t x1, int64_t y1, int64_t x2, int64_t y2,
@@ -1011,7 +1050,14 @@ int ssp_box_blur(const uint8_t* src, uint8_t* dst, int h, int w, int k) {
 }
 
 int ssp_gaussian_blur(const uint8_t* src, uint8_t* dst, int h, int w, int n) {
-  gaussian_blur(src, dst, h, w, n);
+  gaussian_blur(src, dst, h, w, n, 0.0);
+  return 0;
+}
+
+// cv::GaussianBlur(src, dst, Size(0, 0), sigma) of an 8-bit image: the kernel
+// size cvRound(sigma * 3 * 2 + 1) | 1, the taps from sigma.
+int ssp_gaussian_blur_sigma(const uint8_t* src, uint8_t* dst, int h, int w, double sigma) {
+  gaussian_blur(src, dst, h, w, cv_round(sigma * 3 * 2 + 1) | 1, sigma);
   return 0;
 }
 

@@ -1,5 +1,5 @@
 """Grayscale image decoding without OpenCV: JPEG, PNG and binary netpbm;
-and a PNG writer (:func:`write_png`).
+and two writers, :func:`write_png` and :func:`write_jpeg`.
 
 :func:`decode_gray` returns what ``cv2.imread(path, cv2.IMREAD_GRAYSCALE)``
 returns (OpenCV 5.0 on libjpeg-turbo 3.1, with its x86 SIMD code, and
@@ -82,6 +82,11 @@ for a ``.png`` path: the channels swapped to the file's RGB order, 8 bits.
 The bytes are its own (``zlib`` and ``struct`` alone, each row's filter
 type cycling through 0-4), the pixels ``cv2.imread`` reads back are
 ``cv2.imwrite``'s.
+
+:func:`write_jpeg` writes a uint8 gray image as ``cv2.imwrite`` does for a
+``.jpg`` path, byte for byte: libjpeg-turbo's baseline file at the given
+quality (C++ ``ssp_torch/csrc/jpeg_encode_host.cpp``, built like the
+decoder).
 """
 
 from __future__ import annotations
@@ -168,6 +173,42 @@ def write_png(path, img: np.ndarray) -> Path:
         + png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0 if ch == 1 else 2, 0, 0, 0))
         + png_chunk(b"IDAT", zlib.compress(filter_rows(img.reshape(h, w * ch), ch), 6))
         + png_chunk(b"IEND", b""))
+    return path
+
+
+def _encoder() -> ctypes.CDLL:
+    from ssp_torch.kernels import _build
+
+    lib = _build.load("jpeg_encode_host")
+    if not getattr(lib, "_ssp_typed", False):
+        i32, i64 = ctypes.c_int, ctypes.c_int64
+        lib.ssp_jpeg_encode_gray.argtypes = [ctypes.c_void_p, i32, i32, i32, ctypes.c_void_p, i64]
+        lib.ssp_jpeg_encode_gray.restype = i64
+        lib.ssp_jpeg_encode_bound.argtypes = [i32, i32]
+        lib.ssp_jpeg_encode_bound.restype = i64
+        lib._ssp_typed = True
+    return lib
+
+
+def write_jpeg(path, img: np.ndarray, quality: int = 95) -> Path:
+    """uint8 [H, W] gray → the JPEG file ``cv2.imwrite(path, img,
+    [cv2.IMWRITE_JPEG_QUALITY, quality])`` writes, byte for byte (module
+    docstring); any other form is refused with ``ValueError``."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim != 2 or 0 in img.shape:
+        raise ValueError(f"write_jpeg takes a uint8 [H, W] gray image, not {img.dtype} "
+                         f"{img.shape}")
+    if max(img.shape) > 65535:
+        raise ValueError(f"a JPEG side is at most 65535 pixels, not {img.shape}")
+    src = np.ascontiguousarray(img)
+    lib = _encoder()
+    out = np.empty(lib.ssp_jpeg_encode_bound(*src.shape), np.uint8)
+    n = lib.ssp_jpeg_encode_gray(src.ctypes.data, src.shape[0], src.shape[1], int(quality),
+                                 out.ctypes.data, out.size)
+    if n < 0:
+        raise RuntimeError("jpeg encoder: the output bound was too small")
+    path = Path(path)
+    path.write_bytes(out[:n].tobytes())
     return path
 
 

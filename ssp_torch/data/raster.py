@@ -8,7 +8,10 @@ single-channel canvases, 8-connected lines, integer coordinates) or, for
 :func:`line_aa` and :func:`circle_color`, those ``ssp_torch.utils.draw``
 passes (8-bit canvases of 1, 3 or 4 channels, a colour per channel), or, for
 :func:`warp_perspective`, those of the sequence evaluation
-(``ssp_torch.cli.eval_sequence``: float32 images, bilinear).  The
+(``ssp_torch.cli.eval_sequence``: float32 images, bilinear) and of the
+corpus tools (``ssp_torch.cli.make_synth_hpatches``, ``make_kitti_tree``:
+uint8 and float32 images), or, for :func:`gaussian_blur_sigma`, those of
+``ssp_torch.cli.make_coco_sem_labels``.  The
 drawing functions paint into the uint8 array they are given, in place, as
 ``cv2`` does; the filters return a new array.  The library is built with
 the system ``g++`` at first use (``ssp_torch.kernels._build``); its calls go
@@ -39,7 +42,9 @@ def _lib() -> ctypes.CDLL:
         lib.ssp_gaussian_blur.argtypes = [ptr, ptr, i, i, i]
         lib.ssp_affine_transform.argtypes = [ptr, ptr, ptr]
         lib.ssp_perspective_transform.argtypes = [ptr, ptr, ptr]
+        lib.ssp_gaussian_blur_sigma.argtypes = [ptr, ptr, i, i, f64]
         lib.ssp_warp_perspective.argtypes = [ptr, i, i, ptr, i, i, ptr]
+        lib.ssp_warp_perspective_u8.argtypes = [ptr, i, i, ptr, i, i, ptr]
         lib._ssp_typed = True
     return lib
 
@@ -148,6 +153,17 @@ def gaussian_blur(img: np.ndarray, k: int) -> np.ndarray:
     return out
 
 
+def gaussian_blur_sigma(img: np.ndarray, sigma: float) -> np.ndarray:
+    """``cv2.GaussianBlur(img, (0, 0), sigma)``: OpenCV's 8-bit kernel size
+    ``cvRound(6 sigma + 1) | 1`` and taps from ``sigma`` (> 0)."""
+    if not sigma > 0:
+        raise ValueError(f"gaussian_blur_sigma takes a sigma > 0, not {sigma}")
+    src = np.ascontiguousarray(_canvas(img))
+    out = np.empty_like(src)
+    _lib().ssp_gaussian_blur_sigma(src.ctypes.data, out.ctypes.data, *src.shape, float(sigma))
+    return out
+
+
 def affine_transform(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
     """``cv2.getAffineTransform(src, dst)``: float32 [3, 2] pairs → [2, 3]
     float64."""
@@ -170,15 +186,18 @@ def perspective_transform(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
 
 def warp_perspective(img: np.ndarray, H: np.ndarray, dsize) -> np.ndarray:
     """``cv2.warpPerspective(img, H, dsize, flags=cv2.INTER_LINEAR)`` of a
-    float32 ``[h, w]`` image (``BORDER_CONSTANT`` 0); ``H`` [3, 3] maps the
-    source to the destination, ``dsize`` is (width, height)."""
-    src = np.ascontiguousarray(img, np.float32)
+    float32 or uint8 ``[h, w]`` image (``BORDER_CONSTANT`` 0), in its dtype;
+    ``H`` [3, 3] maps the source to the destination, ``dsize`` is (width,
+    height).  Any other dtype is taken as float32."""
+    u8 = np.asarray(img).dtype == np.uint8
+    src = np.ascontiguousarray(img, np.uint8 if u8 else np.float32)
     if src.ndim != 2:
-        raise ValueError(f"a float32 [H, W] image, not {img.dtype} {img.shape}")
+        raise ValueError(f"a float32 or uint8 [H, W] image, not {img.dtype} {img.shape}")
     m = np.ascontiguousarray(H, np.float64).reshape(3, 3)
     dw, dh = (int(v) for v in dsize)
-    out = np.empty((dh, dw), np.float32)
-    if _lib().ssp_warp_perspective(src.ctypes.data, src.shape[0], src.shape[1], out.ctypes.data,
-                                   dh, dw, m.ctypes.data) != 0:
+    out = np.empty((dh, dw), src.dtype)
+    warp = _lib().ssp_warp_perspective_u8 if u8 else _lib().ssp_warp_perspective
+    if warp(src.ctypes.data, src.shape[0], src.shape[1], out.ctypes.data, dh, dw,
+            m.ctypes.data) != 0:
         raise ValueError("warp_perspective: the homography is singular")
     return out

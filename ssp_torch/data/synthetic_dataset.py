@@ -44,6 +44,24 @@ class SyntheticShapesDataset(ImageDataset):
         seed: int = 0,
         **_unused: Any,
     ):
+        self._configure(task, primitives, suffix, generation, preprocessing, cache_dir, seed)
+        truncate = dict(truncate or {})
+        imgs: List[np.ndarray] = []
+        pts: List[np.ndarray] = []
+        valid: List[np.ndarray] = []
+        for prim in self.primitives:
+            i, p, v = self._load_shard(prim)
+            frac = float(truncate.get(prim, 1.0))
+            keep = max(int(round(len(i) * frac)), 1)
+            imgs.append(i[:keep])
+            pts.append(p[:keep])
+            valid.append(v[:keep])
+        self._images = np.concatenate(imgs, axis=0)
+        self._points = np.concatenate(pts, axis=0)
+        self._valid = np.concatenate(valid, axis=0)
+
+    def _configure(self, task, primitives, suffix, generation, preprocessing, cache_dir,
+                   seed) -> None:
         self.split = _TASK_TO_SPLIT.get(task, task)
         if primitives in ("all", None):
             prims = list(PRIMITIVES)
@@ -60,7 +78,6 @@ class SyntheticShapesDataset(ImageDataset):
         prep = dict(preprocessing or {})
         self.resize = tuple(int(v) for v in (prep.get("resize") or (240, 320)))
         self.blur_size = int(prep.get("blur_size", 11))
-        truncate = dict(truncate or {})
         self.seed = int(gen.get("random_seed", seed))
 
         if cache_dir is None:
@@ -68,19 +85,17 @@ class SyntheticShapesDataset(ImageDataset):
             cache_dir = settings_paths()["DATA_PATH"] / name
         self.cache_dir = Path(cache_dir)
 
-        imgs: List[np.ndarray] = []
-        pts: List[np.ndarray] = []
-        valid: List[np.ndarray] = []
-        for prim in self.primitives:
-            i, p, v = self._load_shard(prim)
-            frac = float(truncate.get(prim, 1.0))
-            keep = max(int(round(len(i) * frac)), 1)
-            imgs.append(i[:keep])
-            pts.append(p[:keep])
-            valid.append(v[:keep])
-        self._images = np.concatenate(imgs, axis=0)
-        self._points = np.concatenate(pts, axis=0)
-        self._valid = np.concatenate(valid, axis=0)
+    @classmethod
+    def missing_shards(cls, task: str = "train", primitives: Any = "all",
+                       suffix: Optional[str] = None, generation: Optional[Dict[str, Any]] = None,
+                       preprocessing: Optional[Dict[str, Any]] = None,
+                       cache_dir: Optional[Path] = None, seed: int = 0,
+                       **_unused: Any) -> Dict[str, int]:
+        """{primitive: samples} of the shards of this configuration that are
+        not cached yet (what constructing the dataset would generate)."""
+        ds = cls.__new__(cls)
+        ds._configure(task, primitives, suffix, generation, preprocessing, cache_dir, seed)
+        return {p: ds.per_primitive for p in ds.primitives if not ds._shard_path(p).exists()}
 
     # -- generation / cache -------------------------------------------
     def _shard_path(self, prim: str) -> Path:

@@ -1,6 +1,6 @@
 """Build the port's native code and load it with ctypes: the CUDA kernels
-with ``nvcc``, the host libraries (the image decoder, the rasteriser, the
-host ops) with the system ``g++``.
+with ``nvcc``, the host libraries (the image decoder, the JPEG encoder, the
+rasteriser, the host ops) with the system ``g++``.
 
 Each ``ssp_torch/csrc/<name>.cu`` (and the host source ``<name>.cpp``)
 compiles on its own into ``ssp_torch/_build/lib<name>-<hash>.so``: a plain
@@ -30,7 +30,8 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = ("bfmatch", "down1", "nms", "ordered_scatter", "stem", "vresample")
-HOST_SOURCES = ("features_host", "imageio_host", "ops_host", "raster_host")  # csrc/<name>.cpp, g++
+HOST_SOURCES = ("features_host", "imageio_host", "jpeg_encode_host", "ops_host",
+                "raster_host")  # csrc/<name>.cpp, g++
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -65,7 +65,10 @@ def test_port_files_found():
             "ssp_torch/kernels/bfmatch.py", "ssp_torch/cli/export_classical.py"} <= names
     assert {"ssp_torch/kernels/ordered_scatter.py", "ssp_torch/cli/eval_sequence.py",
             "ssp_torch/cli/eval_semantic.py", "ssp_torch/cli/run_export.py"} <= names
-    assert len(names) > 70
+    assert {"ssp_torch/cli/make_coco_tree.py", "ssp_torch/cli/make_gt_labels.py",
+            "ssp_torch/cli/make_coco_sem_labels.py", "ssp_torch/cli/make_synth_hpatches.py",
+            "ssp_torch/cli/make_kitti_tree.py", "ssp_torch/data/corpus.py"} <= names
+    assert len(names) >= 97
 
 
 def test_fresh_interpreter_imports_every_module_without_jax_ssp_cv2():
