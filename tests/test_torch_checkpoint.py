@@ -17,6 +17,7 @@ from ssp.models.weights import load_torch_checkpoint as j_load_torch_checkpoint
 from ssp_torch.cli.export import _load_model
 from ssp_torch.models import build_model
 from ssp_torch.models.weights import load_flax_npz, load_torch_checkpoint, load_weights
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 NPZ = Path(__file__).resolve().parents[1] / "evidence" / "wsem_weights.npz"
 NAME = "SuperPointNet_gauss2_ssmall"

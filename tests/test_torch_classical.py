@@ -57,6 +57,7 @@ from ssp_torch.export import classical as t_classical
 from ssp_torch.export import _cv_primitives as P
 from ssp_torch.export import features as F
 from ssp_torch.kernels import bfmatch
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 FIXTURES = ROOT / "tests" / "data" / "torch_classical"

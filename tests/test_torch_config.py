@@ -15,6 +15,7 @@ from ssp.utils.experiment import ExperimentPaths as JExperimentPaths
 from ssp.utils.experiment import settings_paths as j_settings_paths
 from ssp_torch.utils.config import dict_update, load_config
 from ssp_torch.utils.experiment import ExperimentPaths, settings_paths
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 CONFIGS = sorted((ROOT / "configs").glob("*.yaml"))

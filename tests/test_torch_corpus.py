@@ -40,6 +40,7 @@ from ssp_torch.cli import (make_coco_sem_labels, make_coco_tree, make_gt_labels,
 from ssp_torch.data import imageio, raster
 from ssp_torch.data.corpus import tree_digests
 from ssp_torch.data.synthetic_shapes import generate_sample
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 cv2 = pytest.importorskip("cv2")
 

@@ -20,6 +20,7 @@ from ssp.data.hpatches import PatchesDataset as JPatchesDataset
 from ssp_torch import registry
 from ssp_torch.data.base import read_gray, read_pnm_header, resize_area, rgb_to_gray, write_pnm
 from ssp_torch.data.hpatches import PatchesDataset
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 RESIZES = [
     ((48, 64), (48, 64)),       # identity

@@ -24,6 +24,8 @@ the flax-initialised weights carried across by ``flax_to_state_dict``.
   micro-batch's (gradients summed, not averaged).
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -43,7 +45,8 @@ from ssp_torch.models.superpoint import build_model
 from ssp_torch.models.weights import flax_to_state_dict, load_flax_npz, load_reference_state_dict
 from ssp_torch.train import TrainState, accum_train_step, train_step
 from ssp_torch.train.lr import PolynomialDecayLR
-from test_torch_train_step import _fp64
+from test_torch_train_step import _fp64, _widen
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 B, H, W = 2, 48, 64
 KW = dict(semantic=False, warped_pair=True, det_loss_type="softmax", desc_loss="dense",
@@ -53,17 +56,6 @@ PAIR = {"enable": True, "valid_border_margin": 3, "params": {
     "translation": True, "rotation": True, "scaling": True, "perspective": True,
     "scaling_amplitude": 0.2, "perspective_amplitude_x": 0.2, "perspective_amplitude_y": 0.2,
     "patch_ratio": 0.85, "max_angle": 0.785, "allow_artifacts": True}}
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread for the port's small CPU tensors: the suite's
-    workers share the cores, and eight spinning threads per worker slow
-    every worker."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jbatch(n, seed):
@@ -116,7 +108,7 @@ def test_dense_loss_matches_jax(jbatch):
 def test_dense_train_step_matches_jax(jbatch):
     batch = {k: v[:B] for k, v in jbatch.items()}
     jm = j_build_model("SuperPointNet_gauss2", dtype=jnp.float32)
-    state = create_train_state(jm, jax.random.key(0), (1, H, W, 1))
+    state = jax.jit(lambda key: create_train_state(jm, key, (1, H, W, 1)))(jax.random.key(0))
 
     def loss_fn(tr):
         return j_compute_losses(state, batch, jax.random.key(1), tr["params"], tr["etas"],
@@ -165,11 +157,8 @@ def test_accum_step_matches_jax(jbatch):
              for k, v in jbatch.items()}
     with _fp64(True):
         jm = j_build_model("SuperPointNet_gauss2", dtype=jnp.float64)
-        state = create_train_state(jm, jax.random.key(0), (1, H, W, 1), tx=optax.sgd(0.1))
-        wide = lambda t: jax.tree.map(lambda v: v.astype(jnp.float64), t)  # noqa: E731
-        params, etas = wide(state.params), wide(state.etas)
-        state = state.replace(params=params, batch_stats=wide(state.batch_stats), etas=etas,
-                              opt_state=state.tx.init({"params": params, "etas": etas}))
+        state = _widen(jax.jit(lambda key: create_train_state(
+            jm, key, (1, H, W, 1), tx=optax.sgd(0.1)))(jax.random.key(0)))
         ts = _sgd_state({"params": state.params, "batch_stats": state.batch_stats},
                         torch.float64)
         new_state, jmetrics = make_accum_train_step(r, donate=False, **KW)(
@@ -189,7 +178,8 @@ def test_accum_gradient_is_sum_not_mean(jbatch):
     of one of them (SGD: the update is linear in the gradient)."""
     kw = dict(KW, warped_pair=False, lambda_loss=0.0, multi_task=False)
     jm = j_build_model("SuperPointNet_gauss2", dtype=jnp.float32)
-    variables = jm.init(jax.random.key(0), jnp.zeros((1, H, W, 1)), train=True)
+    variables = jax.jit(functools.partial(jm.init, train=True))(jax.random.key(0),
+                                                                 jnp.zeros((1, H, W, 1)))
     one = {k: v[:B] for k, v in _torch(jbatch).items()}
     doubled = {k: torch.cat([v, v]) for k, v in one.items()}
     a, b = _sgd_state(variables), _sgd_state(variables)

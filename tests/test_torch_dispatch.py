@@ -31,7 +31,6 @@ import pytest
 import torch
 import yaml
 
-from ssp.core.homography import sample_homographies as j_sample
 from ssp.export.homography_adaptation import make_ha_fn as j_make_ha_fn
 from ssp_torch import registry
 from ssp_torch.bench import structured_images
@@ -42,21 +41,14 @@ from ssp_torch.kernels.vresample import vresample_coef
 from ssp_torch.models.fast_infer import best_apply_fn
 from ssp_torch.train.trainer import TrainAgent
 from ssp_torch.utils.experiment import ExperimentPaths
-from test_torch_ha import PARAMS, _matched, jax_model, model  # noqa: F401  (fixtures)
+from test_torch_ha import _matched, jax_homographies, jax_model, model  # noqa: F401  (fixtures)
 from test_torch_train_agent import _config, _write_tree
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 FIXTURE = ROOT / "tests" / "data" / "torch_dispatch" / "prepare_batch_a26c442.npz"
 # prepare_batch's routes: (warp, warp_twopass.COEF_GRIDS)
 ROUTES = {"coef": ("twopass", True), "rows": ("twopass", False), "gather": ("gather", True)}
-
-
-@pytest.fixture
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _homography(deg: float, rng) -> np.ndarray:
@@ -103,8 +95,7 @@ def test_twopass_apply_rotates_on_the_device_as_rot90(coef, monkeypatch):
                          [("sum", 0, True), ("max", 2, False)],
                          ids=["sum_subpixel", "max_filter_counts"])
 def test_one_dispatch_matches_jax_one_dispatch(jax_model, model,  # noqa: F811
-                                               aggregation, filter_counts, subpixel,
-                                               one_thread):
+                                               aggregation, filter_counts, subpixel):
     """The port's ``one_dispatch`` against the JAX package's at the JAX test's
     shape (3×48×64, num_h 6, chunk 4: one warp of each image per chunk),
     gather warp, fp32, with the homographies that the JAX keys give."""
@@ -116,7 +107,7 @@ def test_one_dispatch_matches_jax_one_dispatch(jax_model, model,  # noqa: F811
     want_pts, want_valid = j_make_ha_fn(jmodel.apply, variables, **common)(keys,
                                                                           jnp.asarray(images))
     want_pts, want_valid = np.asarray(want_pts), np.asarray(want_valid)
-    Hs = np.stack([np.array(j_sample(k, 5, shift=-1.0, **PARAMS)) for k in keys])
+    Hs = jax_homographies(keys, 5)
     ha = make_ha_fn(best_apply_fn(model, enable=False, device="cpu"), device="cpu", **common)
     pts, valid = ha(torch.from_numpy(images), homographies=torch.from_numpy(Hs))
     pts, valid = pts.numpy(), valid.numpy()
@@ -130,7 +121,7 @@ def test_one_dispatch_matches_jax_one_dispatch(jax_model, model,  # noqa: F811
 
 
 @pytest.mark.parametrize("use_twopass", [True, False], ids=["twopass", "gather"])
-def test_one_dispatch_matches_the_staged_chain(model, use_twopass, one_thread):  # noqa: F811
+def test_one_dispatch_matches_the_staged_chain(model, use_twopass):  # noqa: F811
     """``one_dispatch`` against the staged chain on the same homographies:
     valid equal, points within 1e-4; with one image per group (one chunk
     holds its warps) the same bits."""
@@ -202,14 +193,14 @@ def _assert_four_equal_one(tmp: Path, source: str):
     return four
 
 
-def test_steps_per_dispatch_equals_one_step_per_dispatch(tmp_path, one_thread):
+def test_steps_per_dispatch_equals_one_step_per_dispatch(tmp_path):
     """The device-corpus loop with 4 steps per dispatch against 1
     (:func:`_assert_four_equal_one`)."""
     _write_tree(tmp_path / "data")
     _assert_four_equal_one(tmp_path, "corpus")
 
 
-def test_host_loader_steps_per_dispatch_equals_one_step_per_dispatch(tmp_path, one_thread):
+def test_host_loader_steps_per_dispatch_equals_one_step_per_dispatch(tmp_path):
     """The host loader's loop (the JAX trainer's ``multi_train_step``) with 4
     steps per dispatch against 1 over the same 8 batches and seeds
     (:func:`_assert_four_equal_one`), the loader's wait counted."""
@@ -218,7 +209,7 @@ def test_host_loader_steps_per_dispatch_equals_one_step_per_dispatch(tmp_path, o
     assert four.device_corpus is None and four.loader_wait_s > 0
 
 
-def test_region_step_on_static_inputs_equals_prepare_and_step(tmp_path, one_thread):
+def test_region_step_on_static_inputs_equals_prepare_and_step(tmp_path):
     """The trainer's step on its host inputs (``TrainAgent._inputs``: the
     prologue and the loader's batch), read from one packed buffer as a
     graph's static inputs are and called eagerly, against ``prepare`` then
@@ -274,7 +265,7 @@ def _prep_inputs():
 
 
 @pytest.mark.parametrize("route", list(ROUTES))
-def test_prepare_batch_split_keeps_its_bits(route, monkeypatch, one_thread):
+def test_prepare_batch_split_keeps_its_bits(route, monkeypatch):
     """``prepare_batch`` equals the batch written by the one before the split
     (the fixture), and equals its prologue then its body called by hand, the
     body reading the prologue's tensors from one packed buffer as a graph's
@@ -319,7 +310,7 @@ def test_cuda_graph_regions_refuse_the_cpu():
         CapturedRegion(lambda b: b, {"x": torch.zeros(2)}, device="cpu")
 
 
-def test_capturable_checkpoint_resumes_on_the_cpu(tmp_path, one_thread):
+def test_capturable_checkpoint_resumes_on_the_cpu(tmp_path):
     """A checkpoint of a capturable state (as the graphed loop saves one on a
     card: every group capturable, a tensor lr) resumes into a CPU state,
     which takes its next step as from the same checkpoint saved without

@@ -17,6 +17,7 @@ from ssp_torch.data import raster
 from ssp_torch.data.imageio import decode_gray, write_png
 from ssp_torch.postprocess.tracker import PointTracker
 from ssp_torch.utils import draw
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 
 def _sweep_line(rng, h, w, i):

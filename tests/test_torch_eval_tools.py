@@ -35,6 +35,7 @@ import pytest
 from ssp_torch.cli import eval_semantic, eval_sequence, run_export
 from ssp_torch.data.raster import warp_perspective
 from ssp_torch.data.synthetic_shapes import generate_sample
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 WEIGHTS = ROOT / "evidence" / "wsem_weights.npz"

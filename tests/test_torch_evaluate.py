@@ -40,6 +40,7 @@ from ssp_torch.cli import export_eval
 from ssp_torch.evaluations import homography_fit
 from ssp_torch.postprocess.tracker import PointTracker
 from test_torch_export import NPZ, _config, _make_tree
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 N_PAIRS = 24
 HW = (120, 160)
@@ -189,7 +190,8 @@ def _jax_checkpoints(folder):
     from ssp.train.state import create_train_state
 
     model = build_model("SuperPointNet_gauss2_ssmall", n_classes=133, dtype=jnp.float32)
-    state = load_weights_npz(NPZ, create_train_state(model, jax.random.key(0), (1, 64, 96, 1)))
+    state = load_weights_npz(NPZ, jax.jit(lambda key: create_train_state(
+        model, key, (1, 64, 96, 1)))(jax.random.key(0)))
     for it in (1000, 2000):
         save_checkpoint(folder, state, it)
     (folder / "superPointNet_1500").mkdir()  # an empty orbax directory: it fails

@@ -29,6 +29,7 @@ from ssp.evaluations import semantic as j_sem
 from ssp_torch.evaluations import detector, semantic
 from ssp_torch.evaluations.homography_fit import find_homography
 from ssp_torch.evaluations.matching import average_precision, bf_match_cross_check
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 W, H = 320, 240
 CORNERS = np.array([[0, 0], [W - 1, 0], [0, H - 1], [W - 1, H - 1]], np.float64)

@@ -48,6 +48,7 @@ from ssp_torch.cli import export as cli
 from ssp_torch.export import descriptors_export as dd
 from ssp_torch.models.fast_infer import best_apply_fn
 from ssp_torch.models.weights import load_flax_npz
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 NPZ = ROOT / "evidence" / "wsem_weights.npz"

@@ -30,6 +30,7 @@ from ssp_torch.data.coco import CocoDataset
 from ssp_torch.export.homography_adaptation import make_ha_fn, run_ha_export
 from ssp_torch.models.fast_infer import best_apply_fn
 from ssp_torch.models.weights import load_weights
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 cv2 = pytest.importorskip("cv2")
 jnp = pytest.importorskip("jax.numpy")

@@ -29,6 +29,7 @@ import torch
 from ssp.models.fast_infer import make_fast_apply as j_make_fast_apply
 from ssp_torch.models.fast_infer import fast_apply_fn, fold_bn, fold_variables, make_fast_apply
 from ssp_torch.models.weights import load_flax_npz
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 NPZ = Path(__file__).resolve().parents[1] / "evidence" / "wsem_weights.npz"
 H, W = 64, 96

@@ -15,6 +15,7 @@ from ssp.core import grid as jgrid
 from ssp.core.warp import bilinear_sample as j_bilinear_sample
 from ssp_torch.core import grid as tgrid
 from ssp_torch.core.warp import bilinear_sample
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 ATOL = 1e-6
 

@@ -25,6 +25,7 @@ repeatability metric's ε), and at least 65% of all valid points of either
 at the same pixel.
 """
 
+import functools
 from pathlib import Path
 
 import jax
@@ -45,6 +46,7 @@ from ssp_torch.kernels import warp_twopass
 from ssp_torch.models.fast_infer import best_apply_fn, supports_fast
 from ssp_torch.models.weights import load_flax_npz
 from ssp_torch.postprocess.points import soft_argmax_refine
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 NPZ = Path(__file__).resolve().parents[1] / "evidence" / "wsem_weights.npz"
 H, W, NUM_H, TOP_K = 64, 96, 4, 50
@@ -69,6 +71,18 @@ def jax_model():
 @pytest.fixture(scope="module")
 def model():
     return load_flax_npz(NPZ, "SuperPointNet_gauss2", device="cpu")
+
+
+@functools.partial(jax.jit, static_argnums=1)
+def _jax_homographies(keys, n):
+    return jnp.stack([j_sample(k, n, shift=-1.0, **PARAMS) for k in keys])
+
+
+def jax_homographies(keys, n):
+    """``[len(keys), n, 3, 3]``: the homographies the JAX package's HA draws
+    from each key (``sample_homographies(k, n, shift=-1.0)``), jitted as its
+    HA draws them."""
+    return np.array(_jax_homographies(keys, n))
 
 
 def _matched(a_pts, a_valid, b_pts, b_valid, tol_px):
@@ -100,7 +114,7 @@ def test_ha_matches_jax_with_injected_homographies(jax_model, model, aggregation
     keys = jax.random.split(jax.random.key(7), 2)
     want_pts, want_valid = j_make_ha_fn(jmodel.apply, variables, **common)(keys, jnp.asarray(images))
     want_pts, want_valid = np.asarray(want_pts), np.asarray(want_valid)
-    Hs = np.stack([np.array(j_sample(k, NUM_H - 1, shift=-1.0, **PARAMS)) for k in keys])
+    Hs = jax_homographies(keys, NUM_H - 1)
 
     ha = make_ha_fn(best_apply_fn(model, enable=False, device="cpu"), device="cpu", **common)
     pts, valid = ha(torch.from_numpy(images), homographies=torch.from_numpy(Hs))

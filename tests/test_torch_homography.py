@@ -15,6 +15,7 @@ import torch
 
 from ssp.core import homography as jh
 from ssp_torch.core import homography as th
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 HA_PARAMS = dict(translation=True, rotation=True, scaling=True, perspective=True,
                  scaling_amplitude=0.2, perspective_amplitude_x=0.2,

@@ -39,6 +39,7 @@ import pytest
 from ssp_torch.data import imageio
 from ssp_torch.data.base import read_gray
 from ssp_torch.kernels import _build
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 cv2 = pytest.importorskip("cv2")
 

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 
 from ssp_torch.data import imageio
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 cv2 = pytest.importorskip("cv2")
 hyp = pytest.importorskip("hypothesis")

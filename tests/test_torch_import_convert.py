@@ -18,6 +18,7 @@ against the JAX package's CLIs on the CPU, from seeded weights.
   with and without ``keep_sem``.
 """
 
+import functools
 from pathlib import Path
 
 import jax
@@ -36,6 +37,7 @@ from ssp_torch.models.superpoint import build_model
 from ssp_torch.models.weights import load_weights, save_weights_npz
 from ssp_torch.train import TrainState
 from ssp_torch.train.checkpoint import load_checkpoint
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 SSMALL = "SuperPointNet_gauss2_ssmall"
 HW = (32, 48)
@@ -46,7 +48,7 @@ def _jax_reference(tmp_path: Path, n_classes: int = 133):
     """(the flax module, its state with random BatchNorm statistics, the
     reference ``.pth.tar`` of those weights with ``n_iter`` 123)."""
     jm = j_build_model(SSMALL, dtype=jnp.float32, n_classes=n_classes)
-    state = create_train_state(jm, jax.random.key(0), (1, *HW, 1))
+    state = jax.jit(lambda key: create_train_state(jm, key, (1, *HW, 1)))(jax.random.key(0))
     rng = np.random.default_rng(0)
     stats = jax.tree.map(lambda v: jnp.asarray(rng.uniform(0.5, 1.5, v.shape), v.dtype)
                          if v.ndim else v, state.batch_stats)
@@ -78,9 +80,8 @@ def test_import_matches_jax_import(tmp_path):
     assert (out.parent / "superPointNet_123.npz").exists()
 
     x = np.random.default_rng(1).uniform(size=(2, *HW, 1)).astype(np.float32)
-    want = {k: np.asarray(v) for k, v in jm.apply(
-        {"params": jstate.params, "batch_stats": jstate.batch_stats}, jnp.asarray(x),
-        train=False).items()}
+    want = {k: np.asarray(v) for k, v in jax.jit(functools.partial(jm.apply, train=False))(
+        {"params": jstate.params, "batch_stats": jstate.batch_stats}, jnp.asarray(x)).items()}
     # every CLI's ``pretrained:`` (load_weights) and the trainer's load_checkpoint
     _close(_port_forward(load_weights(out, SSMALL, {"n_classes": 133}, device="cpu"), x),
            want, BARS)

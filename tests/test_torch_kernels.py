@@ -20,6 +20,7 @@ from ssp.kernels.stem_pallas_v2 import stem_pallas_packed
 from ssp_torch.kernels import down1 as down1_mod
 from ssp_torch.kernels import nms as nms_mod
 from ssp_torch.kernels import stem as stem_mod
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 
 def _conv_bn(rng, cin):

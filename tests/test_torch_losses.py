@@ -13,6 +13,8 @@ matrix here: fp32 sums of 256 products in another order).  Both sides are
 fp32 on the CPU.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,6 +34,7 @@ from ssp_torch.core.grid import labels_to_cells
 from ssp_torch.losses import (descriptor_loss_sparse, detector_loss, init_etas,
                               multi_task_loss, semantic_loss, semantic_loss_coarse)
 from ssp_torch.losses.descriptor_sparse import SparseDraws, cell_matches, sample_draws
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 B, HC, WC, D, C = 2, 8, 12, 256, 133
 PAIR = dict(translation=True, rotation=True, scaling=True, perspective=True,
@@ -66,27 +69,30 @@ def test_detector_loss_value_and_grad(loss_type):
     _close_grad(s.grad.numpy(), gwant, 1e-5)
 
 
+@jax.jit
+def _jax_h_pair(key):
+    keys = jax.random.split(key, B)
+    H_inv = jax.vmap(lambda k: j_sample_homography(k, **PAIR))(keys).astype(jnp.float32)
+    return j_inv3(H_inv)
+
+
 def _desc_inputs(seed):
     rng = np.random.default_rng(seed)
     d1 = rng.normal(size=(B, HC, WC, D)).astype(np.float32)
     d2 = d1 + 0.5 * rng.normal(size=(B, HC, WC, D)).astype(np.float32)
     d1 /= np.linalg.norm(d1, axis=-1, keepdims=True)
     d2 /= np.linalg.norm(d2, axis=-1, keepdims=True)
-    keys = jax.random.split(jax.random.key(seed), B)
-    H_inv = jax.vmap(lambda k: j_sample_homography(k, **PAIR))(keys).astype(jnp.float32)
-    return d1, d2, np.array(j_inv3(H_inv))
+    return d1, d2, np.array(_jax_h_pair(jax.random.key(seed)))
 
 
-def jax_sparse_draws(key, H_pair, shape, M, N):
-    """The draws ``ssp.losses.descriptor_sparse.batch_descriptor_loss_sparse``
-    makes from ``key`` for ``H_pair [B, 3, 3]`` on an ``(Hc, Wc)`` grid: one
-    key per sample, split in four (choice, non-match cells, sign, size)."""
+@functools.partial(jax.jit, static_argnums=(2, 3, 4))
+def _jax_sparse_draws(key, H_pair, shape, M, N):
     hc, wc = shape
     vy, vx = jnp.meshgrid(jnp.arange(hc), jnp.arange(wc), indexing="ij")
     uv_a = jnp.stack([vx, vy], axis=-1).reshape(-1, 2).astype(jnp.float32)
     out = {"choice": [], "rand_flat": [], "sign_u": [], "normal": []}
     for k, h in zip(jax.random.split(key, len(H_pair)), H_pair):
-        uv_b = jnp.round(j_warp_points(uv_a, j_scale_homography(jnp.asarray(h), (hc, wc))))
+        uv_b = jnp.round(j_warp_points(uv_a, j_scale_homography(h, (hc, wc))))
         valid = ((uv_b[:, 0] >= 0) & (uv_b[:, 0] <= wc - 1)
                  & (uv_b[:, 1] >= 0) & (uv_b[:, 1] <= hc - 1))
         k_choice, k_nm, k_sel, k_mag = jax.random.split(k, 4)
@@ -95,8 +101,17 @@ def jax_sparse_draws(key, H_pair, shape, M, N):
         out["rand_flat"].append(jax.random.randint(k_nm, (M * N,), 0, hc * wc))
         out["sign_u"].append(jax.random.uniform(k_sel, (M * N,)))
         out["normal"].append(jax.random.normal(k_mag, (M * N,)))
-    return SparseDraws(**{k: torch.from_numpy(np.stack([np.asarray(x) for x in v]))
-                          for k, v in out.items()})
+    return {k: jnp.stack(v) for k, v in out.items()}
+
+
+def jax_sparse_draws(key, H_pair, shape, M, N):
+    """The draws ``ssp.losses.descriptor_sparse.batch_descriptor_loss_sparse``
+    makes from ``key`` for ``H_pair [B, 3, 3]`` on an ``(Hc, Wc)`` grid: one
+    key per sample, split in four (choice, non-match cells, sign, size).
+    One jitted program over the batch, as the JAX step draws them inside its
+    own jit (``jax.random`` gives the same bits under ``jit``)."""
+    out = _jax_sparse_draws(key, jnp.asarray(H_pair), tuple(shape), M, N)
+    return SparseDraws(**{k: torch.from_numpy(np.array(v)) for k, v in out.items()})
 
 
 @pytest.mark.parametrize("method", ["2d", "1d"])
@@ -111,7 +126,7 @@ def test_sparse_descriptor_loss_with_jax_draws(method):
         total, _, m, nm = j_sparse(key, a, b, jnp.asarray(H_pair), **params)
         return total, (m, nm)
 
-    (want, (wm, wnm)), (ga, gb) = jax.value_and_grad(f, argnums=(0, 1), has_aux=True)(
+    (want, (wm, wnm)), (ga, gb) = jax.jit(jax.value_and_grad(f, argnums=(0, 1), has_aux=True))(
         jnp.asarray(d1), jnp.asarray(d2))
     a, b = _t(d1, True), _t(d2, True)
     got, _, m, nm = descriptor_loss_sparse(a, b, torch.from_numpy(H_pair),

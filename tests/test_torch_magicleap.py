@@ -21,6 +21,7 @@ from ssp_torch.bench import structured_images
 from ssp_torch.models.fast_infer import best_apply_fn, supports_fast
 from ssp_torch.models.superpoint import SuperPointMagicLeap, build_model
 from ssp_torch.models.weights import load_reference_state_dict, load_weights
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 H, W = 64, 96
 ATOL = 2e-4

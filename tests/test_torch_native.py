@@ -20,6 +20,7 @@ import pytest
 
 from ssp import native as jnative
 from ssp_torch import native
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 HW = (240, 320)
 

@@ -23,6 +23,7 @@ from ssp_torch.core import warp
 from ssp_torch.kernels import ordered_scatter as osc
 from ssp_torch.losses.descriptor_sparse import cell_matches, descriptor_loss_sparse, sample_draws
 from ssp_torch.losses.semantic import edge_pad
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 
 def _inputs(R, K, C, T, seed=0, dtype=torch.float32):

@@ -41,9 +41,11 @@ there.  The script imports neither JAX nor the JAX package.
 """
 
 import os
+import signal
 import socket
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -54,6 +56,7 @@ if __name__ == "__main__":
     sys.path.insert(0, str(ROOT))
 
 from ssp_torch.parallel import mesh  # noqa: E402
+from test_torch_threads import _one_thread  # noqa: E402, F401  (autouse)
 
 B, H, W = 4, 64, 96
 LR, MAX_STEPS, M, N = 0.0025, 10, 1000, 100
@@ -63,6 +66,12 @@ STEP_KW = dict(semantic=True, warped_pair=True, det_loss_type="softmax", desc_lo
                lambda_loss=1.0, multi_task=True, ignore_class=133, sem_fused=True)
 HA_KW = dict(num_h=4, top_k=24, conf_thresh=0.0, chunk=4)
 HA_HW = (48, 64)
+# the waits on child processes, about 3× the slowest wait of each kind
+# measured under the suite's command (pytest -n 6 --dist load on 8 cores):
+# the ranks of one case 65 s (the joint step's ranks, 19.4 s), one torchrun
+# launch 160 s (the two-rank CLI's first launch, 53.1 s)
+RANK_WAIT_S = 65
+TORCHRUN_WAIT_S = 160
 
 
 # ---- the ranks ----------------------------------------------------------------
@@ -171,32 +180,53 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def _spawn(argv, env, err: Path):
+    """(a child in a session of its own, so that :func:`_finish` can kill a
+    launcher's ranks with it; ``err``, the file that takes its stderr)."""
+    with open(err, "w") as f:
+        return subprocess.Popen(argv, cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=f,
+                                start_new_session=True), err
+
+
+def _finish(procs: dict, wait_s: float) -> dict:
+    """Wait at most ``wait_s`` seconds in all for ``procs`` (name → (process,
+    its stderr file)), kill what still runs, and fail naming each child that
+    did not exit in time or exited with another code than 0, with the end of
+    its stderr.  Returns name → stderr text."""
+    deadline = time.monotonic() + wait_s
+    late = set()
+    for name, (p, _) in procs.items():
+        try:
+            p.wait(timeout=max(deadline - time.monotonic(), 0.0))
+        except subprocess.TimeoutExpired:
+            late.add(name)
+    for p, _ in procs.values():
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+    errs = {name: err.read_text() for name, (_, err) in procs.items()}
+    for name, (p, _) in procs.items():
+        how = f"no exit within {wait_s} s" if name in late else f"exit code {p.returncode}"
+        assert name not in late and p.returncode == 0, f"{name}: {how}\n{errs[name][-4000:]}"
+    return errs
+
+
 def _launch(case: str, inp: dict, work: Path, world: int = 2):
     """Start ``case`` on ``world`` ranks over gloo (:func:`_collect` waits)."""
     torch.save(inp, work / f"{case}_in.pt")
     port = _free_port()
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["OMP_NUM_THREADS"] = "2"
-    return case, work, [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), case,
-                                          str(r), str(world), str(port), str(work)], cwd=ROOT,
-                                         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                         text=True)
-                        for r in range(world)]
+    return case, work, {f"{case} rank {r}": _spawn(
+        [sys.executable, str(Path(__file__).resolve()), case, str(r), str(world), str(port),
+         str(work)], env, work / f"{case}_{r}.err") for r in range(world)}
 
 
 def _collect(launched):
     """The launched ranks' results in rank order (None for a rank that wrote
-    none), once every rank has exited 0."""
+    none), once every rank has exited 0 (within ``RANK_WAIT_S``)."""
     case, work, procs = launched
-    try:
-        outs = [p.communicate(timeout=300) for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for p, (_, err) in zip(procs, outs):
-        assert p.returncode == 0, err[-4000:]
+    _finish(procs, RANK_WAIT_S)
     return [torch.load(work / f"{case}_{r}.pt", weights_only=False)
             if (work / f"{case}_{r}.pt").exists() else None for r in range(len(procs))]
 
@@ -296,7 +326,7 @@ def _uneven_joint_batch(state_dict):
     jm = j_build_model("SuperPointNet_gauss2_ssmall", dtype=jnp.float32, n_classes=133)
     jstate = JTrainState(step=jnp.zeros((), jnp.int32), params=tree["params"],
                          batch_stats=tree["batch_stats"], etas=etas,
-                         opt_state=tx.init({"params": tree["params"], "etas": etas}),
+                         opt_state=jax.jit(tx.init)({"params": tree["params"], "etas": etas}),
                          apply_fn=jm.apply, tx=tx)
     jstep, _ = make_train_step(donate=False, **STEP_KW)
     return batch, jbatch, draws, jstate, jstep
@@ -461,12 +491,11 @@ def test_two_rank_train_cli_under_torchrun(tmp_path):
     def launch(c, name):
         path = tmp_path / name
         path.write_text(yaml.safe_dump(c))
-        r = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--nproc_per_node=2",
-                            "--master_addr=127.0.0.1", f"--master_port={_free_port()}", "-m",
-                            "ssp_torch.cli.train", "train_joint", str(path), "exp",
-                            "--device", "cpu"], cwd=ROOT, env=env, capture_output=True,
-                           text=True, timeout=600)
-        assert r.returncode == 0, r.stderr[-4000:]
+        _finish({f"torchrun {name}": _spawn(
+            [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node=2",
+             "--master_addr=127.0.0.1", f"--master_port={_free_port()}", "-m",
+             "ssp_torch.cli.train", "train_joint", str(path), "exp", "--device", "cpu"], env,
+            tmp_path / f"{name}.err")}, TORCHRUN_WAIT_S)
 
     def rows(name):
         return [json.loads(line) for line in (exper / name).read_text().splitlines()]
@@ -506,20 +535,11 @@ def test_three_rank_train_cli_trains_on_two_ranks(tmp_path):
     path.write_text(yaml.safe_dump(cfg))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env.update(SSP_DISTRIBUTED="1", SSP_EXPER_PATH=str(tmp_path / "logs"), OMP_NUM_THREADS="1")
-    procs = {n: subprocess.Popen(
+    errs = _finish({n: _spawn(
         [sys.executable, "-m", "torch.distributed.run", f"--nproc_per_node={n}",
          "--master_addr=127.0.0.1", f"--master_port={_free_port()}", "-m", "ssp_torch.cli.train",
-         "train_joint", str(path), f"ranks{n}", "--device", "cpu"], cwd=ROOT, env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for n in (2, 3)}
-    try:
-        errs = {n: p.communicate(timeout=600)[1] for n, p in procs.items()}
-    finally:
-        for p in procs.values():
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for n, p in procs.items():
-        assert p.returncode == 0, errs[n][-4000:]
+         "train_joint", str(path), f"ranks{n}", "--device", "cpu"], env,
+        tmp_path / f"ranks{n}.err") for n in (2, 3)}, TORCHRUN_WAIT_S)
     assert "rank 2 is idle" in errs[3] and "ranks 0..1 train" in errs[3]
     assert "idle" not in errs[2]
 

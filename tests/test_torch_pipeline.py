@@ -31,6 +31,7 @@ from ssp.models.fast_infer import make_fast_apply
 from ssp.postprocess.points import sample_descriptors
 from ssp_torch.bench import build_pipeline, postprocess, structured_images
 from ssp_torch.models.weights import load_flax_npz
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 NPZ = Path(__file__).resolve().parents[1] / "evidence" / "wsem_weights.npz"
 H, W, K = 64, 96, 50

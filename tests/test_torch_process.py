@@ -18,6 +18,7 @@ import torch
 
 from ssp.postprocess.process import SuperPointProcess as JProcess
 from ssp_torch.postprocess.process import SuperPointProcess
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 B, H, W, D = 3, 48, 64, 32
 

@@ -18,6 +18,7 @@ import pytest
 from ssp_torch import registry
 from ssp_torch.data.coco import CocoDataset
 from ssp_torch.data.kitti import ApolloDataset, KittiDataset, TumDataset
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 cv2 = pytest.importorskip("cv2")
 j_coco = pytest.importorskip("ssp.data.coco")

@@ -19,6 +19,8 @@ the flax-initialised weights carried across by ``flax_to_state_dict``.
   JAX's.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -42,27 +44,18 @@ from ssp_torch.models.weights import (flax_to_state_dict, load_reference_state_d
 from ssp_torch.train import subpixel_agent, val_agent  # noqa: F401  (register the agents)
 from ssp_torch.train.subpixel_agent import SubpixelValAgent, subpixel_map_loss
 from ssp_torch.utils.experiment import ExperimentPaths
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 B, H, W = 2, 32, 48
 LR = 0.001
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread for the port's small CPU tensors: the suite's
-    workers share the cores, and eight spinning threads per worker slow
-    every worker."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
 def flax_sub():
     jm = j_build_model("SubpixelNet", dtype=jnp.float32)
     x = np.random.default_rng(0).uniform(size=(B, H, W, 1)).astype(np.float32)
-    return jm, jm.init(jax.random.key(0), jnp.asarray(x), train=False), x
+    return jm, jax.jit(functools.partial(jm.init, train=False))(jax.random.key(0),
+                                                               jnp.asarray(x)), x
 
 
 def _port(variables):
@@ -73,7 +66,7 @@ def _port(variables):
 def test_forward_matches_flax(flax_sub):
     jm, v, x = flax_sub
     model = _port(v)
-    want = jm.apply(v, jnp.asarray(x), train=False)
+    want = jax.jit(functools.partial(jm.apply, train=False))(v, jnp.asarray(x))
     with torch.no_grad():
         got = model(torch.from_numpy(x))
     assert set(got) == set(want) == {"semi", "desc", "subpixel"}
@@ -81,7 +74,8 @@ def test_forward_matches_flax(flax_sub):
         assert got[k].dtype == torch.float32 and got[k].shape == want[k].shape
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), atol=2e-4, rtol=0)
     # training mode: batch statistics, the running ones moved
-    want, mut = jm.apply(v, jnp.asarray(x), train=True, mutable=["batch_stats"])
+    want, mut = jax.jit(functools.partial(jm.apply, train=True, mutable=["batch_stats"]))(
+        v, jnp.asarray(x))
     model.train()
     with torch.no_grad():
         got = model(torch.from_numpy(x))
@@ -118,7 +112,8 @@ def test_losses_match_jax():
     pts = np.round(rng.uniform([0, 0], [W - 1, H - 1], size=(B, 20, 2))).astype(np.float32)
     res = rng.uniform(-0.5, 0.5, size=(B, 20, 2)).astype(np.float32)
     valid = rng.uniform(size=(B, 20)) < 0.7
-    want = [float(j_residual_loss(*map(jnp.asarray, (heat[i], pts[i], res[i], valid[i]))))
+    residual_loss = jax.jit(j_residual_loss)
+    want = [float(residual_loss(*map(jnp.asarray, (heat[i], pts[i], res[i], valid[i]))))
             for i in range(B)]
     got = subpixel_residual_loss(*map(torch.from_numpy, (heat, pts, res, valid)))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
@@ -126,8 +121,8 @@ def test_losses_match_jax():
     pred = rng.normal(size=(B, H, W, 2)).astype(np.float32)
     labels_res = rng.uniform(-0.5, 0.5, size=(B, H, W, 2)).astype(np.float32)
     labels = (rng.uniform(size=(B, H, W, 1)) < 0.05).astype(np.float32)
-    want, gwant = jax.value_and_grad(j_map_loss)(jnp.asarray(pred), jnp.asarray(labels_res),
-                                                 jnp.asarray(labels))
+    want, gwant = jax.jit(jax.value_and_grad(j_map_loss))(
+        jnp.asarray(pred), jnp.asarray(labels_res), jnp.asarray(labels))
     p = torch.tensor(pred, requires_grad=True)
     got = subpixel_map_loss(p, torch.from_numpy(labels_res), torch.from_numpy(labels))
     got.backward()
@@ -141,9 +136,9 @@ def test_train_step_matches_jax(flax_sub, tmp_path):
     rng = np.random.default_rng(2)
     imgs = rng.uniform(size=(B, H, W)).astype(np.float32)
     pts = rng.uniform([0, 0], [W - 1, H - 1], size=(B, 25, 2)).astype(np.float32)
-    jbatch = j_prepare_batch(jax.random.key(4), imgs, pts, np.ones((B, 25), bool))
-    state = create_train_state(jm, jax.random.key(0), (1, H, W, 1), learning_rate=LR,
-                               max_steps=10)
+    jbatch = jax.jit(j_prepare_batch)(jax.random.key(4), imgs, pts, np.ones((B, 25), bool))
+    state = jax.jit(lambda key: create_train_state(jm, key, (1, H, W, 1), learning_rate=LR,
+                                                   max_steps=10))(jax.random.key(0))
     config = {"model": {"name": "SubpixelNet", "batch_size": B, "learning_rate": LR,
                         "params": {"dtype": "float32"}, "lambda_subpix": 1.0},
               "data": {"preprocessing": {"resize": [H, W]}}, "train_iter": 10}

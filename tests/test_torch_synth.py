@@ -34,6 +34,7 @@ import pytest
 from ssp_torch.data import raster
 from ssp_torch.data import synthetic_dataset as t_dataset
 from ssp_torch.data import synthetic_shapes as t_shapes
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 cv2 = pytest.importorskip("cv2")
 

@@ -18,6 +18,7 @@ from ssp.postprocess.tracker import nn_match_two_way as j_match
 from ssp.postprocess.tracker import nn_match_two_way_jax
 from ssp_torch.postprocess import PointTracker, nn_match_two_way
 from ssp_torch.postprocess.tracker import nn_match_two_way_torch
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 
 def _desc(rng, n, d=32, base=None, noise=0.3):

@@ -27,6 +27,7 @@ bf16 convolutions are slow on a CPU, and the bf16 forward has its own test in
 """
 
 import copy
+import functools
 import json
 import math
 import types
@@ -52,6 +53,7 @@ from ssp_torch.train import TrainState, train_step
 from ssp_torch.train.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from ssp_torch.train.trainer import TrainAgent, boundary, hits, precision_recall
 from ssp_torch.utils.experiment import ExperimentPaths
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 NPZ = ROOT / "evidence" / "wsem_weights.npz"
@@ -210,11 +212,11 @@ def _check_npz_loads_into_jax_and_the_port(run):
     with np.load(path) as z:
         assert all(z[k].dtype == np.float16 for k in z.files)
     jm = j_build_model("SuperPointNet_gauss2_ssmall", n_classes=133, dtype=jnp.float32)
-    state = create_train_state(jm, jax.random.key(0), (1, H, W, 1))
+    state = jax.jit(lambda key: create_train_state(jm, key, (1, H, W, 1)))(jax.random.key(0))
     state = j_load_weights_npz(path, state)
     x = np.random.default_rng(3).uniform(size=(2, H, W, 1)).astype(np.float32)
-    want = jm.apply({"params": state.params, "batch_stats": state.batch_stats},
-                    jnp.asarray(x), train=False)
+    want = jax.jit(functools.partial(jm.apply, train=False))(
+        {"params": state.params, "batch_stats": state.batch_stats}, jnp.asarray(x))
     model = load_weights(path, "SuperPointNet_gauss2_ssmall", {"n_classes": 133}, device="cpu")
     with torch.no_grad():
         got = model(torch.from_numpy(x))

@@ -17,6 +17,7 @@ from pathlib import Path
 
 import numpy as np
 import yaml
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -34,8 +35,10 @@ def _config(tmp_path: Path) -> Path:
 
 
 def test_train_base_cli_on_the_stage1_config(tmp_path):
+    # the child at one intra-op thread, as the tests in this process run
+    # (tests/test_torch_threads.py)
     env = dict(os.environ, SSP_DATA_PATH=str(tmp_path / "data"),
-               SSP_EXPER_PATH=str(tmp_path / "logs"), PYTHONPATH=str(ROOT))
+               SSP_EXPER_PATH=str(tmp_path / "logs"), PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     r = subprocess.run([sys.executable, "-m", "ssp_torch.cli.train", "train_base",
                         str(_config(tmp_path)), "mp", "--device", "cpu"],
                        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)

@@ -48,6 +48,7 @@ from ssp_torch.data.device_corpus import DeviceCorpus
 from ssp_torch.data.pipeline import pad_points, prepare_batch, splat_labels, splat_residuals
 from ssp_torch.data.prefetch import Prefetcher
 from ssp_torch.kernels import vresample as vm
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 B, H, W = 2, 64, 96
 # the flagship's augmentation (configs/pipeline240_wsem_200k.yaml)
@@ -209,7 +210,8 @@ def _sem(seed):
 
 def _jax_homographies(key, cfg):
     params = {k: v for k, v in cfg["params"].items() if k != "valid_border_margin"}
-    H_inv = jax.vmap(lambda k: j_sample_homography(k, **params))(jax.random.split(key, B))
+    H_inv = jax.jit(jax.vmap(lambda k: j_sample_homography(k, **params)))(
+        jax.random.split(key, B))
     return torch.from_numpy(np.array(H_inv.astype(jnp.float32)))
 
 

@@ -37,20 +37,10 @@ from ssp_torch.cli import train as cli
 from ssp_torch.models.weights import flax_to_state_dict, load_reference_state_dict
 from ssp_torch.train.trainer import TrainAgent
 from ssp_torch.utils.experiment import ExperimentPaths, MetricsLogger
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 B, H, W = 2, 32, 48
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread for the port's small CPU tensors: the suite's
-    workers share the cores, and eight spinning threads per worker slow
-    every worker."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _config(**extra):
@@ -77,8 +67,8 @@ def test_residual_diagnostic_matches_jax(tmp_path):
     load_reference_state_dict(agent.state.model, flax_to_state_dict(
         {"params": jagent.state.params, "batch_stats": jagent.state.batch_stats}))
     host = next(_host_batches(0))
-    jbatch = j_prepare_batch(jax.random.key(0), host["image"], host["points"],
-                             host["points_valid"])
+    jbatch = jax.jit(j_prepare_batch)(jax.random.key(0), host["image"], host["points"],
+                                      host["points_valid"])
     want = jagent._residual_diagnostic(jbatch)
     got, offsets = agent.residual_diagnostic(
         {k: torch.from_numpy(np.array(v)) for k, v in jbatch.items()})
@@ -160,6 +150,7 @@ def test_run_supervised_resumes_from_a_checkpoint(tmp_path, monkeypatch):
     monkeypatch.setenv("SSP_DATA_PATH", str(tmp_path / "data"))
     monkeypatch.setenv("SSP_EXPER_PATH", str(tmp_path / "logs"))
     monkeypatch.setenv("PYTHONPATH", str(ROOT))
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the children at one thread, as this process
     with pytest.raises(SystemExit) as e:
         cli.main(["train_base", str(path), "sup", "--device", "cpu", "--max-restarts", "1"])
     assert e.value.code == 0

@@ -9,7 +9,6 @@ bar).  The registry resolves the three agent names of this module and
 
 import numpy as np
 import pytest
-import torch
 
 from ssp.train.val_agent import ValAgent as JValAgent
 from ssp_torch import registry
@@ -17,20 +16,10 @@ from ssp_torch.bench import structured_images
 from ssp_torch.cli import train as _cli  # noqa: F401  (registers the agent names)
 from ssp_torch.train.subpixel_agent import SubpixelTrainAgent, SubpixelValAgent
 from ssp_torch.train.val_agent import ValAgent
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 NPZ = "evidence/wsem_weights.npz"
 H, W = 48, 64
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread for the port's small CPU tensors: the suite's
-    workers share the cores, and eight spinning threads per worker slow
-    every worker."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _config(subpixel):

@@ -33,6 +33,7 @@ from ssp.kernels import warp_twopass as jt
 from ssp.kernels.vresample_pallas import vresample_coef_pallas, vresample_pallas
 from ssp_torch.kernels import vresample as vm
 from ssp_torch.kernels import warp_twopass as tt
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 HA_PARAMS = dict(allow_artifacts=True, patch_ratio=0.85, scaling_amplitude=0.2,
                  perspective_amplitude_x=0.2, perspective_amplitude_y=0.2)
@@ -209,7 +210,8 @@ def test_twopass_matches_jax_gather_warp(coef, monkeypatch):
     """(b) Sampled export homographies on a smooth 48×64 image, both routes."""
     img = cv2.GaussianBlur(np.random.default_rng(3).uniform(0, 1, (48, 64)).astype(np.float32),
                            (7, 7), 0)
-    Hs = np.stack([np.array(j_sample(jax.random.key(i), **HA_PARAMS)) for i in range(12)])
+    sample = jax.jit(lambda k: j_sample(k, **HA_PARAMS))
+    Hs = np.stack([np.array(sample(jax.random.key(i))) for i in range(12)])
     monkeypatch.setattr(tt, "COEF_GRIDS", coef)
     got = tt.inv_warp_image_twopass(_t(img), _t(Hs)).numpy()
     worst = 0.0

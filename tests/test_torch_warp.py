@@ -17,6 +17,7 @@ import torch
 from ssp.core import warp as jw
 from ssp.core.homography import sample_homographies as j_sample
 from ssp_torch.core import warp as tw
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 HA_PARAMS = dict(scaling_amplitude=0.2, perspective_amplitude_x=0.2,
                  perspective_amplitude_y=0.2, allow_artifacts=True, patch_ratio=0.85)
@@ -28,14 +29,15 @@ def _smooth(shape, seed):
 
 
 def _homographies(seed, n):
-    return np.array(j_sample(jax.random.key(seed), n, shift=-1.0, **HA_PARAMS))
+    return np.array(jax.jit(lambda k: j_sample(k, n, shift=-1.0, **HA_PARAMS))(
+        jax.random.key(seed)))
 
 
 @pytest.mark.parametrize("mode", ["bilinear", "nearest"])
 def test_inv_warp_image_matches_jax(mode):
     img = np.stack([_smooth((48, 64), 0), _smooth((48, 64), 1)], axis=-1)
     Hs = _homographies(0, 5)
-    want = np.asarray(jax.vmap(lambda Hm: jw.inv_warp_image(jnp.asarray(img), Hm, mode))(
+    want = np.asarray(jax.jit(jax.vmap(lambda Hm: jw.inv_warp_image(jnp.asarray(img), Hm, mode)))(
         jnp.asarray(Hs)))
     # one image shared by the batch of homographies
     got = tw.inv_warp_image(torch.from_numpy(img), torch.from_numpy(Hs), mode).numpy()
@@ -74,7 +76,7 @@ def test_ellipse_element_matches_cv2(radius):
 @pytest.mark.parametrize("radius", [0, 1, 2, 3, 4])
 def test_compute_valid_mask_pixel_exact(radius):
     Hs = _homographies(10 + radius, 12)
-    want = np.asarray(jax.vmap(lambda Hm: jw.compute_valid_mask((60, 80), Hm, radius))(
+    want = np.asarray(jax.jit(jax.vmap(lambda Hm: jw.compute_valid_mask((60, 80), Hm, radius)))(
         jnp.asarray(Hs)))
     got = tw.compute_valid_mask((60, 80), torch.from_numpy(Hs), radius).numpy()
     assert got.shape == (12, 60, 80) and got.dtype == np.float32

@@ -12,8 +12,10 @@ different orders by XLA and by PyTorch; sem is ×8 upsampled logits of
 larger magnitude.
 """
 
+import functools
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,6 +29,7 @@ from ssp_torch.models.weights import (
     load_flax_npz,
     load_reference_state_dict,
 )
+from test_torch_threads import _one_thread  # noqa: F401  (autouse)
 
 NPZ = Path(__file__).resolve().parents[1] / "evidence" / "wsem_weights.npz"
 
@@ -56,7 +59,8 @@ def test_forward_parity_trained_weights(npz, name):
     kw = {"n_classes": 133} if semantic else {}
     jmodel = j_build_model(name, dtype=jnp.float32, **kw)
     x = np.random.default_rng(0).uniform(size=(2, 32, 48, 1)).astype(np.float32)
-    want = jmodel.apply(_flax_variables(flat), jnp.asarray(x), train=False)
+    want = jax.jit(functools.partial(jmodel.apply, train=False))(_flax_variables(flat),
+                                                                  jnp.asarray(x))
 
     model = load_flax_npz(NPZ, name, device="cpu")
     with torch.no_grad():
