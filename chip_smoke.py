@@ -1480,7 +1480,10 @@ def hpatches_phase(dev: torch.device, td: Path):
         for _ in range(10):
             dd(img)
         torch.cuda.synchronize()
-    on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the program's spans (``ssp_torch.trace``) lie on the card's timeline too,
+    # as ranges over kernels that are counted already
+    on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
     busy_ms = sum(e.device_time_total for e in on_card) / 10 / 1e3
     per_pair = {k: v * 1e3 / n_pairs for k, v in (
         ("export", export_s), ("decode", decode_s), ("calls", device_s), ("host", host_s))}
@@ -2022,9 +2025,10 @@ def steady_state(agent, tag: str, n: int, what: str, smi: str) -> dict:
             step()
         torch.cuda.synchronize()
         prof_s = time.perf_counter() - t0
-    # the optimizer's range annotation spans kernels that are counted already
+    # the optimizer's and the program's range annotations span kernels that are
+    # counted already
     on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.name.startswith("Optimizer.")]
+               and not e.name.startswith("Optimizer.") and not e.is_user_annotation]
     busy_ms = sum(e.device_time_total for e in on_card) / 5 / 1e3
     top = sorted(((a.key, a.self_device_time_total / 5 / 1e3) for a in prof.key_averages()
                   if a.self_device_time_total > 0 and not a.key.startswith("Optimizer.")),
@@ -3482,7 +3486,7 @@ def _dispatch_run(cfg: dict, name: str, mode: str, dev: torch.device, attach,
     finally:
         torch.use_deterministic_algorithms(False)
     on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.name.startswith("Optimizer.")]
+               and not e.name.startswith("Optimizer.") and not e.is_user_annotation]
     busy_ms = sum(e.device_time_total for e in on_card) / 1e3
     steps = turns * DISPATCH_SPD
     region = agent.region

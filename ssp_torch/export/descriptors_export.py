@@ -34,6 +34,7 @@ from ssp_torch.kernels.nms import nms_plain
 from ssp_torch.postprocess.nms import batched_nms
 from ssp_torch.postprocess.points import extract_keypoints, sample_descriptors, soft_argmax_refine
 from ssp_torch.postprocess.tracker import PointTracker
+from ssp_torch.trace import span
 
 
 def make_detect_describe_fn(
@@ -66,22 +67,33 @@ def make_detect_describe_fn(
 
     @torch.inference_mode()
     def detect_describe(image):
-        # a plain copy, not ``to_device``'s pinned one: the export waits for
-        # each call's results before the next, so nothing is queued that the
-        # copy could wait for, and pinning a fresh buffer per image cost ~7 ms
-        # of host time per call inside the export on the H100's host
-        x = torch.as_tensor(image, dtype=torch.float32).to(dev)
-        squeeze = x.dim() == 2
-        if squeeze:
-            x = x[None]
-        out = apply_fn(x[..., None])
-        heat = flatten_detection(out["semi"])[..., 0].contiguous()
-        heat_nms = suppress(heat, nms_radius, nms_iterations, border=4)
-        pts, valid = extract_keypoints(heat_nms, k=top_k, conf_thresh=conf_thresh,
-                                       nms_radius=0, border=0, nms_iterations=1)
-        if subpixel:
-            pts = soft_argmax_refine(heat, pts, patch_size)
-        desc = sample_descriptors(out["desc"], pts)
+        # the root times the call on the host alone: no metric reads its
+        # device interval, and under the profiler each event record costs
+        # the host ~13 us, much of it while the card waits
+        with span("ssp.detect"):
+            with span("ssp.detect.upload", dev) as s:
+                # a plain copy, not ``to_device``'s pinned one: the export waits
+                # for each call's results before the next, so nothing is queued
+                # that the copy could wait for, and pinning a fresh buffer per
+                # image cost ~7 ms of host time per call inside the export on
+                # the H100's host
+                x = torch.as_tensor(image, dtype=torch.float32)
+                if s is not None and x.device.type == "cpu" and not x.is_pinned():
+                    s.counts["pageable_bytes"] = x.nbytes
+                x = x.to(dev)
+            squeeze = x.dim() == 2
+            if squeeze:
+                x = x[None]
+            with span("ssp.detect.forward", dev):
+                out = apply_fn(x[..., None])
+            with span("ssp.detect.postprocess", dev):
+                heat = flatten_detection(out["semi"])[..., 0].contiguous()
+                heat_nms = suppress(heat, nms_radius, nms_iterations, border=4)
+                pts, valid = extract_keypoints(heat_nms, k=top_k, conf_thresh=conf_thresh,
+                                               nms_radius=0, border=0, nms_iterations=1)
+                if subpixel:
+                    pts = soft_argmax_refine(heat, pts, patch_size)
+                desc = sample_descriptors(out["desc"], pts)
         return (pts[0], valid[0], desc[0]) if squeeze else (pts, valid, desc)
 
     return detect_describe

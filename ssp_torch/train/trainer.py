@@ -55,7 +55,8 @@ first validation image and its warped view are logged as heatmap overlays
 and NMS detections (``ssp_torch.utils.draw``; the NMS kernel on the card).
 Neither ever stops training: a failure is logged and the run goes on.
 ``profile: {enable, logdir, steps}`` writes a ``torch.profiler`` trace of
-the ``steps`` steps after the second to ``logdir`` (``<exper>/profile``).
+the ``steps`` steps after the second to ``logdir`` (``<exper>/profile``),
+with the loop's spans (``ssp.train.*``, :meth:`TrainAgent.dispatch`).
 
 Data parallelism: in a process group of W ranks (``ssp_torch.parallel``,
 started by ``python -m ssp_torch.cli.train`` under torchrun with
@@ -105,6 +106,7 @@ from ssp_torch.models.superpoint import build_model
 from ssp_torch.parallel import mesh
 from ssp_torch.postprocess.points import extract_keypoints, soft_argmax_refine
 from ssp_torch.registry import register
+from ssp_torch.trace import span
 from ssp_torch.train.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from ssp_torch.train.state import TrainState
 from ssp_torch.train.step import accum_train_step, eval_step, global_totals, train_step
@@ -330,9 +332,10 @@ class TrainAgent:
         the global batch that ``train_loader`` reads."""
         if self.device_corpus is not None:
             return self.device_corpus.sample(self.local_batch, self.generator)
-        t0 = time.perf_counter()
-        batch = next(self.train_loader)
-        self.loader_wait_s += time.perf_counter() - t0
+        with span("ssp.train.loader_wait"):
+            t0 = time.perf_counter()
+            batch = next(self.train_loader)
+            self.loader_wait_s += time.perf_counter() - t0
         return mesh.shard_rows(batch, self.world, self.rank)
 
     @staticmethod
@@ -390,10 +393,11 @@ class TrainAgent:
     def _prologue(self, hw) -> Dict[str, torch.Tensor]:
         """The host's part of the preparation of the next training batch of
         images of ``hw`` (H, W)."""
-        return prepare_prologue(self.local_batch, tuple(hw), self.device,
-                                homographic=self.prep_train["homographic"],
-                                warped_pair=self.prep_train["warped_pair"],
-                                host_generator=self.host_generator)
+        with span("ssp.train.prologue"):
+            return prepare_prologue(self.local_batch, tuple(hw), self.device,
+                                    homographic=self.prep_train["homographic"],
+                                    warped_pair=self.prep_train["warped_pair"],
+                                    host_generator=self.host_generator)
 
     def _inputs(self) -> Dict[str, torch.Tensor]:
         """The next training step's host inputs, CPU tensors of fixed shapes:
@@ -418,30 +422,37 @@ class TrainAgent:
     @_on_training_group
     def dispatch(self) -> Dict[str, torch.Tensor]:
         """One loop turn: ``steps_per_dispatch`` steps; the last one's
-        metrics."""
-        self.state.set_capturable(self.graphable())
-        for _ in range(self.steps_per_dispatch):
-            inputs = self._inputs()
-            if not self.graphed():
-                metrics = self._region_step(inputs)
-                continue
-            if self.region is None:
-                self.region = CapturedRegion(self._region_step, inputs, device=self.device,
-                                             generators=[self.generator])
-                log.info("the training step (%s) runs as a CUDA graph, %d replays per loop "
-                         "turn, after %d eager steps", "device corpus" if self.device_corpus
-                         is not None else "host loader", self.steps_per_dispatch, WARMUP)
-            self.region.load(inputs)
-            if self._warm_steps < WARMUP:
-                metrics = self.region.eager()
-                self._warm_steps += 1
-                continue
-            if self.region.graph is None:
-                self.region.capture()
-            metrics = self.region.replay()
-            self.state.finish_update()
-        # a replay's outputs are its static buffers: the next one overwrites them
-        return {k: v.clone() for k, v in metrics.items()}
+        metrics.  Its spans (``ssp_torch.trace``, host side only) are the
+        turn, the loader's wait, the prologue, the static inputs' load and
+        each replay or eager step."""
+        with span("ssp.train.dispatch"):
+            self.state.set_capturable(self.graphable())
+            for _ in range(self.steps_per_dispatch):
+                inputs = self._inputs()
+                if not self.graphed():
+                    with span("ssp.train.step"):
+                        metrics = self._region_step(inputs)
+                    continue
+                if self.region is None:
+                    self.region = CapturedRegion(self._region_step, inputs, device=self.device,
+                                                 generators=[self.generator])
+                    log.info("the training step (%s) runs as a CUDA graph, %d replays per loop "
+                             "turn, after %d eager steps", "device corpus" if self.device_corpus
+                             is not None else "host loader", self.steps_per_dispatch, WARMUP)
+                with span("ssp.train.load"):
+                    self.region.load(inputs)
+                if self._warm_steps < WARMUP:
+                    with span("ssp.train.step"):
+                        metrics = self.region.eager()
+                    self._warm_steps += 1
+                    continue
+                if self.region.graph is None:
+                    self.region.capture()
+                with span("ssp.train.replay"):
+                    metrics = self.region.replay()
+                self.state.finish_update()
+            # a replay's outputs are its static buffers: the next one overwrites them
+            return {k: v.clone() for k, v in metrics.items()}
 
     # -- steps ----------------------------------------------------------
     def step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
