@@ -28,7 +28,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ssp_torch._device import resolve_device
+from ssp_torch._device import StagingRing, chunk_plan, resolve_device
 from ssp_torch.core.grid import flatten_detection
 from ssp_torch.kernels.nms import nms_plain
 from ssp_torch.postprocess.nms import batched_nms
@@ -61,9 +61,34 @@ def make_detect_describe_fn(
     the descriptors at the refined points.  ``reference=True`` runs the NMS
     kernel's plain version instead (the card-side check of the kernels;
     give it an ``apply_fn`` built the same way).
+
+    On a card, host frames reach it through page-locked memory that the
+    function owns and frees with itself (``ssp_torch._device.StagingRing``):
+    the call returns once it has copied them there, and the caller may then
+    change them; the copy to the card and the work after it are queued
+    without a sync.
     """
     dev = resolve_device(device)
     suppress = nms_plain if reference else batched_nms
+    ring = StagingRing(dev) if dev.type == "cuda" else None
+
+    def upload(image, s) -> torch.Tensor:
+        """The frames on ``dev`` as float32.  Host frames bound for a card go
+        through the ring (``to_device``'s ``pin_memory()`` of a fresh buffer
+        cost ~7 ms of host time a call on the H100's host); frames on the
+        card and frames the caller pinned are copied straight."""
+        if ring is None or (isinstance(image, torch.Tensor)
+                            and (image.device.type != "cpu" or image.is_pinned())):
+            x = torch.as_tensor(image, dtype=torch.float32)
+            if s is not None and x.device.type == "cpu" and not x.is_pinned():
+                s.counts["pageable_bytes"] = x.nbytes
+            return x.to(dev, non_blocking=True)
+        src = torch.as_tensor(image)  # a view of a numpy array, of its own type
+        frames = src if src.dim() > 2 else src[None]
+        x, waits = ring.upload(frames, chunk_plan(frames.shape[0], frames.shape[1:].numel() * 4))
+        if s is not None:
+            s.counts.update(pageable_bytes=0, staged_bytes=x.nbytes, slot_waits=waits)
+        return x.view(src.shape)
 
     @torch.inference_mode()
     def detect_describe(image):
@@ -72,15 +97,7 @@ def make_detect_describe_fn(
         # the host ~13 us, much of it while the card waits
         with span("ssp.detect"):
             with span("ssp.detect.upload", dev) as s:
-                # a plain copy, not ``to_device``'s pinned one: the export waits
-                # for each call's results before the next, so nothing is queued
-                # that the copy could wait for, and pinning a fresh buffer per
-                # image cost ~7 ms of host time per call inside the export on
-                # the H100's host
-                x = torch.as_tensor(image, dtype=torch.float32)
-                if s is not None and x.device.type == "cpu" and not x.is_pinned():
-                    s.counts["pageable_bytes"] = x.nbytes
-                x = x.to(dev)
+                x = upload(image, s)
             squeeze = x.dim() == 2
             if squeeze:
                 x = x[None]

@@ -20,7 +20,9 @@ SubpixelNet's), on the device corpus and on the host loader, equal to three
 eager ones under ``torch.use_deterministic_algorithms`` (which needs
 cuBLAS's workspace setting below before cuBLAS starts), and the flagship's
 without it.  The
-ordered scatter-add exact.
+ordered scatter-add exact.  The detect path's staged upload
+(``ssp_torch._device.StagingRing``) exact: the forward gets the bytes a plain
+``.to`` gives, and the results are equal bit for bit.
 """
 
 import os
@@ -522,6 +524,117 @@ def test_descriptor_export_on_the_card_matches_plain_versions(cuda, tmp_path):
                 np.load(tmp_path / "plain" / f"{i}.npz") as b:
             assert set(a.files) == set(b.files)
             assert abs(len(a["prob"]) - len(b["prob"])) <= 0.1 * len(b["prob"])
+
+
+def _staged_detect(device, hw):
+    """``make_detect_describe_fn`` over the trained weights at ``hw``, and the
+    list of the frames its forward was given."""
+    from pathlib import Path
+
+    from ssp_torch.export import make_detect_describe_fn
+    from ssp_torch.models.fast_infer import best_apply_fn
+    from ssp_torch.models.weights import load_flax_npz
+
+    npz = Path(__file__).resolve().parents[1] / "evidence" / "wsem_weights.npz"
+    apply = best_apply_fn(load_flax_npz(npz, "SuperPointNet_gauss2_ssmall", device=device),
+                          input_hw=hw, device=device)
+    seen = []
+
+    def recorded(x):
+        seen.append(x.clone())
+        return apply(x)
+
+    return make_detect_describe_fn(recorded, device=device), seen
+
+
+def _assert_same(got, want):
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,kind", [((16, 480, 640), "tensor"), ((240, 320), "tensor"),
+                                        ((384, 1248), "tensor"), ((240, 320), "uint8")])
+def test_staged_upload_matches_a_plain_copy(cuda, shape, kind):
+    """The detect path's staged upload (``ssp_torch._device.StagingRing``) gives
+    the forward the bytes that ``torch.as_tensor(image, dtype=float32).to(dev)``
+    gives, and so the same ``pts``, ``valid`` and ``desc`` bit for bit: a
+    pageable batch of 16×480×640, one 240×320 frame, one 384×1248 frame and a
+    ``uint8`` numpy frame."""
+    from ssp_torch.bench import structured_images
+
+    n = shape[0] if len(shape) == 3 else 1
+    frames = structured_images(n, *shape[-2:], 7)[..., 0].reshape(shape)
+    image = (frames * 255).astype(np.uint8) if kind == "uint8" else torch.from_numpy(frames)
+    fn, seen = _staged_detect(cuda, shape[-2:])
+    plain = torch.as_tensor(image, dtype=torch.float32).to(cuda)
+    want = fn(plain)
+    got = fn(image)
+    torch.cuda.synchronize()
+    assert torch.equal(seen[1], seen[0])
+    _assert_same(got, want)
+
+
+@pytest.mark.cuda
+def test_staged_uploads_queued_without_a_sync_keep_their_frames(cuda):
+    """Calls queued with no sync, each caller's frames overwritten as soon as
+    its call returns (a reused tensor and a reused numpy array), each give
+    the results of their own frames; so do two threads calling at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ssp_torch.bench import structured_images
+
+    frames = torch.from_numpy(structured_images(6 * 16, 480, 640, 11)[..., 0]).view(6, 16, 480, 640)
+    fn, _ = _staged_detect(cuda, (480, 640))
+    want = [fn(f.to(cuda)) for f in frames]
+    torch.cuda.synchronize()
+    buf, arr = torch.empty_like(frames[0]), np.empty((16, 480, 640), np.float32)
+    got = []
+    for i, f in enumerate(frames):
+        if i % 2:
+            arr[...] = f.numpy()
+            got.append(fn(arr))
+        else:
+            buf.copy_(f)
+            got.append(fn(buf))
+    buf.zero_()
+    arr[...] = 0
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        _assert_same(g, w)
+
+    small = [f[0, :240, :320].clone() for f in frames]
+    fn, _ = _staged_detect(cuda, (240, 320))
+    want = [fn(f.to(cuda)) for f in small]
+    with ThreadPoolExecutor(2) as pool:
+        got = list(pool.map(lambda i: [o.cpu() for o in fn(small[i % 6])], range(24)))
+    for i, g in enumerate(got):
+        _assert_same(g, [o.cpu() for o in want[i % 6]])
+
+
+@pytest.mark.cuda
+def test_staged_upload_counts_its_bytes(cuda):
+    """Under a profiler the upload span counts every byte of a pageable
+    batch as staged and none as pageable; a pinned batch is copied straight
+    and counts neither."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ssp_torch import trace
+
+    fn, _ = _staged_detect(cuda, (480, 640))
+    frames = torch.rand(16, 480, 640)
+    pinned = frames.pin_memory()
+    fn(frames)
+    trace.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        fn(frames)
+        fn(pinned)
+        torch.cuda.synchronize()
+    staged, straight = [s for s in trace.spans() if s.name == "ssp.detect.upload"]
+    trace.clear()
+    assert staged.counts["staged_bytes"] == frames.nbytes
+    assert staged.counts["pageable_bytes"] == 0 and staged.counts["slot_waits"] >= 0
+    assert straight.counts == {}
 
 
 @pytest.mark.cuda

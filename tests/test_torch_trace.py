@@ -100,6 +100,24 @@ def test_detect_spans_under_a_cpu_profiler(detect, ranges, tmp_path):
     assert trace.spans() == []
 
 
+def test_cpu_upload_counts_are_unchanged(detect):
+    """On a CPU device no frame is staged: a ``uint8`` numpy frame and a
+    float32 tensor count their float32 bytes as pageable, nothing else, and
+    the ``uint8`` frame gives what its float32 values give."""
+    fn, images = detect
+    u8 = (images[0] * 255).astype(np.uint8)
+    want = fn(u8.astype(np.float32))
+    trace.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = fn(u8)
+        fn(torch.from_numpy(images))
+    counts = [s.counts for s in trace.spans() if s.name == "ssp.detect.upload"]
+    trace.clear()
+    assert counts == [{"pageable_bytes": u8.size * 4}, {"pageable_bytes": images.nbytes}]
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 def test_the_ring_keeps_the_newest(monkeypatch):
     monkeypatch.setattr(trace, "RING", 16)
     trace.clear()
